@@ -1,0 +1,270 @@
+"""Pluggable client-selection strategies: protocol + string registry.
+
+Port of ``repro.core.strategies`` for the F3AST main path.  A strategy is a
+pair of pure functions on tensors:
+
+    init(n_clients, r0=None) -> state
+    select(state, key, avail, k_t, ctx) -> (mask, weights, new_state)
+
+``mask``/``weights`` are full (N,) tensors (weights zero off-cohort).
+Strategies built with :func:`topk_strategy` are "score the available
+clients, keep the top K_t, weight the winners".
+
+Where the cut runs (``select_impl``):
+
+* on CUDA, both ``"xla"`` and ``"pallas"`` run the ``fed_select`` CUDA
+  kernel (fused cut + EMA + weights; the cut alone when a completion hook
+  splits it from ``finalize``) — the two spellings are bit-identical by
+  contract, so the card has one path;
+* on the CPU, ``"xla"`` runs the unfused chain (stable-argsort cut →
+  ``update_rates`` → weight rule) and ``"pallas"`` the fused plain version
+  of the kernel.
+
+Only ``f3ast`` is ported so far; the JAX package's other strategies raise
+``NotImplementedError`` at resolve time (ROADMAP.md queue 1 item 3).
+"""
+from __future__ import annotations
+
+import inspect
+from typing import Any, Callable, Dict, NamedTuple, Optional
+
+import torch
+
+from . import selection as sel
+from .aggregation import unbiased_weights
+from .hfun import R_MIN, marginal_utility
+from .rates import RateState, init_rates, update_rates
+from .. import random as jr
+from ..device import resolve_device
+from ..registry import lookup
+
+__all__ = [
+    "SELECT_IMPLS", "STRATEGY_REGISTRY", "RateTrackState", "SelectCtx",
+    "SelectionStrategy", "apply_completion", "get_strategy_entry",
+    "list_strategies", "make_strategy", "register_strategy",
+    "resolve_strategy", "strategy_rates", "topk_strategy",
+]
+
+SELECT_IMPLS = ("xla", "pallas")
+
+# The JAX package's strategies (and alias) that this port does not have yet.
+DEFERRED_STRATEGIES = ("fixed_f3ast", "fedavg", "fedavg_weighted", "uniform",
+                       "poc", "fedadam")
+
+
+def _check_select_impl(select_impl: str) -> str:
+    if select_impl not in SELECT_IMPLS:
+        raise ValueError(f"unknown select_impl {select_impl!r}; "
+                         f"known: {SELECT_IMPLS}")
+    return select_impl
+
+
+def _topk_fn(select_impl: str, cuda: bool) -> Callable:
+    """The (scores, avail, k) -> mask cut — bit-identical either way."""
+    if cuda or select_impl == "pallas":
+        from ..kernels.fed_select import fed_select_mask
+        return fed_select_mask
+    return sel._topk_mask
+
+
+class SelectCtx(NamedTuple):
+    """Per-round side inputs a strategy may consume (all optional).
+    ``complete`` is the engine's completion hook, ``(N,) selection mask ->
+    (N,) completed mask``; None means selected == completed."""
+    t: Optional[Any] = None
+    complete: Optional[Callable] = None
+
+
+def apply_completion(ctx: Optional[SelectCtx],
+                     mask: torch.Tensor) -> torch.Tensor:
+    """Completed mask from the engine's completion hook (identity without)."""
+    if ctx is None or ctx.complete is None:
+        return mask
+    return ctx.complete(mask)
+
+
+class RateTrackState(NamedTuple):
+    """State of the built-in strategies: the Alg. 1 line-5 rate EMA."""
+    rates: RateState
+
+
+class SelectionStrategy(NamedTuple):
+    """A selection policy as pure functions."""
+    name: str
+    init: Callable[..., Any]
+    select: Callable[..., Any]
+    score: Optional[Callable[..., Any]] = None
+    finalize: Optional[Callable[..., Any]] = None
+    n_clients: Optional[int] = None
+
+
+def strategy_rates(strategy: SelectionStrategy, state):
+    """Tracked (N,) participation rates of ``state``, or None."""
+    return getattr(getattr(state, "rates", None), "r", None)
+
+
+def topk_strategy(name: str, init: Callable, score: Callable,
+                  finalize: Callable, *, device: torch.device,
+                  n_clients: Optional[int] = None,
+                  select_impl: str = "xla",
+                  fused: Optional[Callable] = None) -> SelectionStrategy:
+    """Build a strategy from the canonical score → top-k → weight shape.
+
+    ``fused(state, scores, avail, k_t) -> (mask, weights, new_state)`` is
+    the one-call spelling of cut + ``finalize``: used on CUDA, and on the
+    CPU under ``select_impl="pallas"``, whenever no completion hook splits
+    the cut from ``finalize``.
+    """
+    _check_select_impl(select_impl)
+    cuda = torch.device(device).type == "cuda"
+    topk = _topk_fn(select_impl, cuda)
+    use_fused = fused is not None and (cuda or select_impl == "pallas")
+
+    def select(state, key, avail, k_t, ctx: Optional[SelectCtx] = None):
+        scores = score(state, key, avail, k_t, ctx)
+        if use_fused and (ctx is None or ctx.complete is None):
+            return fused(state, scores, avail, k_t)
+        mask = topk(scores, avail, k_t)
+        completed = apply_completion(ctx, mask)
+        weights, new_state = finalize(state, completed, ctx)
+        return mask, weights, new_state
+
+    return SelectionStrategy(name=name, init=init, select=select,
+                             score=score, finalize=finalize,
+                             n_clients=n_clients)
+
+
+def _fused_rate_select(p: torch.Tensor, beta: float,
+                       weight_mode: str) -> Callable:
+    """One ``kernels.fed_select`` call yields the mask, the Alg. 1 line-5
+    rate EMA and the line-9 weights — bit-identical to the unfused chain."""
+    from ..kernels.fed_select import fed_select
+
+    def fused(state, scores, avail, k_t):
+        mask, new_r, w = fed_select(scores, avail, k_t, state.rates.r, p,
+                                    beta, weight_mode=weight_mode)
+        new_state = RateTrackState(
+            rates=RateState(r=new_r, t=state.rates.t + 1))
+        return mask, w, new_state
+
+    return fused
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+class StrategyEntry(NamedTuple):
+    factory: Callable[..., SelectionStrategy]
+
+
+STRATEGY_REGISTRY: Dict[str, StrategyEntry] = {}
+
+
+def register_strategy(name: str, factory: Optional[Callable] = None, *,
+                      overwrite: bool = False):
+    """Register ``factory(n_clients, p, **hyper) -> SelectionStrategy``;
+    usable as a decorator."""
+
+    def deco(f):
+        key = name.lower()
+        if not overwrite and key in STRATEGY_REGISTRY:
+            raise KeyError(f"strategy {key!r} already registered")
+        STRATEGY_REGISTRY[key] = StrategyEntry(factory=f)
+        return f
+
+    return deco(factory) if factory is not None else deco
+
+
+def list_strategies() -> list:
+    return sorted(STRATEGY_REGISTRY)
+
+
+def get_strategy_entry(name: str) -> StrategyEntry:
+    """Registry lookup that fails fast with the registered names."""
+    return STRATEGY_REGISTRY[lookup("selection strategy", name,
+                                    STRATEGY_REGISTRY, DEFERRED_STRATEGIES,
+                                    3)]
+
+
+def resolve_strategy(name: str, server_opt: str = "sgd",
+                     server_lr: Optional[float] = None):
+    """Resolve ``(strategy_name, server_opt, server_lr)`` in ONE place;
+    ``server_lr=None`` fills with the optimizer's default (1e-2 for
+    adam/yogi, else 1.0), as the JAX package does."""
+    key = str(name).lower()
+    get_strategy_entry(key)
+    if server_lr is None:
+        server_lr = 1e-2 if server_opt in ("adam", "yogi") else 1.0
+    return key, server_opt, server_lr
+
+
+_ENGINE_DEFAULT_KEYS = frozenset(
+    {"beta", "positively_correlated", "clients_per_round", "select_impl"})
+
+
+def make_strategy(name: str, n_clients: int, p, *, device=None,
+                  **hyper) -> SelectionStrategy:
+    """Instantiate a registered strategy for (n_clients, p) on ``device``
+    (default CUDA).  Unknown hyperparameters other than the
+    engine defaults raise ``TypeError``."""
+    entry = get_strategy_entry(name)
+    params = inspect.signature(entry.factory).parameters
+    unknown = set(hyper) - set(params) - _ENGINE_DEFAULT_KEYS
+    if unknown:
+        accepted = sorted(set(params) - {"n_clients", "p", "device"})
+        raise TypeError(f"strategy {name!r} factory does not accept "
+                        f"{sorted(unknown)}; its hyperparameters are "
+                        f"{accepted}")
+    hyper = {k: v for k, v in hyper.items() if k in params}
+    p = torch.as_tensor(p, dtype=torch.float32,
+                        device=resolve_device(device))
+    return entry.factory(n_clients=n_clients, p=p, device=p.device, **hyper)
+
+
+# ---------------------------------------------------------------------------
+# Built-in strategies
+# ---------------------------------------------------------------------------
+
+def _calibrated_r0(n_clients: int, r0, clients_per_round) -> float:
+    """Default rate-EMA init r(0): explicit ``r0``, else K/N, else 0.1."""
+    if r0 is not None:
+        return r0
+    if clients_per_round:
+        return min(1.0, clients_per_round / n_clients)
+    return 0.1
+
+
+def _rate_init(n_default: int, clients_per_round, device) -> Callable:
+    def init(n_clients: int = n_default, r0=None):
+        return RateTrackState(rates=init_rates(
+            n_clients, _calibrated_r0(n_clients, r0, clients_per_round),
+            device=device))
+    return init
+
+
+@register_strategy("f3ast")
+def _make_f3ast(n_clients, p, device, beta: float = 1e-3,
+                positively_correlated: bool = False,
+                clients_per_round: Optional[int] = None,
+                select_impl: str = "xla") -> SelectionStrategy:
+    """Algorithm 1: greedy −∇H(r) selection, unbiased p_k/r_k weights."""
+
+    def score(state, key, avail, k_t, ctx=None):
+        util = marginal_utility(state.rates.r, p, positively_correlated)
+        # Infinitesimal random tie-break so identical utilities (e.g. at
+        # initialization with uniform r) do not favor low-index clients.
+        return util * (1.0 + 1e-6 * jr.uniform(key, tuple(util.shape)))
+
+    def finalize(state, mask, ctx=None):
+        # select with r(t−1) (line 4), update the EMA (line 5), aggregate
+        # with the *updated* r(t) (line 9)
+        new_rates = update_rates(state.rates, mask, beta)
+        w = unbiased_weights(p, torch.clamp_min(new_rates.r, R_MIN), mask)
+        return w, RateTrackState(rates=new_rates)
+
+    return topk_strategy("f3ast",
+                         _rate_init(n_clients, clients_per_round, device),
+                         score, finalize, device=device, n_clients=n_clients,
+                         select_impl=select_impl,
+                         fused=_fused_rate_select(p, beta, "unbiased"))

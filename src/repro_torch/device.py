@@ -1,0 +1,18 @@
+"""Where the port runs: CUDA unless the caller asks for the CPU."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means ``"cuda"``.  A CUDA device without a card raises
+    ``RuntimeError``: the port never moves to the CPU on its own; pass
+    ``device="cpu"`` for the CPU path."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on CUDA by default and no CUDA device is "
+            "available; pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"repro_torch runs on cuda or cpu, got {dev}")
+    return dev

@@ -1,0 +1,325 @@
+"""Device-resident round engine (port of ``repro.sim.engine``'s
+``DeviceEngine``).
+
+Every round runs on the device — availability step, K_t budget, the
+strategy's ``select`` (the ``fed_select`` kernel on CUDA), cohort gather
+from data staged once, the federated round (the ``fed_aggregate`` kernel on
+CUDA) — with no host sync inside a round.  Per-round outputs stay on the
+device and are stacked per *chunk* of rounds, so the host syncs once per
+chunk.  Where the JAX engine is one ``lax.scan`` over a chunk, this one is
+a Python loop of eager rounds.
+
+Parity with the JAX device engine is exact by construction: the round key
+is split the same way (``split(key, 5)`` → avail / select / budget /
+batch, the completion key ``fold_in(k_sel, KEY_FOLD)``), and every draw
+comes from the port's bit-identical threefry, so the same seed and the same
+RunSpec give bitwise the same availability masks, K_t, selection and
+completion masks and r_k trajectory.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from .. import random as jr
+from ..core.fedstep import make_fed_round
+from ..core.keys import COMPLETION as KEY_FOLD
+from ..core.selection import cohort_ids_from_mask
+from ..core.strategies import SelectCtx, make_strategy, strategy_rates
+from ..data import CohortSampler
+from ..data.pipeline import staged_cohort_batch
+from ..optim import make_optimizer
+from .scenario import Scenario, get_scenario
+
+__all__ = ["DeviceEngine", "RoundStream", "build_engine",
+           "run_scenario_device"]
+
+
+class EngineCarry(NamedTuple):
+    """Everything that persists across rounds."""
+    key: torch.Tensor
+    params: dict
+    opt_state: object
+    algo_state: object
+    avail_state: object
+
+
+class RoundStream(NamedTuple):
+    """Per-round outputs of a chunk, stacked along the round axis.
+
+    The masks stream as (C, N) bool; bit-packing them (``core.bitmask`` in
+    the JAX package) waits for the million-client slice.
+    """
+    sel_mask: torch.Tensor     # (C, N) bool — cohort S_t
+    completed: torch.Tensor    # (C, N) bool — survivors ⊆ S_t
+    k_t: torch.Tensor          # (C,) int32
+    n_available: torch.Tensor  # (C,) int32
+    train_loss: torch.Tensor   # (C,) f32
+    delta_norm: torch.Tensor   # (C,) f32
+
+
+class DeviceEngine:
+    """One (scenario × strategy × task) cell on one device.
+
+    ``chunk(carry, ts)`` advances ``len(ts)`` rounds and returns the
+    stacked :class:`RoundStream` (still on the device);
+    ``init_carry(key)`` builds the round-0 state for a cell seed.
+    """
+
+    def __init__(self, *, avail_model, budget, strategy, staged, fed_round,
+                 init_params, opt, client_lr, local_steps, local_batch,
+                 device, completion=None):
+        self.avail_model = avail_model
+        self.budget = budget
+        self.strategy = strategy
+        self.completion = completion
+        self.device = device
+        self.k_max = budget.k_max
+        self.n_clients = int(staged.counts.shape[0])
+        self.n_staged_bytes = int(
+            sum(a.numel() * a.element_size() for a in staged.arrays.values())
+            + staged.counts.numel() * staged.counts.element_size())
+        self.selection_comm_bytes_per_round = 0   # single device: no comm
+        self._staged = staged
+        self._fed_round = fed_round
+        self._init_params = init_params
+        self._opt = opt
+        self._client_lr = float(client_lr)
+        self._local_steps = local_steps
+        self._local_batch = local_batch
+        self._trivial = completion is None or completion.trivial
+
+    def init_carry(self, key: torch.Tensor) -> EngineCarry:
+        params = self._init_params(key)
+        return EngineCarry(key=key, params=params,
+                           opt_state=self._opt.init(params),
+                           algo_state=self.strategy.init(self.n_clients),
+                           avail_state=self.avail_model.init())
+
+    def round_step(self, carry: EngineCarry, t: int):
+        """One round; returns (carry', per-round outputs), all on the
+        device, with no host sync.  Its stages are profiler spans
+        (``round/availability``, ``round/select``, ``round/cohort_batch``,
+        ``round/fed_round``), read by ``chip_smoke.py --profile``."""
+        # Same split order as the JAX engine's round_step — parity.  The
+        # completion key is derived (fold_in), never split from the main
+        # stream, so completion="always" leaves every other draw as it is.
+        key, k_av, k_sel, k_bud, k_batch = jr.split(carry.key, 5)
+        with record_function("round/availability"):
+            avail_state, avail = self.avail_model.step(k_av,
+                                                       carry.avail_state, t)
+            k_t = self.budget.sample(k_bud, t)
+        if self._trivial:
+            complete_fn = None
+        else:
+            k_comp = jr.fold_in(k_sel, KEY_FOLD)
+
+            def complete_fn(m):
+                return self.completion.sample(k_comp, t, m)
+        with record_function("round/select"):
+            sel_mask, w_full, algo_state = self.strategy.select(
+                carry.algo_state, k_sel, avail, k_t,
+                SelectCtx(t=t, complete=complete_fn))
+        completed = sel_mask if self._trivial else complete_fn(sel_mask)
+        with record_function("round/cohort_batch"):
+            ids, valid = cohort_ids_from_mask(sel_mask, self.k_max)
+            batch = staged_cohort_batch(self._staged, k_batch, ids,
+                                        self._local_steps, self._local_batch)
+            w = w_full[ids] * valid
+            if not self._trivial:
+                w = w * completed[ids]
+        with record_function("round/fed_round"):
+            params, opt_state, m = self._fed_round(
+                carry.params, carry.opt_state, batch, w, self._client_lr)
+        out = (sel_mask, completed, k_t, avail.sum().to(torch.int32),
+               m.loss, m.delta_norm)
+        return EngineCarry(key, params, opt_state, algo_state,
+                           avail_state), out
+
+    def chunk(self, carry: EngineCarry, ts):
+        """Advance one chunk of rounds; returns (carry', RoundStream)."""
+        outs = []
+        for t in ts:
+            carry, out = self.round_step(carry, int(t))
+            outs.append(out)
+        return carry, RoundStream(*(torch.stack(col) for col in zip(*outs)))
+
+
+def build_engine(scenario, algo_name: str = "f3ast", *, device,
+                 seed: int = 0, clients_per_round: Optional[int] = None,
+                 beta: Optional[float] = None, server_opt: str = "sgd",
+                 server_lr: float = 1.0, prox_mu: float = 0.0,
+                 positively_correlated: bool = False,
+                 fed_mode: str = "parallel", strategy_kwargs=None,
+                 completion: Optional[str] = None, completion_kwargs=None,
+                 select_impl: str = "xla"):
+    """Build the cell for one (scenario × strategy) on ``device``.
+
+    Returns ``(engine, ctx)`` where ``ctx`` carries what the run loop needs
+    on the host side (eval fns, test batch, rounds default, N).  ``seed``
+    selects the data realization; the cell's model seed is what
+    ``init_carry`` takes.
+    """
+    from .runner import build_task   # local import: runner ↔ engine
+
+    sc = get_scenario(scenario)
+    task, fed, init, loss, acc = build_task(sc.task, seed, device=device,
+                                            **dict(sc.task_kwargs))
+    n = fed.n_clients
+    p = torch.from_numpy(fed.p).to(device)
+    m = clients_per_round or task.clients_per_round
+    beta = beta if beta is not None else task.beta
+
+    avail_model = sc.build_availability(n, p=p, device=device)
+    budget = sc.build_budget(default_k=m, device=device)
+    comp_model = sc.build_completion(n, avail_model=avail_model,
+                                     override=completion,
+                                     override_kwargs=completion_kwargs)
+    hyper = dict(beta=beta, positively_correlated=positively_correlated,
+                 clients_per_round=m, select_impl=select_impl)
+    hyper.update(strategy_kwargs or {})
+    strategy = make_strategy(algo_name, n, p, device=device, **hyper)
+    opt = make_optimizer(server_opt, lr=server_lr)
+    fed_round = make_fed_round(loss, opt, mode=fed_mode, prox_mu=prox_mu)
+    engine = DeviceEngine(avail_model=avail_model, budget=budget,
+                          strategy=strategy,
+                          staged=CohortSampler(fed).stage_device(device),
+                          fed_round=fed_round, init_params=init, opt=opt,
+                          client_lr=task.client_lr,
+                          local_steps=task.local_steps,
+                          local_batch=task.local_batch, device=device,
+                          completion=comp_model)
+    test_batch = {k: torch.from_numpy(v).to(device)
+                  for k, v in fed.test_batch().items()}
+    ctx = dict(scenario=sc, task=task, n_clients=n,
+               rounds_default=sc.rounds or task.rounds,
+               eval_loss=loss, eval_acc=acc, test_batch=test_batch)
+    return engine, ctx
+
+
+def _chunk_spans(rounds: int, chunk_size: int):
+    """Split [0, rounds) into contiguous spans of at most chunk_size."""
+    return [(t0, min(t0 + chunk_size, rounds))
+            for t0 in range(0, rounds, chunk_size)]
+
+
+def run_scenario_device(scenario, algo_name: str = "f3ast", *, device,
+                        rounds: Optional[int] = None,
+                        server_opt: str = "sgd", server_lr: float = 1.0,
+                        clients_per_round: Optional[int] = None,
+                        beta: Optional[float] = None, seed: int = 0,
+                        eval_every: int = 10,
+                        chunk_size: Optional[int] = None,
+                        prox_mu: float = 0.0,
+                        positively_correlated: bool = False,
+                        metrics_path: Optional[str] = None,
+                        fed_mode: str = "parallel", strategy_kwargs=None,
+                        completion: Optional[str] = None,
+                        completion_kwargs=None, select_impl: str = "xla",
+                        algo_label: Optional[str] = None, log_fn=print):
+    """Run one cell on ``device``; same semantics, cadence and outputs as
+    the JAX ``run_scenario_device`` (evaluation at the end of any chunk
+    holding an ``eval_every`` round and after the final round; the
+    ``chunk_size`` default is ``eval_every``)."""
+    engine, ctx = build_engine(
+        scenario, algo_name, device=device, seed=seed,
+        clients_per_round=clients_per_round, beta=beta,
+        server_opt=server_opt, server_lr=server_lr, prox_mu=prox_mu,
+        positively_correlated=positively_correlated, fed_mode=fed_mode,
+        strategy_kwargs=strategy_kwargs, completion=completion,
+        completion_kwargs=completion_kwargs, select_impl=select_impl)
+    n_real = engine.n_clients
+    sc: Scenario = ctx["scenario"]
+    rounds = rounds or ctx["rounds_default"]
+    chunk_size = max(1, min(chunk_size or eval_every, eval_every, rounds))
+    algo_label = algo_label or algo_name
+
+    carry = engine.init_carry(jr.PRNGKey(seed, device=device))
+    metrics_file = None
+    if metrics_path:
+        os.makedirs(os.path.dirname(os.path.abspath(metrics_path)),
+                    exist_ok=True)
+        metrics_file = open(metrics_path, "w")
+
+    history, streams = [], []
+    t_start = time.time()
+    t_first_chunk = None
+    try:
+        for (t0, t1) in _chunk_spans(rounds, chunk_size):
+            carry, out = engine.chunk(carry, range(t0, t1))
+            # the one host sync of the chunk
+            out_np = RoundStream(*(x.cpu().numpy() for x in out))
+            if t_first_chunk is None:
+                t_first_chunk = time.time()
+            streams.append(out_np)
+            do_eval = (t1 == rounds
+                       or any(t % eval_every == 0 for t in range(t0, t1)))
+            if do_eval:
+                with torch.no_grad():
+                    test_loss = float(ctx["eval_loss"](carry.params,
+                                                       ctx["test_batch"]))
+                    test_acc = float(ctx["eval_acc"](carry.params,
+                                                     ctx["test_batch"]))
+                history.append(dict(
+                    round=t1 - 1, train_loss=float(out_np.train_loss[-1]),
+                    test_loss=test_loss, test_acc=test_acc,
+                    n_selected=int(out_np.sel_mask[-1].sum()),
+                    n_available=int(out_np.n_available[-1]),
+                    n_completed=int(out_np.completed[-1].sum())))
+                log_fn(f"[{sc.name}/{algo_label}] round {t1 - 1:4d} "
+                       f"loss={test_loss:.4f} acc={test_acc:.4f} "
+                       f"k_t={int(out_np.k_t[-1])} "
+                       f"sel={history[-1]['n_selected']} "
+                       f"done={history[-1]['n_completed']} "
+                       f"avail={history[-1]['n_available']}")
+            if metrics_file:
+                for i, t in enumerate(range(t0, t1)):
+                    record = dict(scenario=sc.name, algorithm=algo_label,
+                                  round=t, k_t=int(out_np.k_t[i]),
+                                  n_available=int(out_np.n_available[i]),
+                                  n_selected=int(out_np.sel_mask[i].sum()),
+                                  n_completed=int(out_np.completed[i].sum()),
+                                  train_loss=float(out_np.train_loss[i]),
+                                  delta_norm=float(out_np.delta_norm[i]))
+                    if do_eval and t == t1 - 1:
+                        record["test_loss"] = test_loss
+                        record["test_acc"] = test_acc
+                    metrics_file.write(json.dumps(record) + "\n")
+                metrics_file.flush()
+    finally:
+        if metrics_file:
+            metrics_file.close()
+
+    from .runner import TrainResult   # local import: runner ↔ engine
+    sel_history = np.concatenate([s.sel_mask for s in streams], axis=0)
+    comp_history = np.concatenate([s.completed for s in streams], axis=0)
+    t_end = time.time()
+    final = dict(history[-1])
+    final["engine"] = "device"
+    final["device"] = str(device)
+    final["wall_s"] = t_end - t_start
+    final["n_staged_bytes"] = engine.n_staged_bytes
+    final["selection_comm_bytes_per_round"] = (
+        engine.selection_comm_bytes_per_round)
+    steady_rounds = rounds - min(chunk_size, rounds)
+    if steady_rounds > 0 and t_end > t_first_chunk:
+        final["steady_rounds_per_s"] = steady_rounds / (t_end - t_first_chunk)
+    r = strategy_rates(engine.strategy, carry.algo_state)
+    rates = (np.full(n_real, np.nan, np.float32) if r is None
+             else r.cpu().numpy())
+    return TrainResult(history=history, final_metrics=final, rates=rates,
+                       empirical_rates=sel_history.mean(0),
+                       sel_history=sel_history, comp_history=comp_history,
+                       k_t=np.concatenate([s.k_t for s in streams]),
+                       n_available=np.concatenate(
+                           [s.n_available for s in streams]),
+                       train_loss=np.concatenate(
+                           [s.train_loss for s in streams]),
+                       delta_norm=np.concatenate(
+                           [s.delta_norm for s in streams]))

@@ -1,0 +1,137 @@
+"""The slice end to end: one RunSpec JSON, written by the JAX package,
+drives both packages.  For the default F3AST cell (300 rounds) the port's
+CPU path gives bitwise the JAX device engine's selection and completion
+masks, K_t, |avail| and final r_k, and train loss and delta norm within
+1e-5; ``select_impl="pallas"`` gives the same trajectory; the per-round
+JSONL records carry the same keys.
+"""
+import json
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
+
+import repro.sim as jsim
+import repro_torch.sim as tsim
+
+ROUNDS = 300
+TOL = 1e-5
+
+
+def _quiet(*args, **kwargs):
+    pass
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    out = tmp_path_factory.mktemp("engine")
+    spec_json = jsim.RunSpec(rounds=ROUNDS).to_json()
+    res = {}
+    jspec = jsim.RunSpec.from_json(spec_json).replace(
+        metrics_path=str(out / "jax.jsonl"))
+    res["jax"] = (jsim.run_spec(jspec, log_fn=_quiet), _jsonl(out / "jax.jsonl"))
+    for impl in ("xla", "pallas"):
+        tspec = tsim.RunSpec.from_json(spec_json).replace(
+            select_impl=impl, metrics_path=str(out / f"torch_{impl}.jsonl"))
+        res[impl] = (tsim.run_spec(tspec, device="cpu", log_fn=_quiet),
+                     _jsonl(out / f"torch_{impl}.jsonl"))
+    return res
+
+
+def test_spec_json_round_trips_between_packages():
+    for spec in (jsim.RunSpec(), jsim.RunSpec(rounds=7, seed=3,
+                                              select_impl="pallas")):
+        s = spec.to_json()
+        assert tsim.RunSpec.from_json(s).to_json() == s
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_masks_and_rates_bitwise(runs, impl):
+    jr, jl = runs["jax"]
+    tr, tl = runs[impl]
+    assert tr.sel_history.shape == jr.sel_history.shape == (ROUNDS, 100)
+    assert tr.sel_history.tobytes() == jr.sel_history.tobytes()
+    assert tr.comp_history.tobytes() == jr.comp_history.tobytes()
+    assert tr.rates.dtype == jr.rates.dtype == np.float32
+    assert tr.rates.tobytes() == jr.rates.tobytes()
+    for key in ("k_t", "n_available", "n_selected", "n_completed"):
+        assert [r[key] for r in tl] == [r[key] for r in jl], key
+    assert tr.k_t.tolist() == [r["k_t"] for r in jl]
+    assert tr.n_available.tolist() == [r["n_available"] for r in jl]
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_losses_within_tolerance(runs, impl):
+    _, jl = runs["jax"]
+    tr, tl = runs[impl]
+    for key in ("train_loss", "delta_norm"):
+        np.testing.assert_allclose([r[key] for r in tl], [r[key] for r in jl],
+                                   rtol=0, atol=TOL, err_msg=key)
+    eval_rows = [(r, s) for r, s in zip(jl, tl) if "test_acc" in r]
+    assert eval_rows and all("test_acc" in s for _, s in eval_rows)
+    for r, s in eval_rows:
+        assert abs(r["test_loss"] - s["test_loss"]) <= TOL
+        assert abs(r["test_acc"] - s["test_acc"]) <= TOL
+    assert np.isfinite(tr.train_loss).all()
+
+
+def test_pallas_trajectory_equals_xla_on_cpu(runs):
+    a, b = runs["xla"][0], runs["pallas"][0]
+    assert a.sel_history.tobytes() == b.sel_history.tobytes()
+    assert a.rates.tobytes() == b.rates.tobytes()
+    assert a.train_loss.tobytes() == b.train_loss.tobytes()
+
+
+def test_jsonl_keys_match(runs):
+    _, jl = runs["jax"]
+    for impl in ("xla", "pallas"):
+        _, tl = runs[impl]
+        assert len(tl) == len(jl) == ROUNDS
+        assert [sorted(r) for r in tl] == [sorted(r) for r in jl]
+
+
+def test_history_and_final_metrics(runs):
+    jr, _ = runs["jax"]
+    tr, _ = runs["xla"]
+    assert [h["round"] for h in tr.history] == [h["round"] for h in jr.history]
+    for key in ("engine", "test_acc", "n_staged_bytes",
+                "selection_comm_bytes_per_round"):
+        assert key in tr.final_metrics
+    assert tr.final_metrics["engine"] == "device"
+    assert tr.final_metrics["n_staged_bytes"] == jr.final_metrics[
+        "n_staged_bytes"]
+    np.testing.assert_array_equal(tr.empirical_rates, jr.empirical_rates)
+
+
+@pytest.mark.parametrize("override", [
+    dict(engine="host"), dict(mesh_shape=(2,)), dict(aggregation="buffered"),
+    dict(strategy="fedavg"), dict(strategy="fixed_f3ast"),
+    dict(strategy="fedadam"), dict(scenario="markov"),
+    dict(scenario="stepk"), dict(fed_mode="sequential"),
+    dict(server_opt="adam"), dict(completion="bernoulli"),
+    dict(ckpt_dir="ckpt")])
+def test_resolve_rejects_unported(override):
+    """What the slice lacks fails at resolve time, before anything runs —
+    and the same spec is valid in the JAX package."""
+    jsim.RunSpec(**override).resolved()
+    spec = tsim.RunSpec.from_json(jsim.RunSpec(**override).to_json())
+    with pytest.raises(NotImplementedError):
+        spec.resolved()
+
+
+@pytest.mark.parametrize("override,exc", [
+    (dict(strategy="nope"), KeyError), (dict(scenario="nope"), KeyError),
+    (dict(rounds=0), ValueError), (dict(engine="tpu"), ValueError),
+    (dict(select_impl="cuda"), ValueError)])
+def test_resolve_rejects_invalid_as_jax_does(override, exc):
+    with pytest.raises(exc):
+        jsim.RunSpec(**override).resolved()
+    with pytest.raises(exc):
+        tsim.RunSpec(**override).resolved()

@@ -1,0 +1,112 @@
+"""Import and device hygiene of the port: ``repro_torch`` imports neither
+JAX nor the JAX package, its entry points default to CUDA and raise
+without a card, and nothing is built at import."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+SLICE_MODULES = [
+    "repro_torch", "repro_torch.random", "repro_torch.convert",
+    "repro_torch.device", "repro_torch.registry", "repro_torch.core.keys",
+    "repro_torch.core.hfun", "repro_torch.core.rates",
+    "repro_torch.core.aggregation",
+    "repro_torch.core.selection", "repro_torch.core.strategies",
+    "repro_torch.core.availability", "repro_torch.core.fedstep",
+    "repro_torch.kernels.ref", "repro_torch.kernels.fed_select",
+    "repro_torch.kernels.fed_aggregate", "repro_torch.kernels._build",
+    "repro_torch.sim", "repro_torch.sim.processes",
+    "repro_torch.sim.budgets", "repro_torch.sim.completion",
+    "repro_torch.sim.scenario", "repro_torch.sim.spec",
+    "repro_torch.sim.engine", "repro_torch.sim.runner",
+    "repro_torch.data", "repro_torch.models.softmax_reg",
+    "repro_torch.optim", "repro_torch.configs"]
+
+
+def test_import_pulls_in_no_jax_and_no_repro():
+    code = ("import importlib, sys\n"
+            f"for m in {SLICE_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+IMPORT_RE = re.compile(
+    r"^\s*(import\s+(jax|jaxlib|repro)\b(?!_)|from\s+(jax|jaxlib|repro)\b"
+    r"(?!_)|from\s+\.\.\.)", re.M)
+
+
+def test_source_scan_finds_no_jax_or_repro_import():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 20
+    hits = [(str(f.relative_to(ROOT)), m.group(0).strip())
+            for f in files for m in IMPORT_RE.finditer(f.read_text())]
+    assert hits == []
+
+
+def test_cuda_sources_exist_for_every_kernel():
+    from repro_torch.kernels import _build
+    for name, (src, _) in _build.SOURCES.items():
+        assert (_build.CSRC / src).exists(), name
+        assert "sm_90a" in " ".join(_build._flags(name))
+
+
+def test_run_spec_defaults_to_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is usable")
+    from repro_torch.device import resolve_device
+    from repro_torch.sim import RunSpec, run_spec
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_spec(RunSpec(rounds=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    assert resolve_device("cpu").type == "cpu"
+
+
+def _entry_points():
+    """Every public function of the port that places tensors, called
+    without ``device=``."""
+    import numpy as np
+    from repro_torch import random as jr
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.rates import init_rates
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.models import softmax_reg
+    from repro_torch.sim.budgets import make_budget
+    from repro_torch.sim.processes import make_process
+    from repro_torch.sim.runner import build_task
+    return {
+        "build_task": lambda: build_task("synthetic11", 0),
+        "PRNGKey": lambda: jr.PRNGKey(0),
+        "make_strategy": lambda: make_strategy("f3ast", 4, np.full(4, 0.25)),
+        "make_process": lambda: make_process("scarce", 4),
+        "make_budget": lambda: make_budget("constant"),
+        "init_rates": lambda: init_rates(4),
+        "init_params": lambda: softmax_reg.init_params(
+            softmax_reg.SoftmaxRegConfig(), None),
+        "params_from_numpy": lambda: params_from_numpy(
+            {"w": np.zeros(2, np.float32)}),
+    }
+
+
+@pytest.mark.parametrize("name", ["build_task", "PRNGKey", "make_strategy",
+                                  "make_process", "make_budget", "init_rates",
+                                  "init_params", "params_from_numpy"])
+def test_entry_point_defaults_to_cuda_and_raises_without_it(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _entry_points()[name]()
