@@ -23,7 +23,8 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  bfloat16 sum breaks), and within the tolerances of the JAX
                  package's kernel tests (float32 2e-5, bf16 2e-2);
 4. ``timing``    median of CUDA-event times (>= 20 runs after warm-up) of
-                 each kernel, its plain version and, where one exists, a
+                 each kernel (fed_select also in its mask-only mode at
+                 N = 2^20), its plain version and, where one exists, a
                  library call computing the same function, beside the
                  bound (bytes moved over 3.35 TB/s);
 5. ``main_path`` runs ``run_spec(RunSpec(), device="cuda")`` — the default
@@ -31,7 +32,38 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  just before, checks that each kernel was launched once a
                  round, and holds the run against the port's own CPU run of
                  the same spec: masks, K_t, |avail| and final r_k bitwise,
-                 train loss and delta norm within 1e-4.
+                 train loss and delta norm within 1e-4;
+6. ``flash_attention`` holds the attention kernel against its plain
+                 version (``ref.sdpa``) at the four shapes of the JAX
+                 package's kernel tests in float32 and bf16, each causal,
+                 causal with window 128, non-causal and causal with soft-cap
+                 30, plus llama3.2-1b's prefill shape (1, 8192, 32 heads,
+                 8 KV heads, 64) causal in bf16 and float32 and a ragged
+                 (2, 1000, 32, 8, 64) in every mode: within 2e-5 (float32)
+                 and 2e-2 (bf16), the tolerances of
+                 ``test_flash_attention_allclose``, and every bf16 lane
+                 within one bf16 step of the plain output (2^-7 of its
+                 magnitude + 1e-5: both round one float32 result once),
+                 which at llama's shape, where outputs are ~0.02, is the
+                 check that binds; it reports each reference's RMS;
+7. ``flash_timing`` median CUDA-event times of the kernel, its plain
+                 version and ``scaled_dot_product_attention`` at llama's
+                 prefill shape, beside the bound (the larger of bytes over
+                 3.35 TB/s and the unmasked QK^T + PV flops over 989 TFLOP/s
+                 bf16);
+8. ``serve_path`` drives llama3.2-1b at full width: (a) one ``prefill``
+                 of B = 1, S = 8192 (16 layers, bf16) with the launch count
+                 set to 0 just before, which must launch the kernel exactly
+                 16 times and give finite logits, then its wall time
+                 (median of 3 after that warm-up) and a profiled run for the
+                 kernel's share; (b) ``serve(..., smoke=False)`` at its
+                 defaults (batch 4, prompt 16, 32 steps), which must launch
+                 no flash kernel; (c) at depth 2 in float32, B = 1,
+                 S = 512, the card's prefill (kernel) within 1e-4 of the
+                 CPU's (plain) on the same weights; (d) at depth 2 in
+                 float32, S = 128, the card's prefill within 2e-3 of
+                 stepping the same prompt through ``decode_step`` (the
+                 limit of ``tests/test_models_consistency.py``).
 
 Each phase prints one JSON line; any failure raises (exit status != 0).
 The last three lines are the card's name and power limit as nvidia-smi
@@ -51,7 +83,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12                  # H100 SXM float32, non-tensor-core
+BF16_FLOPS = 989e12                 # H100 SXM bf16 tensor cores, dense
 AGG_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+ATTN_TOL = AGG_TOL                  # test_flash_attention_allclose
+# Kernel and plain version both compute in float32 and round once to bf16,
+# so a bf16 output may differ by one bf16 step (8 significant bits: at most
+# 2^-7 of its magnitude) plus what float32 summation order moves near zero.
+BF16_STEP = 2.0 ** -7
+BF16_STEP_ATOL = 1e-5
 LOSS_TOL = 1e-4
 
 
@@ -66,8 +105,8 @@ def gpu_line() -> str:
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def bound_ms(n_bytes: float, flops: float = 0.0):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def bound_ms(n_bytes: float, flops: float = 0.0, peak: float = FP32_FLOPS):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -226,7 +265,7 @@ def check_fed_aggregate(torch, dev):
 def time_kernels(torch, dev, beta: float = 1e-3):
     from repro_torch.kernels import ref
     from repro_torch.kernels.fed_aggregate import fed_aggregate
-    from repro_torch.kernels.fed_select import fed_select
+    from repro_torch.kernels.fed_select import fed_select, fed_select_mask
 
     out = {}
     for n in (100, 1 << 20):
@@ -243,6 +282,15 @@ def time_kernels(torch, dev, beta: float = 1e-3):
             plain_ms=cuda_ms(lambda: ref.fed_select_ref(scores, avail, k,
                                                         r, p, beta)),
             bound_ms=b, bound_by=by, bytes=nbytes, library_ms=None)
+    # the mask-only mode (fed_select_mask, the TPU's _mask_pallas) on the
+    # loop's last inputs, N = 2^20: scores 4 + avail 1 read, mask 1
+    # written, per client
+    nbytes = 6 * n + 4
+    b, by = bound_ms(nbytes)
+    out[f"fed_select_mask_n{n}"] = dict(
+        ms=cuda_ms(lambda: fed_select_mask(scores, avail, k)),
+        plain_ms=cuda_ms(lambda: ref.topk_threshold_mask(scores, avail, k)),
+        bound_ms=b, bound_by=by, bytes=nbytes, library_ms=None)
     for k_rows, d in ((10, 610), (10, 1 << 24)):
         gen = torch.Generator(device=dev).manual_seed(1)
         v = torch.randn(k_rows, d, generator=gen, device=dev)
@@ -379,6 +427,252 @@ def profile_main_path(torch, dev, rounds: int = 20):
                             for k, c, us in host_ops]))
 
 
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+ATTN_MODES = {"causal": dict(causal=True, window=0, softcap=0.0),
+              "window128": dict(causal=True, window=128, softcap=0.0),
+              "full": dict(causal=False, window=0, softcap=0.0),
+              "softcap30": dict(causal=True, window=0, softcap=30.0)}
+# (B, S, H, KV, hd): tests/test_kernels.py's _ATTN_SHAPES
+TEST_ATTN_SHAPES = [(1, 128, 4, 4, 64), (2, 256, 4, 2, 64),
+                    (1, 256, 8, 1, 32), (1, 512, 4, 2, 128)]
+LLAMA_ATTN = (1, 8192, 32, 8, 64)   # llama3.2-1b prefill, B = 1, S = 8192
+RAGGED_ATTN = (2, 1000, 32, 8, 64)
+
+
+def attn_inputs(torch, dev, shape, dtype, seed):
+    B, S, H, KV, hd = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(B, S, n, hd, generator=gen, device=dev).to(dtype)
+            for n in (H, KV, KV)]
+
+
+def attn_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs: the work these inputs need."""
+    import numpy as np
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(sq)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def check_flash_attention(torch, dev):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    cases = [(shape, dtype, mode) for shape in TEST_ATTN_SHAPES
+             for dtype in (torch.float32, torch.bfloat16)
+             for mode in ATTN_MODES]
+    cases += [(LLAMA_ATTN, dtype, "causal")
+              for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(RAGGED_ATTN, dtype, mode)
+              for dtype in (torch.float32, torch.bfloat16)
+              for mode in ATTN_MODES]
+    rows, max_err, llama = [], {}, {}
+    for i, (shape, dtype, mode) in enumerate(cases):
+        q, k, v = attn_inputs(torch, dev, shape, dtype, i)
+        got = flash_attention(q, k, v, **ATTN_MODES[mode])
+        want = ref.sdpa(q, k, v, **ATTN_MODES[mode])
+        torch.cuda.synchronize()
+        dname = str(dtype).split(".")[-1]
+        tol = ATTN_TOL[dname]
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        rms = float(want.float().square().mean().sqrt())
+        ok = (got.dtype == dtype and tuple(got.shape) == tuple(q.shape)
+              and bool(torch.isfinite(got).all())
+              and bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                      atol=tol)))
+        if dtype == torch.bfloat16:
+            # the tight check: within one bf16 step of the plain output
+            over = diff - BF16_STEP * want.float().abs() - BF16_STEP_ATOL
+            ok = ok and float(over.max()) <= 0.0
+        rows.append(dict(shape=list(shape), dtype=dname, mode=mode,
+                         max_abs_err=err, ref_rms=rms, tol=tol, ok=ok))
+        max_err[dname] = max(max_err.get(dname, 0.0), err)
+        if shape == LLAMA_ATTN:
+            llama[dname] = dict(max_abs_err=err, ref_rms=rms,
+                                err_over_rms=err / rms)
+        if not ok:
+            raise AssertionError(
+                f"flash_attention {shape} {dtype} {mode}: max |err| {err} "
+                f"(reference rms {rms}) over {tol}, or a bf16 lane more "
+                f"than one step ({BF16_STEP} relative + {BF16_STEP_ATOL}) "
+                f"from the plain output")
+        del q, k, v, got, want, diff
+    emit(dict(phase="flash_attention", checks=rows,
+              max_abs_err_by_dtype=max_err, llama_shape=llama))
+    return llama["bfloat16"]["max_abs_err"]
+
+
+def time_flash_attention(torch, dev):
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    B, S, H, KV, hd = LLAMA_ATTN
+    q, k, v = attn_inputs(torch, dev, LLAMA_ATTN, torch.bfloat16, 100)
+    # the library yardstick takes (B, heads, S, hd); its copies are made
+    # here, outside the timed calls
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    pairs = attn_pairs(S, S, True, 0)
+    flops = 4.0 * B * H * hd * pairs          # QK^T and PV, 2 flops a MAC
+    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)  # q, o, k, v
+    b, by = bound_ms(nbytes, flops, peak=BF16_FLOPS)
+    row = dict(shape=list(LLAMA_ATTN), dtype="bfloat16", mode="causal",
+               ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True),
+                          warmup=2, runs=15),
+               plain_ms=cuda_ms(lambda: ref.sdpa(q, k, v, causal=True),
+                                warmup=2, runs=9),
+               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True),
+                   warmup=3, runs=15),
+               bound_ms=b, bound_by=by, flops=flops, bytes=nbytes)
+    row["tflops_per_s"] = flops / row["ms"] / 1e9
+    emit(dict(phase="flash_timing", kernel=row))
+    return row
+
+
+# ---------------------------------------------------------------------------
+# serve path: llama3.2-1b at full width
+# ---------------------------------------------------------------------------
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def serve_path(torch, dev, flash_ms: float):
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import random as jr
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer
+
+    arch = get_arch("llama3.2-1b")
+    cfg = arch.model
+    params = transformer.init_params(cfg, jr.PRNGKey(0, device=dev), dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (1, 8192), generator=gen,
+                           device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens}
+
+    # (a) prefill, B = 1, S = 8192: the slice's main path
+    flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = transformer.prefill(cfg, params, batch)
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    launches = flash_attention.launches
+    finite = bool(torch.isfinite(logits).all())
+    if launches != cfg.n_layers or not finite:
+        raise AssertionError(f"prefill: {launches} flash launches (want "
+                             f"{cfg.n_layers}), finite logits {finite}")
+    if tuple(logits.shape) != (1, 1, cfg.vocab):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        transformer.prefill(cfg, params, batch)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    prefill_ms = sorted(walls)[1]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        transformer.prefill(cfg, params, batch)
+        torch.cuda.synchronize()
+        prof_wall_ms = 1e3 * (time.perf_counter() - t0)
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_kernel = {}
+    for e in dev_events:
+        n, us = by_kernel.get(e.name, (0, 0.0))
+        by_kernel[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_ms = sum(us for _, us in by_kernel.values()) / 1e3
+    flash_dev_ms = sum(us for name, (_, us) in by_kernel.items()
+                       if "flash_kernel" in name) / 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:6]
+    prefill = dict(batch=1, seq_len=8192, layers=cfg.n_layers,
+                   dtype=cfg.dtype, n_params=n_params,
+                   flash_launches=launches, logits_finite=finite,
+                   first_call_ms=first_ms, wall_ms_median_of_3=prefill_ms,
+                   wall_ms_runs=walls,
+                   kernel_share_from_timing=cfg.n_layers * flash_ms
+                   / prefill_ms,
+                   profiled=dict(wall_ms=prof_wall_ms,
+                                 device_busy_ms=busy_ms,
+                                 flash_device_ms=flash_dev_ms,
+                                 flash_share_of_wall=flash_dev_ms
+                                 / prof_wall_ms,
+                                 device_idle_share=1 - busy_ms / prof_wall_ms,
+                                 device_launches=len(dev_events),
+                                 top_kernels=[dict(name=n[:90], launches=c,
+                                                   ms=us / 1e3)
+                                              for n, (c, us) in top]))
+    del params, logits
+
+    # (b) serve at full width: decode only, no flash kernel
+    flash_attention.launches = 0
+    res = serve("llama3.2-1b", smoke=False, device=dev, log_fn=lambda *a: None)
+    if flash_attention.launches != 0:
+        raise AssertionError(f"serve launched {flash_attention.launches} "
+                             "flash kernels")
+    if res.tokens.shape != (4, 32):
+        raise AssertionError(f"serve tokens {res.tokens.shape}")
+    served = dict(batch=4, prompt_len=16, steps=32, max_len=128,
+                  tokens_per_s=res.tokens_per_s, decode_s=res.decode_s,
+                  first_tokens=res.tokens[0, :8].tolist())
+
+    # (c) full width at depth 2 in float32: card (kernel) vs CPU (plain)
+    cfg2 = cfg.replace(n_layers=2, dtype="float32")
+    p2 = transformer.init_params(cfg2, jr.PRNGKey(1, device=dev), dev)
+    toks = torch.randint(0, cfg.vocab, (1, 512), generator=gen, device=dev,
+                         dtype=torch.int32)
+    before = flash_attention.launches
+    card = transformer.prefill(cfg2, p2, {"tokens": toks})
+    torch.cuda.synchronize()
+    card_launches = flash_attention.launches - before
+    cpu = transformer.prefill(cfg2, _tree_to(p2, "cpu"),
+                              {"tokens": toks.cpu()})
+    card_vs_cpu = float((card.cpu() - cpu).abs().max())
+    if card_launches != 2 or not card_vs_cpu <= 1e-4:
+        raise AssertionError(f"depth-2 card vs CPU: {card_vs_cpu} "
+                             f"({card_launches} launches)")
+
+    # (d) depth 2, float32, S = 128: prefill vs stepping decode_step
+    toks = toks[:, :128]
+    pre = transformer.prefill(cfg2, p2, {"tokens": toks})
+    state = transformer.init_decode_state(cfg2, 1, 128, dev)
+    for i in range(128):
+        step_logits, state = transformer.decode_step(cfg2, p2, state,
+                                                     toks[:, i:i + 1])
+    pre_vs_decode = float((pre - step_logits).abs().max())
+    if not pre_vs_decode <= 2e-3:
+        raise AssertionError(f"prefill vs decode: {pre_vs_decode}")
+    emit(dict(phase="serve_path", prefill=prefill, serve=served,
+              depth2_f32_card_vs_cpu_max_abs_err=card_vs_cpu,
+              depth2_f32_prefill_vs_decode_max_abs_err=pre_vs_decode,
+              logit_scale=float(cpu.abs().max())))
+    return launches
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
 def main(argv) -> int:
     if argv[1:] not in ([], ["--profile"]):
         print("usage: chip_smoke.py [--profile]", file=sys.stderr)
@@ -420,6 +714,9 @@ def main(argv) -> int:
     agg_err = check_fed_aggregate(torch, dev)
     timing = time_kernels(torch, dev)
     launches = main_path(torch, dev)
+    attn_err = check_flash_attention(torch, dev)
+    t_attn = time_flash_attention(torch, dev)
+    flash_launches = serve_path(torch, dev, t_attn["ms"])
 
     src = "src/repro_torch/kernels/csrc/"
     t_sel, t_agg = timing["fed_select_n1048576"], timing[
@@ -435,6 +732,12 @@ def main(argv) -> int:
              replaces="src/repro/kernels/fed_aggregate.py:75",
              launches=launches["fed_aggregate"], max_abs_err=agg_err,
              shape=[10, 1 << 24], **{k: t_agg[k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+        dict(name="flash_attention", route="cuda",
+             source=src + "flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:77",
+             launches=flash_launches, max_abs_err=attn_err,
+             shape=list(LLAMA_ATTN), **{k: t_attn[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
     ]
     print(gpu_line(), flush=True)

@@ -8,5 +8,9 @@ with plain PyTorch versions for the CPU.
 
     from repro_torch.sim import RunSpec, run_spec
     result = run_spec(RunSpec())            # the default F3AST cell on CUDA
+
+The model zoo's dense family serves llama3.2-1b
+(``repro_torch.launch.serve``); its prefill attention is a hand-written
+CUDA kernel too (``kernels/flash_attention``).
 """
 __version__ = "0.1.0"

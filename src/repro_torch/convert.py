@@ -1,9 +1,15 @@
-"""Carry parameters across from the JAX package.
+"""Carry parameters across from the JAX package, and back.
 
-The JAX package's parameters are a pytree of arrays; as a dict of numpy
-arrays (``jax.tree.map(np.asarray, params)``) they become the port's dict
-of tensors on a given device, byte for byte, and back.  The parity tests
-start both packages from the same weights this way.
+The JAX package's parameters are a pytree of arrays; as nested dicts of
+numpy arrays (``jax.tree.map(np.asarray, params)``) they become the port's
+nested dicts of tensors on a given device, byte for byte, and back.  The
+tree is kept as it is, the stacked layer axis of the transformer's blocks
+included.  The parity tests start both packages from the same weights
+this way.
+
+bfloat16: ``np.asarray`` of a JAX bf16 array has the ``ml_dtypes``
+bfloat16 dtype, which ``torch.from_numpy`` refuses; its bits go across as
+uint16 (viewed as int16, then as ``torch.bfloat16``), which is exact.
 """
 from __future__ import annotations
 
@@ -15,15 +21,39 @@ import torch
 from .device import resolve_device
 
 
-def params_from_numpy(params: Mapping[str, np.ndarray],
-                      device=None) -> dict:
-    """{name: numpy array} -> {name: tensor on ``device``} (default CUDA),
-    same bytes."""
+def _leaf_from_numpy(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.int16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        # the ml_dtypes bfloat16 type is what the JAX package hands out;
+        # it is needed only to compare with, or pass back to, JAX
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_numpy(params: Mapping, device=None) -> dict:
+    """Nested {name: numpy array | dict} -> the same tree of tensors on
+    ``device`` (default CUDA), same bytes."""
     device = resolve_device(device)
-    return {k: torch.from_numpy(np.array(v, copy=True)).to(device)
-            for k, v in params.items()}
+
+    def go(tree):
+        if isinstance(tree, Mapping):
+            return {k: go(v) for k, v in tree.items()}
+        return _leaf_from_numpy(tree, device)
+    return go(params)
 
 
-def params_to_numpy(params: Mapping[str, torch.Tensor]) -> dict:
-    """{name: tensor} -> {name: numpy array} (for comparisons)."""
-    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+def params_to_numpy(params: Mapping) -> dict:
+    """Nested {name: tensor | dict} -> the same tree of numpy arrays (for
+    comparisons), same bytes."""
+    if isinstance(params, Mapping):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    return _leaf_to_numpy(params)

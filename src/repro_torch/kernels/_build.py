@@ -31,6 +31,7 @@ _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES: Dict[str, tuple] = {
     "fed_select": ("fed_select.cu", ("--fmad=false",)),
     "fed_aggregate": ("fed_aggregate.cu", ()),
+    "flash_attention": ("flash_attention.cu", ()),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -109,6 +110,10 @@ _SIGNATURES = {
     "fed_aggregate": {
         "fed_aggregate_f32": ([_VP, _VP, _VP, _I, _I64, _VP], _I),
         "fed_aggregate_bf16": ([_VP, _VP, _VP, _I, _I64, _VP], _I),
+    },
+    "flash_attention": {
+        "flash_attention_launch": ([_VP] * 4 + [_I] * 7 + [_I64] * 9
+                                   + [_I, _I, _F, _F, _VP], _I),
     },
 }
 

@@ -1,9 +1,13 @@
 """Plain PyTorch versions of the port's kernels (their CPU path and their
 oracle on the card).
 
-Port of ``repro.kernels.ref``'s ``fed_select`` and ``fed_aggregate``
-oracles, op for op, so that on the CPU they are bitwise (``fed_select``)
-or allclose (``fed_aggregate``) to the JAX package's.
+Port of ``repro.kernels.ref``'s ``fed_select``, ``fed_aggregate`` and
+``attention_ref`` oracles, op for op, so that on the CPU they are bitwise
+(``fed_select``) or allclose (``fed_aggregate``, attention) to the JAX
+package's.  The attention of the model (``sdpa``: dense, or the chunked
+online softmax for long sequences, as ``repro.models.layers`` computes it)
+lives here too, as the plain version of the ``flash_attention`` kernel;
+``repro_torch.models.layers`` re-exports it.
 """
 from __future__ import annotations
 
@@ -102,3 +106,133 @@ def fed_select_ref(scores, avail, k, r, p, beta, *,
     new_r = ema(r, mask, beta)
     w = select_weights_ref(mask, new_r, p, r_weight, weight_mode)
     return mask, new_r, w
+
+
+# ---------------------------------------------------------------------------
+# Attention: the plain version of the flash_attention kernel
+# ---------------------------------------------------------------------------
+
+# Masked scores take this value, not -inf (as in the JAX package).
+ATTN_NEG = -1e30
+# Above this many score elements per (batch, head), sdpa takes the chunked
+# online-softmax path instead of materialising (Sq, Skv) scores.
+_CHUNKED_THRESHOLD = 2048 * 2048
+_Q_CHUNK = 1024
+_KV_CHUNK = 1024
+
+
+def sqrt_hd(hd: int) -> float:
+    """``sqrt(hd)`` in float32, as the JAX package computes it."""
+    return float(torch.sqrt(torch.tensor(float(hd), dtype=torch.float32)))
+
+
+def attn_scale(hd: int) -> float:
+    """``1 / sqrt(hd)`` in float32, as the JAX package computes it."""
+    return float(1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32)))
+
+
+def sdpa(q, k, v, *, causal: bool, window: int = 0, softcap: float = 0.0,
+         q_offset=0, kv_valid_len=None):
+    """Grouped-query scaled dot-product attention (``layers.sdpa``).
+
+    q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd); query head h reads KV head
+    h // (H // KV).  ``q_offset`` is the absolute position of q[0] relative
+    to k[0]; ``kv_valid_len`` masks cache slots >= it.  Above 2048² score
+    elements (and Sq a multiple of 1024) the chunked online softmax runs,
+    never materialising the (Sq, Skv) scores."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    if (Sq * Skv > _CHUNKED_THRESHOLD and Sq % _Q_CHUNK == 0
+            and kv_valid_len is None):
+        kv_len = None
+        if Skv % _KV_CHUNK:
+            # pad K/V to a chunk multiple; the padded slots are masked
+            pad = _KV_CHUNK - Skv % _KV_CHUNK
+            k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+            v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+            kv_len = Skv
+        return _chunked_sdpa(q, k, v, causal=causal, window=window,
+                             softcap=softcap, q_offset=q_offset, kv_len=kv_len)
+    return _dense_sdpa(q, k, v, causal=causal, window=window, softcap=softcap,
+                       q_offset=q_offset, kv_valid_len=kv_valid_len)
+
+
+def _chunked_sdpa(q, k, v, *, causal: bool, window: int, softcap: float,
+                  q_offset=0, kv_len=None):
+    """Blockwise attention: a loop over q chunks and, inside, over kv
+    chunks, with the exact online softmax (running max, rescaled sum and
+    accumulator) of ``layers._chunked_sdpa``."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    dev = q.device
+    scale = attn_scale(hd)
+    outs = []
+    for qi in range(Sq // _Q_CHUNK):
+        qc = q[:, qi * _Q_CHUNK:(qi + 1) * _Q_CHUNK].reshape(
+            B, _Q_CHUNK, KV, g, hd).to(torch.float32)
+        qpos = qi * _Q_CHUNK + torch.arange(_Q_CHUNK, device=dev) + q_offset
+        acc = torch.zeros(B, KV, g, _Q_CHUNK, hd, dtype=torch.float32,
+                          device=dev)
+        m = torch.full((B, KV, g, _Q_CHUNK), float("-inf"),
+                       dtype=torch.float32, device=dev)
+        denom = torch.zeros(B, KV, g, _Q_CHUNK, dtype=torch.float32,
+                            device=dev)
+        for ki in range(Skv // _KV_CHUNK):
+            sl = slice(ki * _KV_CHUNK, (ki + 1) * _KV_CHUNK)
+            kc, vc = k[:, sl].to(torch.float32), v[:, sl].to(torch.float32)
+            kpos = ki * _KV_CHUNK + torch.arange(_KV_CHUNK, device=dev)
+            s = torch.einsum("bqkgh,bskh->bkgqs", qc, kc) * scale
+            if softcap > 0:
+                s = softcap * torch.tanh(s / softcap)
+            mask = torch.ones(_Q_CHUNK, _KV_CHUNK, dtype=torch.bool,
+                              device=dev)
+            if causal:
+                mask &= kpos[None, :] <= qpos[:, None]
+            if window > 0:
+                mask &= kpos[None, :] > qpos[:, None] - window
+            if kv_len is not None:
+                mask &= (kpos < kv_len)[None, :]
+            s = torch.where(mask, s, torch.full_like(s, ATTN_NEG))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            denom = denom * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bkgqs,bskh->bkgqh",
+                                                       p, vc)
+            m = m_new
+        out = acc / torch.clamp_min(denom[..., None], 1e-30)
+        outs.append(out.permute(0, 3, 1, 2, 4))        # (B, Qc, KV, g, hd)
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def _dense_sdpa(q, k, v, *, causal: bool, window: int = 0,
+                softcap: float = 0.0, q_offset=0, kv_valid_len=None):
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    dev = q.device
+    qg = q.reshape(B, Sq, KV, g, hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg.to(torch.float32),
+                          k.to(torch.float32)) / sqrt_hd(hd)
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    qpos = torch.arange(Sq, device=dev)[:, None] + q_offset
+    kpos = torch.arange(Skv, device=dev)[None, :]
+    mask = torch.ones(Sq, Skv, dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    if kv_valid_len is not None:
+        mask &= kpos < kv_valid_len
+    logits = torch.where(mask, logits, torch.full_like(logits, ATTN_NEG))
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w, v.to(torch.float32))
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """Dense-softmax GQA attention (``repro.kernels.ref.attention_ref``):
+    the (Sq, Skv) scores in float32, masked with -1e30, softmax, output in
+    q's dtype.  q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd)."""
+    return _dense_sdpa(q, k, v, causal=causal, window=window, softcap=softcap)

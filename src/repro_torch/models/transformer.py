@@ -1,0 +1,199 @@
+"""Decoder-only model assembly, dense family (port of
+``repro.models.transformer``).  One nested dict of parameters with the
+blocks stacked along a leading layer axis; a Python loop over that axis
+takes the place of ``lax.scan``.  Full-sequence forward and prefill, and
+the KV-cache decode path.
+
+    init_params(cfg, key, device=None)            -> params
+    forward(cfg, params, batch)                   -> (logits, aux)
+    init_decode_state(cfg, batch, max_len, device=None) -> state
+    decode_step(cfg, params, state, tok_t)        -> (logits, state)
+    prefill(cfg, params, batch)                   -> last-position logits
+
+The other families (moe, ssm, hybrid, vlm, audio) raise
+``NotImplementedError`` naming their ROADMAP.md item.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+from ..device import resolve_device
+from ..registry import lookup
+from .layers import (ModelConfig, _normal, attention_block, attention_decode,
+                     init_attention, init_mlp, init_rms, mlp_block, rms_norm)
+
+# the JAX package's other families -> (ROADMAP.md queue, item)
+DEFERRED_FAMILIES = {"moe": (1, 12), "ssm": (2, 4), "hybrid": (1, 12),
+                     "vlm": (1, 12), "audio": (1, 12)}
+_MLPS = ("swiglu", "geglu", "gelu")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what this port does not run yet:
+    any family but dense, and MoE blocks."""
+    queue, item = DEFERRED_FAMILIES.get(cfg.family, (1, 12))
+    lookup("family", cfg.family, ("dense",), DEFERRED_FAMILIES, item,
+           queue=queue)
+    lookup("mlp", cfg.mlp, _MLPS, ("moe",), 12)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def _dense_block(p, x, cfg: ModelConfig, positions, window: int):
+    h = x + attention_block(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                            cfg, positions, window=window)
+    return h + mlp_block(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps), cfg)
+
+
+def _dense_block_decode(p, x, cfg: ModelConfig, cache, index, window: int):
+    a, cache = attention_decode(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                                cfg, cache, index, window=window)
+    h = x + a
+    return h + mlp_block(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps),
+                         cfg), cache
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a tree stacked along axis 0 (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# init_params
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, key: torch.Tensor, device=None
+                ) -> Dict[str, Any]:
+    """Random parameters with the JAX package's tree, shapes, dtypes and
+    scales (normal draws times 1/sqrt(fan-in), norms at zero), on
+    ``device`` (default CUDA).
+
+    The draws come from a ``torch.Generator`` seeded from the key's two
+    words, so they are not JAX's bits: JAX's ``normal`` needs XLA's
+    ``erfinv`` spelled op for op (ROADMAP.md queue 1 item 8).  The parity
+    tests carry JAX's weights across with ``repro_torch.convert`` instead.
+    """
+    check_supported(cfg)
+    device = resolve_device(device)
+    words = [int(w) & 0xFFFFFFFF for w in key.tolist()]
+    gen = torch.Generator(device=device)
+    gen.manual_seed((words[0] << 32) | words[1])
+    dt = cfg.torch_dtype
+    emb_scale = 1.0 / math.sqrt(cfg.d_model)
+    params: Dict[str, Any] = {
+        "embed": _normal(gen, (cfg.vocab, cfg.d_model), emb_scale, dt, device),
+        "ln_f": init_rms(cfg.d_model, dt, device),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = _normal(gen, (cfg.d_model, cfg.vocab), emb_scale,
+                                    dt, device)
+    lead = (cfg.n_layers,)
+    params["blocks"] = {
+        "ln1": init_rms(cfg.d_model, dt, device, lead),
+        "ln2": init_rms(cfg.d_model, dt, device, lead),
+        "attn": init_attention(gen, cfg, device, lead),
+        "mlp": init_mlp(gen, cfg, device, lead),
+    }
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _window(cfg: ModelConfig) -> int:
+    if cfg.long_context_window:
+        return cfg.long_context_window
+    return cfg.sliding_window
+
+
+def _embed_inputs(cfg: ModelConfig, params, batch):
+    """Returns (x (B, S, d), text_mask (B, S)); text only."""
+    tokens = batch["tokens"]
+    x = params["embed"][tokens].to(cfg.torch_dtype)
+    return x, torch.ones(tokens.shape, dtype=torch.bool, device=x.device)
+
+
+def backbone(cfg: ModelConfig, params, x):
+    """Run the stacked blocks over embeddings x: (B, S, d)."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    w = _window(cfg)
+    for i in range(cfg.n_layers):
+        x = _dense_block(_layer(params["blocks"], i), x, cfg, positions, w)
+    return x, {"lb_loss": torch.zeros((), dtype=torch.float32,
+                                      device=x.device)}
+
+
+def unembed(cfg: ModelConfig, params, x):
+    xn = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    proj = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return xn @ proj
+
+
+def forward(cfg: ModelConfig, params, batch):
+    x, tmask = _embed_inputs(cfg, params, batch)
+    x, aux = backbone(cfg, params, x)
+    logits = unembed(cfg, params, x)
+    aux["text_mask"] = tmask
+    return logits, aux
+
+
+def prefill(cfg: ModelConfig, params, batch):
+    """Full-sequence prefill: the last position's logits (B, 1, V).
+
+    Only the last position is unembedded.  The JAX package computes every
+    position's logits and slices; the rows are the same function, and at
+    S = 8192 with llama3.2-1b's 128,256-token vocabulary the full bf16
+    logits would take 2.1 GB."""
+    x, _ = _embed_inputs(cfg, params, batch)
+    x, _ = backbone(cfg, params, x)
+    return unembed(cfg, params, x[:, -1:, :])
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+
+def _kv_cache_init(cfg: ModelConfig, batch: int, max_len: int, window: int,
+                   device, lead: tuple = ()):
+    M = min(max_len, window) if window > 0 else max_len
+    shape = lead + (batch, M, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      device=None):
+    """{"index": int32 scalar, "caches": {"k", "v"} stacked over layers}."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    return {"index": torch.zeros((), dtype=torch.int32, device=device),
+            "caches": _kv_cache_init(cfg, batch, max_len, _window(cfg),
+                                     device, lead=(cfg.n_layers,))}
+
+
+def decode_step(cfg: ModelConfig, params, state, tok_t):
+    """One decode step.  tok_t: (B, 1) int.  Returns (logits (B, 1, V),
+    state).  The KV caches of ``state`` are updated in place (see
+    ``layers.attention_decode``); the returned state holds the same cache
+    tensors and a new index."""
+    x = params["embed"][tok_t].to(cfg.torch_dtype)
+    idx = state["index"]
+    w = _window(cfg)
+    caches = state["caches"]
+    for i in range(cfg.n_layers):
+        x, _ = _dense_block_decode(_layer(params["blocks"], i), x, cfg,
+                                   _layer(caches, i), idx, w)
+    return unembed(cfg, params, x), {"index": idx + 1, "caches": caches}

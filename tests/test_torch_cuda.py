@@ -81,3 +81,76 @@ def test_fed_aggregate_kernel_allclose(dev, k, d, dtype, tol):
     # float32 accumulation: within one output step of the plain version
     bound = ref.fed_aggregate_err_bound(v, w, got, want)
     assert int(((got.float() - want.float()).abs() > bound).sum()) == 0
+
+
+ATTN_MODES = [dict(causal=True, window=0, softcap=0.0),
+              dict(causal=True, window=128, softcap=0.0),
+              dict(causal=False, window=0, softcap=0.0),
+              dict(causal=True, window=0, softcap=30.0)]
+
+
+# (B, Sq, Skv, H, KV, hd): the shapes of tests/test_kernels.py, a ragged
+# length with G = 4, cross lengths, and the smallest head dim
+@pytest.mark.parametrize("shape", [(1, 128, 128, 4, 4, 64),
+                                   (2, 256, 256, 4, 2, 64),
+                                   (1, 256, 256, 8, 1, 32),
+                                   (1, 512, 512, 4, 2, 128),
+                                   (2, 1000, 1000, 8, 2, 64),
+                                   (1, 100, 300, 4, 1, 16)])
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5),
+                                       ("bfloat16", 2e-2)])
+def test_flash_attention_kernel_allclose(dev, shape, dtype, tol):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    B, Sq, Skv, H, KV, hd = shape
+    rng = np.random.default_rng(Sq + H)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(getattr(torch, dtype)).to(dev)
+               for s in ((B, Sq, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd)))
+    for mode in ATTN_MODES:
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, **mode)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        want = ref.sdpa(q, k, v, **mode)
+        assert got.dtype == q.dtype and got.shape == q.shape
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   rtol=tol, atol=tol, err_msg=str(mode))
+
+
+def test_flash_attention_reads_strided_inputs(dev):
+    """q, k, v as views of one fused (B, S, H + 2 KV, hd) projection."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    gen = torch.Generator(device=dev).manual_seed(0)
+    qkv = torch.randn(2, 200, 12, 64, generator=gen, device=dev)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    got = flash_attention(q, k, v, causal=True)
+    want = ref.sdpa(q, k, v, causal=True)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_llama_smoke_prefill_card_matches_cpu(dev):
+    """The smoke model's prefill through the kernel (2 launches) against
+    the same weights' CPU prefill through the plain attention."""
+    from repro_torch import random as jr
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer
+    cfg = get_arch("llama3.2-1b").smoke_model
+    params = transformer.init_params(cfg, jr.PRNGKey(0, device="cpu"), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 300)).astype(np.int32))
+    want = transformer.prefill(cfg, params, {"tokens": toks})
+
+    def to_dev(tree):
+        return ({k: to_dev(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree.to(dev))
+    gpu = to_dev(params)
+    before = flash_attention.launches
+    got = transformer.prefill(cfg, gpu, {"tokens": toks.to(dev)})
+    assert flash_attention.launches == before + cfg.n_layers
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)

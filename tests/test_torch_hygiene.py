@@ -27,7 +27,12 @@ SLICE_MODULES = [
     "repro_torch.sim.scenario", "repro_torch.sim.spec",
     "repro_torch.sim.engine", "repro_torch.sim.runner",
     "repro_torch.data", "repro_torch.models.softmax_reg",
-    "repro_torch.optim", "repro_torch.configs"]
+    "repro_torch.optim", "repro_torch.configs",
+    "repro_torch.configs.common", "repro_torch.configs.llama3_2_1b",
+    "repro_torch.models", "repro_torch.models.layers",
+    "repro_torch.models.transformer",
+    "repro_torch.kernels.flash_attention", "repro_torch.launch",
+    "repro_torch.launch.serve", "repro_torch.launch.steps"]
 
 
 def test_import_pulls_in_no_jax_and_no_repro():
@@ -88,7 +93,16 @@ def _entry_points():
     from repro_torch.sim.budgets import make_budget
     from repro_torch.sim.processes import make_process
     from repro_torch.sim.runner import build_task
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer
+    llama = get_arch("llama3.2-1b").smoke_model
     return {
+        "serve": lambda: serve("llama3.2-1b", steps=1, log_fn=None),
+        "transformer.init_params": lambda: transformer.init_params(
+            llama, jr.PRNGKey(0, device="cpu")),
+        "init_decode_state": lambda: transformer.init_decode_state(
+            llama, 1, 8),
         "build_task": lambda: build_task("synthetic11", 0),
         "PRNGKey": lambda: jr.PRNGKey(0),
         "make_strategy": lambda: make_strategy("f3ast", 4, np.full(4, 0.25)),
@@ -104,7 +118,9 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["build_task", "PRNGKey", "make_strategy",
                                   "make_process", "make_budget", "init_rates",
-                                  "init_params", "params_from_numpy"])
+                                  "init_params", "params_from_numpy",
+                                  "serve", "transformer.init_params",
+                                  "init_decode_state"])
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device is usable")
