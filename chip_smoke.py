@@ -63,7 +63,33 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  CPU's (plain) on the same weights; (d) at depth 2 in
                  float32, S = 128, the card's prefill within 2e-3 of
                  stepping the same prompt through ``decode_step`` (the
-                 limit of ``tests/test_models_consistency.py``).
+                 limit of ``tests/test_models_consistency.py``);
+9. ``ssd_chunk`` holds the Mamba-2 SSD kernel against its plain version
+                 (``ref.ssd_chunk_ref``) in float32 and with bf16 x, Bm, Cm
+                 at the three shapes of the JAX package's kernel test, the
+                 smoke config's, the ssm consistency case's, mamba2-2.7b's
+                 prefill layer (1, 64 chunks, 128, 80 heads, 64), N = 128,
+                 a B = 2 case and x as the strided view the model passes:
+                 y and states within 1e-4, decays within 1e-5 / 1e-6 (the
+                 limits of ``test_ssd_chunk_allclose``), reporting each
+                 reference's RMS; and the composed ``ssd`` (kernel plus
+                 torch recurrence) within 1e-4 of ``ref.ssd_ref`` at the
+                 layer shape;
+10. ``ssd_timing`` median CUDA-event times of the kernel and its plain
+                 version at the layer shape with bf16 inputs, beside the
+                 bound (bytes over 3.35 TB/s; the operations needed, over
+                 989 TFLOP/s bf16); no single PyTorch call computes it;
+11. ``mamba_path`` drives mamba2-2.7b at full width after llama's weights
+                 are freed: (a) one ``prefill`` of B = 1, S = 8192 (64
+                 layers, bf16) with the launch count set to 0 just before,
+                 which must launch the kernel exactly 64 times and give
+                 finite (1, 1, 50280) logits, then the median of 3 and a
+                 profiled run; (b) one prefill at S = 32,768 (64 launches,
+                 finite); (c) ``serve(..., smoke=False)`` at its defaults,
+                 which must launch no ssd_chunk; (d) at depth 2 in float32,
+                 S = 512, the card's prefill within 1e-4 of the CPU's; (e)
+                 at depth 2 in float32, S = 128, prefill within 2e-3 of
+                 stepping the prompt through ``decode_step``.
 
 Each phase prints one JSON line; any failure raises (exit status != 0).
 The last three lines are the card's name and power limit as nvidia-smi
@@ -85,6 +111,8 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12                  # H100 SXM float32, non-tensor-core
 BF16_FLOPS = 989e12                 # H100 SXM bf16 tensor cores, dense
 AGG_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# test_ssd_chunk_allclose: (rtol, atol) for y, states, decays
+SSD_TOL = ((1e-4, 1e-4), (1e-4, 1e-4), (1e-5, 1e-6))
 ATTN_TOL = AGG_TOL                  # test_flash_attention_allclose
 # Kernel and plain version both compute in float32 and round once to bf16,
 # so a bf16 output may differ by one bf16 step (8 significant bits: at most
@@ -545,10 +573,37 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def serve_path(torch, dev, flash_ms: float):
-    import numpy as np
+def profiled_prefill(torch, transformer, cfg, params, batch, kernel_name):
+    """One prefill under torch.profiler: wall, device busy and idle share,
+    the named kernel's device time and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        transformer.prefill(cfg, params, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_kernel = {}
+    for e in dev_events:
+        n, us = by_kernel.get(e.name, (0, 0.0))
+        by_kernel[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_ms = sum(us for _, us in by_kernel.values()) / 1e3
+    kernel_ms = sum(us for name, (_, us) in by_kernel.items()
+                    if kernel_name in name) / 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                kernel_device_ms=kernel_ms,
+                kernel_share_of_wall=kernel_ms / wall_ms,
+                device_idle_share=1 - busy_ms / wall_ms,
+                device_launches=len(dev_events),
+                top_kernels=[dict(name=n[:90], launches=c, ms=us / 1e3)
+                             for n, (c, us) in top])
+
+
+def serve_path(torch, dev, flash_ms: float):
     from repro_torch import random as jr
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import flash_attention
@@ -586,21 +641,6 @@ def serve_path(torch, dev, flash_ms: float):
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
     prefill_ms = sorted(walls)[1]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        transformer.prefill(cfg, params, batch)
-        torch.cuda.synchronize()
-        prof_wall_ms = 1e3 * (time.perf_counter() - t0)
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_kernel = {}
-    for e in dev_events:
-        n, us = by_kernel.get(e.name, (0, 0.0))
-        by_kernel[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    busy_ms = sum(us for _, us in by_kernel.values()) / 1e3
-    flash_dev_ms = sum(us for name, (_, us) in by_kernel.items()
-                       if "flash_kernel" in name) / 1e3
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:6]
     prefill = dict(batch=1, seq_len=8192, layers=cfg.n_layers,
                    dtype=cfg.dtype, n_params=n_params,
                    flash_launches=launches, logits_finite=finite,
@@ -608,16 +648,8 @@ def serve_path(torch, dev, flash_ms: float):
                    wall_ms_runs=walls,
                    kernel_share_from_timing=cfg.n_layers * flash_ms
                    / prefill_ms,
-                   profiled=dict(wall_ms=prof_wall_ms,
-                                 device_busy_ms=busy_ms,
-                                 flash_device_ms=flash_dev_ms,
-                                 flash_share_of_wall=flash_dev_ms
-                                 / prof_wall_ms,
-                                 device_idle_share=1 - busy_ms / prof_wall_ms,
-                                 device_launches=len(dev_events),
-                                 top_kernels=[dict(name=n[:90], launches=c,
-                                                   ms=us / 1e3)
-                                              for n, (c, us) in top]))
+                   profiled=profiled_prefill(torch, transformer, cfg, params,
+                                             batch, "flash_kernel"))
     del params, logits
 
     # (b) serve at full width: decode only, no flash kernel
@@ -659,6 +691,238 @@ def serve_path(torch, dev, flash_ms: float):
     if not pre_vs_decode <= 2e-3:
         raise AssertionError(f"prefill vs decode: {pre_vs_decode}")
     emit(dict(phase="serve_path", prefill=prefill, serve=served,
+              depth2_f32_card_vs_cpu_max_abs_err=card_vs_cpu,
+              depth2_f32_prefill_vs_decode_max_abs_err=pre_vs_decode,
+              logit_scale=float(cpu.abs().max())))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# ssd_chunk
+# ---------------------------------------------------------------------------
+
+# (B, nc, Q, H, P, N)
+TEST_SSD_SHAPES = [(1, 4, 16, 2, 16, 8), (2, 4, 32, 4, 32, 16),
+                   (1, 2, 128, 2, 64, 128)]   # tests/test_kernels.py
+SMOKE_SSD = (1, 8, 8, 8, 32, 16)       # mamba2 smoke config, S = 64
+CONSISTENCY_SSD = (2, 2, 8, 8, 16, 16)  # ssm case, test_models_consistency
+MAMBA_SSD = (1, 64, 128, 80, 64, 128)   # mamba2-2.7b layer, B = 1, S = 8192
+BATCH2_SSD = (2, 16, 128, 80, 64, 128)
+
+
+def ssd_inputs(torch, dev, shape, dtype, seed, strided: bool = False):
+    """The JAX kernel test's recipe: x, B, C ~ N(0, 1), dt = softplus(N(0,
+    1)), A = -exp(0.3 N(0, 1)).  ``strided``: x, B and C are views of one
+    (B, S, H P + 2 N) row, as the model passes them."""
+    B, nc, Q, H, P, N = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if strided:
+        xbc = torch.randn(B, nc * Q, H * P + 2 * N, generator=gen,
+                          device=dev).to(dtype)
+        x = xbc[..., :H * P].reshape(B, nc, Q, H, P)
+        Bm = xbc[..., H * P:H * P + N].reshape(B, nc, Q, N)
+        Cm = xbc[..., H * P + N:].reshape(B, nc, Q, N)
+    else:
+        x = torch.randn(B, nc, Q, H, P, generator=gen, device=dev).to(dtype)
+        Bm = torch.randn(B, nc, Q, N, generator=gen, device=dev).to(dtype)
+        Cm = torch.randn(B, nc, Q, N, generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, nc, Q, H, generator=gen, device=dev))
+    A = -torch.exp(0.3 * torch.randn(H, generator=gen, device=dev))
+    return x, dt, A, Bm, Cm
+
+
+def check_ssd_chunk(torch, dev):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_chunk import ssd, ssd_chunk
+
+    cases = [(shape, dtype, False)
+             for shape in TEST_SSD_SHAPES + [SMOKE_SSD, CONSISTENCY_SSD,
+                                             MAMBA_SSD, BATCH2_SSD]
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(MAMBA_SSD, dtype, True)
+              for dtype in (torch.float32, torch.bfloat16)]
+    rows, mamba = [], {}
+    for i, (shape, dtype, strided) in enumerate(cases):
+        ins = ssd_inputs(torch, dev, shape, dtype, 200 + i, strided)
+        got = ssd_chunk(*ins)
+        torch.cuda.synchronize()
+        want = ref.ssd_chunk_ref(*ins)
+        dname = str(dtype).split(".")[-1]
+        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        rms = [float(w.square().mean().sqrt()) for w in want]
+        ok = all(g.dtype == torch.float32 and g.shape == w.shape
+                 and bool(torch.isfinite(g).all())
+                 and bool(torch.allclose(g, w, rtol=rt, atol=at))
+                 for g, w, (rt, at) in zip(got, want, SSD_TOL))
+        rows.append(dict(shape=list(shape), dtype=dname, strided_x=strided,
+                         max_abs_err=dict(zip(("y", "states", "decays"),
+                                              errs)),
+                         ref_rms=dict(zip(("y", "states", "decays"), rms)),
+                         ok=ok))
+        if shape == MAMBA_SSD and not strided:
+            mamba[dname] = max(errs[:2])
+        if not ok:
+            raise AssertionError(f"ssd_chunk {shape} {dtype} strided "
+                                 f"{strided}: max |err| {errs} (reference "
+                                 f"rms {rms}) over {SSD_TOL}")
+        del ins, got, want
+    # the composed ssd (kernel + torch recurrence) against the model's
+    # chunked reference, at the layer shape in float32
+    B, nc, Q, H, P, N = MAMBA_SSD
+    x, dt, A, Bm, Cm = ssd_inputs(torch, dev, MAMBA_SSD, torch.float32, 300)
+    args = (x.reshape(B, nc * Q, H, P), dt.reshape(B, nc * Q, H), A,
+            Bm.reshape(B, nc * Q, N), Cm.reshape(B, nc * Q, N))
+    y, y_ref = ssd(*args, Q), ref.ssd_ref(*args, Q)
+    ssd_err = float((y - y_ref).abs().max())
+    composed = dict(shape=[B, nc * Q, H, P, N], chunk=Q,
+                    max_abs_err=ssd_err,
+                    ref_rms=float(y_ref.square().mean().sqrt()))
+    if not torch.allclose(y, y_ref, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"ssd vs ssd_ref: {composed}")
+    emit(dict(phase="ssd_chunk", checks=rows, composed_ssd=composed,
+              mamba_shape_max_abs_err=mamba))
+    return mamba["bfloat16"]
+
+
+def ssd_work(shape, in_bytes: int):
+    """(bytes, flops) the function needs: each input read once and each
+    output written once; C B^T once per chunk (its heads share B and C)
+    and the y product on their lower triangles, the states in full."""
+    B, nc, Q, H, P, N = shape
+    nbytes = (in_bytes * (B * nc * Q * H * P + 2 * B * nc * Q * N)
+              + 4 * (B * nc * Q * H + H)                       # dt, A
+              + 4 * (B * nc * Q * H * P + B * nc * H * N * P + B * nc * H))
+    tri = Q * (Q + 1) // 2
+    flops = 2.0 * B * nc * (tri * N + H * (tri * P + Q * N * P))
+    return nbytes, flops
+
+
+def time_ssd(torch, dev):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+
+    ins = ssd_inputs(torch, dev, MAMBA_SSD, torch.bfloat16, 400)
+    nbytes, flops = ssd_work(MAMBA_SSD, 2)
+    b, by = bound_ms(nbytes, flops, peak=BF16_FLOPS)
+    row = dict(shape=list(MAMBA_SSD), dtype="bfloat16",
+               ms=cuda_ms(lambda: ssd_chunk(*ins), warmup=3, runs=20),
+               plain_ms=cuda_ms(lambda: ref.ssd_chunk_ref(*ins), warmup=2,
+                                runs=9),
+               library_ms=None, bound_ms=b, bound_by=by, flops=flops,
+               bytes=nbytes)
+    row["tflops_per_s"] = flops / row["ms"] / 1e9
+    row["gb_per_s"] = nbytes / row["ms"] / 1e6
+    emit(dict(phase="ssd_timing", kernel=row))
+    return row
+
+
+# ---------------------------------------------------------------------------
+# mamba path: mamba2-2.7b at full width
+# ---------------------------------------------------------------------------
+
+def mamba_path(torch, dev, ssd_ms: float):
+    from repro_torch import random as jr
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer
+
+    torch.cuda.empty_cache()                 # llama's weights are gone
+    cfg = get_arch("mamba2-2.7b").model
+    params = transformer.init_params(cfg, jr.PRNGKey(0, device=dev), dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def prompt(seq_len):
+        return {"tokens": torch.randint(0, cfg.vocab, (1, seq_len),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int32)}
+
+    def run(batch):
+        ssd_chunk.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = transformer.prefill(cfg, params, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches, finite = ssd_chunk.launches, bool(torch.isfinite(logits)
+                                                    .all())
+        if (launches != cfg.n_layers or not finite
+                or tuple(logits.shape) != (1, 1, cfg.vocab)):
+            raise AssertionError(
+                f"prefill S = {batch['tokens'].shape[1]}: {launches} "
+                f"ssd_chunk launches (want {cfg.n_layers}), finite logits "
+                f"{finite}, shape {tuple(logits.shape)}")
+        return ms, launches
+
+    # (a) prefill, B = 1, S = 8192: the slice's main path
+    batch = prompt(8192)
+    first_ms, launches = run(batch)
+    walls = [run(batch)[0] for _ in range(3)]
+    prefill_ms = sorted(walls)[1]
+    torch.cuda.reset_peak_memory_stats()
+    prof = profiled_prefill(torch, transformer, cfg, params, batch,
+                            "ssd_chunk_kernel")
+    prefill = dict(batch=1, seq_len=8192, layers=cfg.n_layers,
+                   dtype=cfg.dtype, n_params=n_params,
+                   ssd_chunk_launches=launches, logits_finite=True,
+                   first_call_ms=first_ms, wall_ms_median_of_3=prefill_ms,
+                   wall_ms_runs=walls,
+                   kernel_share_from_timing=cfg.n_layers * ssd_ms
+                   / prefill_ms,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   profiled=prof)
+
+    # (b) prefill_32k's length, batch cut to 1
+    long_ms, long_launches = run(prompt(32_768))
+    del params, batch
+    torch.cuda.empty_cache()
+
+    # (c) serve at full width: decode only, no ssd_chunk kernel
+    ssd_chunk.launches = 0
+    res = serve("mamba2-2.7b", smoke=False, device=dev,
+                log_fn=lambda *a: None)
+    if ssd_chunk.launches != 0:
+        raise AssertionError(f"serve launched {ssd_chunk.launches} "
+                             "ssd_chunk kernels")
+    if res.tokens.shape != (4, 32):
+        raise AssertionError(f"serve tokens {res.tokens.shape}")
+    served = dict(batch=4, prompt_len=16, steps=32,
+                  tokens_per_s=res.tokens_per_s, decode_s=res.decode_s,
+                  first_tokens=res.tokens[0, :8].tolist())
+    torch.cuda.empty_cache()
+
+    # (d) full width at depth 2 in float32: card (kernel) vs CPU (plain)
+    cfg2 = cfg.replace(n_layers=2, dtype="float32")
+    p2 = transformer.init_params(cfg2, jr.PRNGKey(1, device=dev), dev)
+    toks = prompt(512)["tokens"]
+    ssd_chunk.launches = 0
+    card = transformer.prefill(cfg2, p2, {"tokens": toks})
+    torch.cuda.synchronize()
+    card_launches = ssd_chunk.launches
+    cpu = transformer.prefill(cfg2, _tree_to(p2, "cpu"),
+                              {"tokens": toks.cpu()})
+    card_vs_cpu = float((card.cpu() - cpu).abs().max())
+    if card_launches != 2 or not card_vs_cpu <= 1e-4:
+        raise AssertionError(f"depth-2 card vs CPU: {card_vs_cpu} "
+                             f"({card_launches} launches)")
+
+    # (e) depth 2, float32, S = 128: prefill vs stepping decode_step
+    toks = toks[:, :128]
+    pre = transformer.prefill(cfg2, p2, {"tokens": toks})
+    state = transformer.init_decode_state(cfg2, 1, 128, dev)
+    for i in range(128):
+        step_logits, state = transformer.decode_step(cfg2, p2, state,
+                                                     toks[:, i:i + 1])
+    pre_vs_decode = float((pre - step_logits).abs().max())
+    if not pre_vs_decode <= 2e-3:
+        raise AssertionError(f"prefill vs decode: {pre_vs_decode}")
+    emit(dict(phase="mamba_path", prefill=prefill,
+              prefill_32k_b1=dict(seq_len=32_768, wall_ms=long_ms,
+                                  ssd_chunk_launches=long_launches,
+                                  logits_finite=True),
+              serve=served,
               depth2_f32_card_vs_cpu_max_abs_err=card_vs_cpu,
               depth2_f32_prefill_vs_decode_max_abs_err=pre_vs_decode,
               logit_scale=float(cpu.abs().max())))
@@ -717,6 +981,9 @@ def main(argv) -> int:
     attn_err = check_flash_attention(torch, dev)
     t_attn = time_flash_attention(torch, dev)
     flash_launches = serve_path(torch, dev, t_attn["ms"])
+    ssd_err = check_ssd_chunk(torch, dev)
+    t_ssd = time_ssd(torch, dev)
+    ssd_launches = mamba_path(torch, dev, t_ssd["ms"])
 
     src = "src/repro_torch/kernels/csrc/"
     t_sel, t_agg = timing["fed_select_n1048576"], timing[
@@ -738,6 +1005,11 @@ def main(argv) -> int:
              replaces="src/repro/kernels/flash_attention.py:77",
              launches=flash_launches, max_abs_err=attn_err,
              shape=list(LLAMA_ATTN), **{k: t_attn[k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+        dict(name="ssd_chunk", route="cuda", source=src + "ssd_chunk.cu",
+             replaces="src/repro/kernels/ssd_chunk.py:52",
+             launches=ssd_launches, max_abs_err=ssd_err,
+             shape=list(MAMBA_SSD), **{k: t_ssd[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
     ]
     print(gpu_line(), flush=True)

@@ -9,8 +9,8 @@ with plain PyTorch versions for the CPU.
     from repro_torch.sim import RunSpec, run_spec
     result = run_spec(RunSpec())            # the default F3AST cell on CUDA
 
-The model zoo's dense family serves llama3.2-1b
-(``repro_torch.launch.serve``); its prefill attention is a hand-written
-CUDA kernel too (``kernels/flash_attention``).
+The model zoo serves llama3.2-1b (dense) and mamba2-2.7b (ssm) through
+``repro_torch.launch.serve``; their prefills run hand-written CUDA
+kernels too (``kernels/flash_attention``, ``kernels/ssd_chunk``).
 """
 __version__ = "0.1.0"

@@ -1,30 +1,24 @@
 """Configs of the port: the paper's tasks and the assigned architectures
-(``--arch <id>`` resolution).  Of the JAX package's ten architectures only
-llama3.2-1b is ported; the others raise ``NotImplementedError`` naming
-their ROADMAP.md item."""
+(``--arch <id>`` resolution).  Of the JAX package's ten architectures
+llama3.2-1b and mamba2-2.7b are ported; the others raise
+``NotImplementedError`` naming their ROADMAP.md item."""
 from __future__ import annotations
 
 from ..registry import lookup
-from . import llama3_2_1b
+from . import llama3_2_1b, mamba2_2_7b
 from .common import INPUT_SHAPES, ArchSpec
 from .paper_tasks import PAPER_TASKS, SYNTHETIC, PaperTask
 
-ARCHS = {m.SPEC.arch_id: m.SPEC for m in (llama3_2_1b,)}
+ARCHS = {m.SPEC.arch_id: m.SPEC for m in (llama3_2_1b, mamba2_2_7b)}
 
-# the JAX package's other architectures -> (ROADMAP.md queue, item)
-DEFERRED_ARCHS = {
-    "mamba2-2.7b": (2, 4),
-    **{a: (1, 12) for a in ("qwen3-8b", "qwen3-14b", "gemma-7b",
-                            "llava-next-34b", "mixtral-8x22b",
-                            "recurrentgemma-2b", "grok-1-314b",
-                            "whisper-small")},
-}
+# the JAX package's other architectures: ROADMAP.md queue 1 item 12
+DEFERRED_ARCHS = ("qwen3-8b", "qwen3-14b", "gemma-7b", "llava-next-34b",
+                  "mixtral-8x22b", "recurrentgemma-2b", "grok-1-314b",
+                  "whisper-small")
 
 
 def get_arch(arch_id: str) -> ArchSpec:
-    queue, item = DEFERRED_ARCHS.get(str(arch_id).lower(), (1, 12))
-    return ARCHS[lookup("arch", arch_id, ARCHS, DEFERRED_ARCHS, item,
-                        queue=queue)]
+    return ARCHS[lookup("arch", arch_id, ARCHS, DEFERRED_ARCHS, 12)]
 
 
 __all__ = ["ARCHS", "DEFERRED_ARCHS", "get_arch", "ArchSpec",

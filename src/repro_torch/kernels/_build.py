@@ -32,6 +32,7 @@ SOURCES: Dict[str, tuple] = {
     "fed_select": ("fed_select.cu", ("--fmad=false",)),
     "fed_aggregate": ("fed_aggregate.cu", ()),
     "flash_attention": ("flash_attention.cu", ()),
+    "ssd_chunk": ("ssd_chunk.cu", ()),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -114,6 +115,9 @@ _SIGNATURES = {
     "flash_attention": {
         "flash_attention_launch": ([_VP] * 4 + [_I] * 7 + [_I64] * 9
                                    + [_I, _I, _F, _F, _VP], _I),
+    },
+    "ssd_chunk": {
+        "ssd_chunk_launch": ([_VP] * 8 + [_I] * 7 + [_I64] * 13 + [_VP], _I),
     },
 }
 

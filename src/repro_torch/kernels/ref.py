@@ -1,13 +1,15 @@
 """Plain PyTorch versions of the port's kernels (their CPU path and their
 oracle on the card).
 
-Port of ``repro.kernels.ref``'s ``fed_select``, ``fed_aggregate`` and
-``attention_ref`` oracles, op for op, so that on the CPU they are bitwise
-(``fed_select``) or allclose (``fed_aggregate``, attention) to the JAX
+Port of ``repro.kernels.ref``'s ``fed_select``, ``fed_aggregate``,
+``attention_ref`` and ``ssd_chunk_ref`` oracles, op for op, so that on the
+CPU they are bitwise (``fed_select``) or allclose (the others) to the JAX
 package's.  The attention of the model (``sdpa``: dense, or the chunked
 online softmax for long sequences, as ``repro.models.layers`` computes it)
 lives here too, as the plain version of the ``flash_attention`` kernel;
-``repro_torch.models.layers`` re-exports it.
+``repro_torch.models.layers`` re-exports it.  So does the model's chunked
+SSD (``ssd_ref``, ``repro.models.ssm._ssd_chunked``), the plain version of
+the composed ``kernels.ssd_chunk.ssd``.
 """
 from __future__ import annotations
 
@@ -236,3 +238,82 @@ def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
     the (Sq, Skv) scores in float32, masked with -1e30, softmax, output in
     q's dtype.  q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd)."""
     return _dense_sdpa(q, k, v, causal=causal, window=window, softcap=softcap)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD: the plain versions of the ssd_chunk kernel and of ssd
+# ---------------------------------------------------------------------------
+
+
+def ssd_chunk_ref(x, dt, A, Bm, Cm):
+    """Intra-chunk SSD pieces (``repro.kernels.ref.ssd_chunk_ref``).
+
+    x: (B, nc, Q, H, P); dt: (B, nc, Q, H) float32; A: (H,) float32;
+    Bm, Cm: (B, nc, Q, N).  Returns float32 (y_intra (B, nc, Q, H, P),
+    states (B, nc, H, N, P), decays (B, nc, H))."""
+    a = dt * A[None, None, None, :]                       # (B, nc, Q, H)
+    cum = torch.cumsum(a, dim=2)
+    Q = x.shape[2]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    tri = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
+    L = torch.where(tri[None, None, :, :, None], torch.exp(diff),
+                    torch.zeros((), device=x.device))
+    scores = torch.einsum("bcin,bcjn->bcij", Cm.to(torch.float32),
+                          Bm.to(torch.float32))
+    M = scores[..., None] * L
+    xdt = x.to(torch.float32) * dt[..., None]
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", M, xdt)
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)
+    states = torch.einsum("bcjh,bcjn,bcjhp->bchnp", decay_to_end * dt,
+                          Bm.to(torch.float32), x.to(torch.float32))
+    decays = torch.exp(cum[:, :, -1, :])
+    return y_intra, states, decays
+
+
+def ssd_ref(x, dt, A, Bm, Cm, chunk: int):
+    """Chunked SSD, the dual form of Mamba-2 (``repro.models.ssm.
+    _ssd_chunked``): x (B, S, H, P), dt (B, S, H), A (H,), Bm and Cm
+    (B, S, N) -> y (B, S, H, P) in x's dtype.
+
+    L is masked BEFORE the exp (for i < j the difference is positive and
+    would overflow), and the inter-chunk recurrence emits the state from
+    before each chunk."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = chunk
+    if S % Q:
+        raise ValueError(f"sequence length {S} is not a multiple of the "
+                         f"chunk {Q}")
+    nc = S // Q
+    a = dt * A[None, None, :]
+    xr = x.reshape(Bsz, nc, Q, H, P)
+    ar = a.reshape(Bsz, nc, Q, H)
+    dtr = dt.reshape(Bsz, nc, Q, H)
+    Br = Bm.reshape(Bsz, nc, Q, N).to(torch.float32)
+    Cr = Cm.reshape(Bsz, nc, Q, N).to(torch.float32)
+
+    cum = torch.cumsum(ar, dim=2)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    tri = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
+    L = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                              torch.full((), -1e30, device=x.device)))
+    scores = torch.einsum("bcin,bcjn->bcij", Cr, Br)
+    M = scores[..., None] * L
+    xdt = xr.to(torch.float32) * dtr[..., None]
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", M, xdt)
+
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)
+    chunk_states = torch.einsum("bcjh,bcjn,bcjhp->bchnp", decay_to_end * dtr,
+                                Br, xr.to(torch.float32))
+    chunk_decay = torch.exp(cum[:, :, -1, :])
+
+    h = torch.zeros(Bsz, H, N, P, dtype=torch.float32, device=x.device)
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)                           # the state before chunk c
+        h = h * chunk_decay[:, c, :, None, None] + chunk_states[:, c]
+    h_prev = torch.stack(h_prev, dim=1)            # (B, nc, H, N, P)
+
+    y_inter = torch.einsum("bcin,bcih,bchnp->bcihp", Cr, torch.exp(cum),
+                           h_prev)
+    return (y_intra + y_inter).reshape(Bsz, S, H, P).to(x.dtype)

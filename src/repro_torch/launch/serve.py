@@ -3,10 +3,13 @@ architecture — the deployment path of the federated global model (port of
 ``repro.launch.serve``).
 
   python -m repro_torch.launch.serve --arch llama3.2-1b [--full]
+  python -m repro_torch.launch.serve --arch mamba2-2.7b [--full]
 
 Runs on CUDA unless ``--device cpu`` is given.  The prompt is drawn with
 the port's threefry, so it is the JAX package's prompt for the same seed;
 the weights are random from the same seed (``transformer.init_params``).
+Decode steps a KV cache (dense) or the O(1) recurrent state (mamba2); no
+full-sequence kernel (flash attention, ssd_chunk) runs.
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ def serve(arch_id: str, batch: int = 4, prompt_len: int = 16,
           steps: int = 32, max_len: int = 128, seed: int = 0,
           smoke: bool = True, log_fn=print, device=None) -> ServeResult:
     """Step the prompt through ``decode_step``, then decode ``steps``
-    greedy tokens.  The loop keeps the tokens on the device and waits for
+    greedy tokens (``max_len`` sizes the KV cache; mamba2's state does not
+    grow with it).  The loop keeps the tokens on the device and waits for
     it once, at the end."""
     device = resolve_device(device)
     arch = get_arch(arch_id)

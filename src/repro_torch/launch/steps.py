@@ -15,7 +15,7 @@ def build_prefill_step(arch: ArchSpec, shape_name: str):
     """Returns ``(prefill, batch_shapes)``: ``prefill(params, batch)`` gives
     the last position's logits (B, 1, V), and ``batch_shapes`` is
     ``{"tokens": ((B, S), torch.int32)}`` (``specs.prefill_batch_specs``
-    of the dense family)."""
+    of the dense and ssm families)."""
     if shape_name not in INPUT_SHAPES:
         raise ValueError(f"{shape_name!r}: only the prefill shapes "
                          f"{sorted(INPUT_SHAPES)} are ported (train and "

@@ -1,5 +1,6 @@
 """Model zoo of the port: the paper's softmax regression and, of the
-assigned architectures, the dense decoder family (``transformer``).
+assigned architectures, the dense and ssm (Mamba-2) decoder families
+(``transformer``, ``ssm``).
 
 ``get_model_api(cfg)`` returns a uniform API namespace for a ModelConfig,
 as ``repro.models.get_model_api`` does; families this port does not run
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import types
 
-from . import softmax_reg, transformer
+from . import softmax_reg, ssm, transformer
 from .layers import ModelConfig
 
 
@@ -28,4 +29,5 @@ def get_model_api(cfg: ModelConfig):
     )
 
 
-__all__ = ["ModelConfig", "get_model_api", "softmax_reg", "transformer"]
+__all__ = ["ModelConfig", "get_model_api", "softmax_reg", "ssm",
+           "transformer"]

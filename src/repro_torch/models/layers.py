@@ -263,6 +263,13 @@ def _silu(x):
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
+def _softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``, spelled as JAX spells it,
+    max(x, 0) + log1p(exp(-|x|)).  (``F.softplus`` returns x above a
+    threshold of 20 and rounds elsewhere with another formula.)"""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
 def _gelu(x):
     """``jax.nn.gelu`` (approximate=True, its default)."""
     c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)

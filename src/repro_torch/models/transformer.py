@@ -1,8 +1,8 @@
-"""Decoder-only model assembly, dense family (port of
+"""Decoder-only model assembly, dense and ssm families (port of
 ``repro.models.transformer``).  One nested dict of parameters with the
 blocks stacked along a leading layer axis; a Python loop over that axis
 takes the place of ``lax.scan``.  Full-sequence forward and prefill, and
-the KV-cache decode path.
+the decode path: a KV cache (dense) or an O(1) recurrent state (ssm).
 
     init_params(cfg, key, device=None)            -> params
     forward(cfg, params, batch)                   -> (logits, aux)
@@ -10,7 +10,7 @@ the KV-cache decode path.
     decode_step(cfg, params, state, tok_t)        -> (logits, state)
     prefill(cfg, params, batch)                   -> last-position logits
 
-The other families (moe, ssm, hybrid, vlm, audio) raise
+The other families (moe, hybrid, vlm, audio) raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
@@ -22,21 +22,19 @@ import torch
 
 from ..device import resolve_device
 from ..registry import lookup
+from . import ssm as ssm_lib
 from .layers import (ModelConfig, _normal, attention_block, attention_decode,
                      init_attention, init_mlp, init_rms, mlp_block, rms_norm)
 
-# the JAX package's other families -> (ROADMAP.md queue, item)
-DEFERRED_FAMILIES = {"moe": (1, 12), "ssm": (2, 4), "hybrid": (1, 12),
-                     "vlm": (1, 12), "audio": (1, 12)}
+# the JAX package's other families: ROADMAP.md queue 1 item 12
+DEFERRED_FAMILIES = ("moe", "hybrid", "vlm", "audio")
 _MLPS = ("swiglu", "geglu", "gelu")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port does not run yet:
-    any family but dense, and MoE blocks."""
-    queue, item = DEFERRED_FAMILIES.get(cfg.family, (1, 12))
-    lookup("family", cfg.family, ("dense",), DEFERRED_FAMILIES, item,
-           queue=queue)
+    any family but dense and ssm, and MoE blocks."""
+    lookup("family", cfg.family, ("dense", "ssm"), DEFERRED_FAMILIES, 12)
     lookup("mlp", cfg.mlp, _MLPS, ("moe",), 12)
 
 
@@ -57,6 +55,18 @@ def _dense_block_decode(p, x, cfg: ModelConfig, cache, index, window: int):
     h = x + a
     return h + mlp_block(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps),
                          cfg), cache
+
+
+def _ssm_block(p, x, cfg: ModelConfig):
+    return x + ssm_lib.mamba2_block(p["mixer"],
+                                    rms_norm(x, p["ln"], cfg.norm_eps), cfg)
+
+
+def _ssm_block_decode(p, x, cfg: ModelConfig, state):
+    y, state = ssm_lib.mamba2_decode(p["mixer"],
+                                     rms_norm(x, p["ln"], cfg.norm_eps), cfg,
+                                     state)
+    return x + y, state
 
 
 def _layer(tree, i: int):
@@ -97,6 +107,12 @@ def init_params(cfg: ModelConfig, key: torch.Tensor, device=None
         params["unembed"] = _normal(gen, (cfg.d_model, cfg.vocab), emb_scale,
                                     dt, device)
     lead = (cfg.n_layers,)
+    if cfg.family == "ssm":
+        params["blocks"] = {
+            "ln": init_rms(cfg.d_model, dt, device, lead),
+            "mixer": ssm_lib.init_mamba2(gen, cfg, device, lead),
+        }
+        return params
     params["blocks"] = {
         "ln1": init_rms(cfg.d_model, dt, device, lead),
         "ln2": init_rms(cfg.d_model, dt, device, lead),
@@ -127,10 +143,15 @@ def _embed_inputs(cfg: ModelConfig, params, batch):
 def backbone(cfg: ModelConfig, params, x):
     """Run the stacked blocks over embeddings x: (B, S, d)."""
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device).expand(B, S)
-    w = _window(cfg)
-    for i in range(cfg.n_layers):
-        x = _dense_block(_layer(params["blocks"], i), x, cfg, positions, w)
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            x = _ssm_block(_layer(params["blocks"], i), x, cfg)
+    else:
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        w = _window(cfg)
+        for i in range(cfg.n_layers):
+            x = _dense_block(_layer(params["blocks"], i), x, cfg, positions,
+                             w)
     return x, {"lb_loss": torch.zeros((), dtype=torch.float32,
                                       device=x.device)}
 
@@ -155,7 +176,7 @@ def prefill(cfg: ModelConfig, params, batch):
     Only the last position is unembedded.  The JAX package computes every
     position's logits and slices; the rows are the same function, and at
     S = 8192 with llama3.2-1b's 128,256-token vocabulary the full bf16
-    logits would take 2.1 GB."""
+    logits would take 2.1 GB (mamba2-2.7b's at S = 32,768: 3.3 GB)."""
     x, _ = _embed_inputs(cfg, params, batch)
     x, _ = backbone(cfg, params, x)
     return unembed(cfg, params, x[:, -1:, :])
@@ -176,24 +197,37 @@ def _kv_cache_init(cfg: ModelConfig, batch: int, max_len: int, window: int,
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device=None):
-    """{"index": int32 scalar, "caches": {"k", "v"} stacked over layers}."""
+    """{"index": int32 scalar, "caches": stacked over layers}: the KV
+    caches {"k", "v"} (dense), or the recurrent state {"ssm", "conv"}
+    (ssm; O(1) in the sequence length, so ``max_len`` is not read)."""
     check_supported(cfg)
     device = resolve_device(device)
+    lead = (cfg.n_layers,)
+    if cfg.family == "ssm":
+        caches = ssm_lib.mamba2_init_state(cfg, batch, cfg.torch_dtype,
+                                           device, lead)
+    else:
+        caches = _kv_cache_init(cfg, batch, max_len, _window(cfg), device,
+                                lead)
     return {"index": torch.zeros((), dtype=torch.int32, device=device),
-            "caches": _kv_cache_init(cfg, batch, max_len, _window(cfg),
-                                     device, lead=(cfg.n_layers,))}
+            "caches": caches}
 
 
 def decode_step(cfg: ModelConfig, params, state, tok_t):
     """One decode step.  tok_t: (B, 1) int.  Returns (logits (B, 1, V),
-    state).  The KV caches of ``state`` are updated in place (see
-    ``layers.attention_decode``); the returned state holds the same cache
-    tensors and a new index."""
+    state).  The caches of ``state`` are updated in place (see
+    ``layers.attention_decode`` and ``ssm.mamba2_decode``); the returned
+    state holds the same cache tensors and a new index."""
     x = params["embed"][tok_t].to(cfg.torch_dtype)
     idx = state["index"]
-    w = _window(cfg)
     caches = state["caches"]
-    for i in range(cfg.n_layers):
-        x, _ = _dense_block_decode(_layer(params["blocks"], i), x, cfg,
-                                   _layer(caches, i), idx, w)
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            x, _ = _ssm_block_decode(_layer(params["blocks"], i), x, cfg,
+                                     _layer(caches, i))
+    else:
+        w = _window(cfg)
+        for i in range(cfg.n_layers):
+            x, _ = _dense_block_decode(_layer(params["blocks"], i), x, cfg,
+                                       _layer(caches, i), idx, w)
     return unembed(cfg, params, x), {"index": idx + 1, "caches": caches}

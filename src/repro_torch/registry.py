@@ -5,15 +5,15 @@ from typing import Container, Mapping
 
 
 def lookup(kind: str, name: str, registry: Mapping, deferred: Container,
-           item: int, queue: int = 1) -> str:
+           item: int) -> str:
     """The registry key for ``name``.  A name the JAX package has but this
     port does not yet raises ``NotImplementedError`` naming its ROADMAP.md
-    queue and item; an unknown name raises ``KeyError`` listing the known."""
+    queue 1 item; an unknown name raises ``KeyError`` listing the known."""
     key = str(name).lower()
     if key in registry:
         return key
     if key in deferred:
         raise NotImplementedError(
             f"{kind} {name!r} is not ported to repro_torch yet (ROADMAP.md "
-            f"queue {queue} item {item}); ported: {sorted(registry)}")
+            f"queue 1 item {item}); ported: {sorted(registry)}")
     raise KeyError(f"unknown {kind} {name!r}; known: {sorted(registry)}")

@@ -154,3 +154,95 @@ def test_llama_smoke_prefill_card_matches_cpu(dev):
     assert flash_attention.launches == before + cfg.n_layers
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+# (B, nc, Q, H, P, N): the shapes of tests/test_kernels.py's SSD test, the
+# mamba2 smoke config, the ssm case of tests/test_models_consistency.py, a
+# ragged one (no dimension a multiple of 4) and two chunks of mamba2-2.7b's
+# layer (80 heads: ten blocks of 8)
+SSD_SHAPES = [(1, 4, 16, 2, 16, 8), (2, 4, 32, 4, 32, 16),
+              (1, 2, 128, 2, 64, 128), (1, 8, 8, 8, 32, 16),
+              (2, 2, 8, 8, 16, 16), (1, 3, 13, 5, 10, 7),
+              (1, 2, 128, 80, 64, 128)]
+
+
+def _ssd_inputs(shape, seed):
+    """x, B, C ~ N(0, 1), dt = softplus(N(0, 1)), A = -exp(0.3 N(0, 1))."""
+    B, nc, Q, H, P, N = shape
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, nc, Q, H, P)).astype(np.float32),
+            np.logaddexp(rng.normal(size=(B, nc, Q, H)), 0).astype(np.float32),
+            (-np.exp(0.3 * rng.normal(size=H))).astype(np.float32),
+            rng.normal(size=(B, nc, Q, N)).astype(np.float32),
+            rng.normal(size=(B, nc, Q, N)).astype(np.float32))
+
+
+def _check_ssd(got, want):
+    """The limits of tests/test_kernels.py::test_ssd_chunk_allclose."""
+    for g, w, tol in zip(got, want, ((1e-4, 1e-4), (1e-4, 1e-4),
+                                     (1e-5, 1e-6))):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunk_kernel_allclose(dev, shape, dtype):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    x, dt, A, Bm, Cm = (torch.from_numpy(a).to(dev)
+                        for a in _ssd_inputs(shape, sum(shape)))
+    x, Bm, Cm = (t.to(getattr(torch, dtype)) for t in (x, Bm, Cm))
+    before = ssd_chunk.launches
+    got = ssd_chunk(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    assert ssd_chunk.launches == before + 1
+    _check_ssd(got, ref.ssd_chunk_ref(x, dt, A, Bm, Cm))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunk_reads_strided_inputs(dev, dtype):
+    """x, Bm and Cm as the model passes them: views of one (B, S, H P +
+    2 N) row of the convolution's output."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    B, nc, Q, H, P, N = 2, 3, 32, 12, 64, 128
+    rng = np.random.default_rng(1)
+    xbc = torch.from_numpy(rng.normal(size=(B, nc * Q, H * P + 2 * N))
+                           .astype(np.float32)).to(getattr(torch, dtype)).to(dev)
+    x = xbc[..., :H * P].reshape(B, nc, Q, H, P)
+    Bm = xbc[..., H * P:H * P + N].reshape(B, nc, Q, N)
+    Cm = xbc[..., H * P + N:].reshape(B, nc, Q, N)
+    assert not x.is_contiguous()
+    _, dt, A, _, _ = (torch.from_numpy(a).to(dev)
+                      for a in _ssd_inputs((B, nc, Q, H, P, N), 2))
+    got = ssd_chunk(x, dt, A, Bm, Cm)
+    _check_ssd(got, ref.ssd_chunk_ref(x, dt, A, Bm, Cm))
+    # the same as on contiguous copies
+    again = ssd_chunk(x.contiguous(), dt, A, Bm.contiguous(), Cm.contiguous())
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+def test_mamba2_smoke_prefill_card_matches_cpu(dev):
+    """The smoke model's prefill through the kernel (one launch a layer)
+    against the same weights' CPU prefill through the plain version."""
+    from repro_torch import random as jr
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    from repro_torch.models import transformer
+    cfg = get_arch("mamba2-2.7b").smoke_model
+    params = transformer.init_params(cfg, jr.PRNGKey(0, device="cpu"), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32))
+    want = transformer.prefill(cfg, params, {"tokens": toks})
+
+    def to_dev(tree):
+        return ({k: to_dev(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree.to(dev))
+    before = ssd_chunk.launches
+    got = transformer.prefill(cfg, to_dev(params), {"tokens": toks.to(dev)})
+    assert ssd_chunk.launches == before + cfg.n_layers
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)

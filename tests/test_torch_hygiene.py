@@ -29,9 +29,11 @@ SLICE_MODULES = [
     "repro_torch.data", "repro_torch.models.softmax_reg",
     "repro_torch.optim", "repro_torch.configs",
     "repro_torch.configs.common", "repro_torch.configs.llama3_2_1b",
+    "repro_torch.configs.mamba2_2_7b",
     "repro_torch.models", "repro_torch.models.layers",
-    "repro_torch.models.transformer",
-    "repro_torch.kernels.flash_attention", "repro_torch.launch",
+    "repro_torch.models.transformer", "repro_torch.models.ssm",
+    "repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd_chunk",
+    "repro_torch.launch",
     "repro_torch.launch.serve", "repro_torch.launch.steps"]
 
 
@@ -97,12 +99,18 @@ def _entry_points():
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer
     llama = get_arch("llama3.2-1b").smoke_model
+    mamba = get_arch("mamba2-2.7b").smoke_model
     return {
         "serve": lambda: serve("llama3.2-1b", steps=1, log_fn=None),
         "transformer.init_params": lambda: transformer.init_params(
             llama, jr.PRNGKey(0, device="cpu")),
         "init_decode_state": lambda: transformer.init_decode_state(
             llama, 1, 8),
+        "serve(mamba2)": lambda: serve("mamba2-2.7b", steps=1, log_fn=None),
+        "transformer.init_params(mamba2)": lambda: transformer.init_params(
+            mamba, jr.PRNGKey(0, device="cpu")),
+        "init_decode_state(mamba2)": lambda: transformer.init_decode_state(
+            mamba, 1, 8),
         "build_task": lambda: build_task("synthetic11", 0),
         "PRNGKey": lambda: jr.PRNGKey(0),
         "make_strategy": lambda: make_strategy("f3ast", 4, np.full(4, 0.25)),
@@ -120,7 +128,9 @@ def _entry_points():
                                   "make_process", "make_budget", "init_rates",
                                   "init_params", "params_from_numpy",
                                   "serve", "transformer.init_params",
-                                  "init_decode_state"])
+                                  "init_decode_state", "serve(mamba2)",
+                                  "transformer.init_params(mamba2)",
+                                  "init_decode_state(mamba2)"])
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device is usable")
