@@ -45,12 +45,17 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  within one bf16 step of the plain output (2^-7 of its
                  magnitude + 1e-5: both round one float32 result once),
                  which at llama's shape, where outputs are ~0.02, is the
-                 check that binds; it reports each reference's RMS;
-7. ``flash_timing`` median CUDA-event times of the kernel, its plain
-                 version and ``scaled_dot_product_attention`` at llama's
-                 prefill shape, beside the bound (the larger of bytes over
-                 3.35 TB/s and the unmasked QK^T + PV flops over 989 TFLOP/s
-                 bf16);
+                 check that binds; plus bf16 cases through the tensor-core
+                 route at hd = 128, (1, 4096, 32, 8, 128) causal and with a
+                 window of 32 (smaller than a key tile), and llama's shape
+                 with that window; it reports each reference's RMS;
+7. ``flash_timing`` median CUDA-event times of the kernel (its bf16 route,
+                 on the tensor cores, and its float32 route, on the CUDA
+                 cores), its plain version and
+                 ``scaled_dot_product_attention`` at llama's prefill shape,
+                 beside the bound (the larger of bytes over 3.35 TB/s and
+                 the unmasked QK^T + PV flops over 989 TFLOP/s bf16), the
+                 bf16 route's TFLOP/s and its share of the bound;
 8. ``serve_path`` drives llama3.2-1b at full width: (a) one ``prefill``
                  of B = 1, S = 8192 (16 layers, bf16) with the launch count
                  set to 0 just before, which must launch the kernel exactly
@@ -468,6 +473,10 @@ TEST_ATTN_SHAPES = [(1, 128, 4, 4, 64), (2, 256, 4, 2, 64),
                     (1, 256, 8, 1, 32), (1, 512, 4, 2, 128)]
 LLAMA_ATTN = (1, 8192, 32, 8, 64)   # llama3.2-1b prefill, B = 1, S = 8192
 RAGGED_ATTN = (2, 1000, 32, 8, 64)
+HD128_ATTN = (1, 4096, 32, 8, 128)  # the largest head dim, two KV tiles a row
+# a window smaller than the kernel's 64-key tile: every visited tile is an
+# edge tile, and a row's first visited tile can hide all its keys
+WINDOW32 = dict(causal=True, window=32, softcap=0.0)
 
 
 def attn_inputs(torch, dev, shape, dtype, seed):
@@ -498,11 +507,15 @@ def check_flash_attention(torch, dev):
     cases += [(RAGGED_ATTN, dtype, mode)
               for dtype in (torch.float32, torch.bfloat16)
               for mode in ATTN_MODES]
+    cases += [(HD128_ATTN, torch.bfloat16, "causal"),
+              (HD128_ATTN, torch.bfloat16, "window32"),
+              (LLAMA_ATTN, torch.bfloat16, "window32")]
+    modes = dict(ATTN_MODES, window32=WINDOW32)
     rows, max_err, llama = [], {}, {}
     for i, (shape, dtype, mode) in enumerate(cases):
         q, k, v = attn_inputs(torch, dev, shape, dtype, i)
-        got = flash_attention(q, k, v, **ATTN_MODES[mode])
-        want = ref.sdpa(q, k, v, **ATTN_MODES[mode])
+        got = flash_attention(q, k, v, **modes[mode])
+        want = ref.sdpa(q, k, v, **modes[mode])
         torch.cuda.synchronize()
         dname = str(dtype).split(".")[-1]
         tol = ATTN_TOL[dname]
@@ -520,7 +533,7 @@ def check_flash_attention(torch, dev):
         rows.append(dict(shape=list(shape), dtype=dname, mode=mode,
                          max_abs_err=err, ref_rms=rms, tol=tol, ok=ok))
         max_err[dname] = max(max_err.get(dname, 0.0), err)
-        if shape == LLAMA_ATTN:
+        if shape == LLAMA_ATTN and mode == "causal":
             llama[dname] = dict(max_abs_err=err, ref_rms=rms,
                                 err_over_rms=err / rms)
         if not ok:
@@ -549,9 +562,13 @@ def time_flash_attention(torch, dev):
     flops = 4.0 * B * H * hd * pairs          # QK^T and PV, 2 flops a MAC
     nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)  # q, o, k, v
     b, by = bound_ms(nbytes, flops, peak=BF16_FLOPS)
+    q32, k32, v32 = (x.float() for x in (q, k, v))
     row = dict(shape=list(LLAMA_ATTN), dtype="bfloat16", mode="causal",
                ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True),
                           warmup=2, runs=15),
+               f32_ms=cuda_ms(lambda: flash_attention(q32, k32, v32,
+                                                      causal=True),
+                              warmup=1, runs=9),
                plain_ms=cuda_ms(lambda: ref.sdpa(q, k, v, causal=True),
                                 warmup=2, runs=9),
                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -559,6 +576,7 @@ def time_flash_attention(torch, dev):
                    warmup=3, runs=15),
                bound_ms=b, bound_by=by, flops=flops, bytes=nbytes)
     row["tflops_per_s"] = flops / row["ms"] / 1e9
+    row["bound_share"] = b / row["ms"]
     emit(dict(phase="flash_timing", kernel=row))
     return row
 
@@ -812,6 +830,7 @@ def time_ssd(torch, dev):
                library_ms=None, bound_ms=b, bound_by=by, flops=flops,
                bytes=nbytes)
     row["tflops_per_s"] = flops / row["ms"] / 1e9
+    row["bound_share"] = b / row["ms"]
     row["gb_per_s"] = nbytes / row["ms"] / 1e6
     emit(dict(phase="ssd_timing", kernel=row))
     return row
@@ -1004,8 +1023,12 @@ def main(argv) -> int:
              source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:77",
              launches=flash_launches, max_abs_err=attn_err,
+             routes={"bfloat16": "tensor cores (mma.sync m16n8k16, P split "
+                                 "into bf16 hi + lo); ms",
+                     "float32": "CUDA cores; f32_ms"},
              shape=list(LLAMA_ATTN), **{k: t_attn[k] for k in (
-                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+                 "ms", "f32_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")}),
         dict(name="ssd_chunk", route="cuda", source=src + "ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_chunk.py:52",
              launches=ssd_launches, max_abs_err=ssd_err,

@@ -10,7 +10,7 @@
 // sum and the accumulator are float32; o is written in q's dtype (float32
 // or bf16).  The final divide is by max(l, 1e-30).
 //
-// Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention.py:
+// Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention.py:77,
 // flash_attention (body _flash_kernel).  The oracle is
 // repro_torch/kernels/ref.py::sdpa (dense, or chunked above 2048^2 scores).
 //
@@ -21,44 +21,60 @@
 // bf16 tensor cores stop waiting on memory, so the least time is the FLOP
 // bound, 0.278 ms at 989 TFLOP/s.
 //
-// Design.  This first kernel is simple and right; it runs on the CUDA
-// cores in float32 (67 TFLOP/s at most), so it stays far from that bound
-// and the f32 limit of 2e-5 against the plain version holds.  Tensor cores
-// (mma.sync / wgmma with TMA) are for a later kernel.  What it does about
-// the FLOP bound within that:
-//   * One block per (tile of 64 rows, KV head, batch), 128 threads.  A row
-//     is one (query position, query head of the group) pair, taken
-//     position-major, so the G heads that share a KV head share each K/V
-//     tile staged in shared memory (the TPU kernel's (G * bq, hd) fold),
-//     and any G, Sq and Skv work: the kernel masks the ragged edges itself.
-//   * A loop over K/V tiles of 64 keys inside the block takes the place of
-//     the TPU grid's sequential kv axis.  Tiles that the causal or window
-//     mask hides entirely are skipped, which halves the causal work; tiles
-//     are visited in reverse row order so the longest blocks start first.
-//   * Each thread owns a 4-row x 8-key tile of scores and a 4-row x hd/8
-//     tile of the output, so QK^T and PV each do 32 FMAs for three 16-byte
-//     shared-memory loads.  Q and K are staged transposed (d-major) and P
-//     key-major, so those loads are float4 reads of consecutive addresses.
-//   * q, k and v are read in their (B, S, heads, hd) layout through their
-//     strides: no transposed copy is made.
+// Two routes, chosen in flash_attention_launch by dtype.  Both take one
+// block per (tile of rows, KV head, batch), where a row is one (query
+// position, query head of the group) pair taken position-major, so the G
+// heads that share a KV head share each K/V tile staged in shared memory
+// (the TPU kernel's (G * bq, hd) fold) and any G, Sq and Skv work: the
+// kernel masks the ragged edges itself.  A loop over K/V tiles of 64 keys
+// inside the block takes the place of the TPU grid's sequential kv axis;
+// tiles that the causal or window mask hides entirely are skipped, which
+// halves the causal work, and the longest row tiles are launched first.
+// q, k and v are read in their (B, S, heads, hd) layout through their
+// strides: no transposed copy is made.
+//
+// * bf16: the tensor cores (flash_kernel_mma).  64 rows a block, 16 per
+//   warp (8 warps of 16 measured no faster: K/V traffic is not what bounds
+//   it).  S = Q K^T and O += P V run as mma.sync m16n8k16 (bf16 in, f32
+//   accumulate); q and k are bf16, so the products are exact and S is the
+//   same float32 dot product the plain version forms, up to summation
+//   order.  Q is staged once and kept in registers as A fragments; K and V
+//   tiles are double-buffered in shared memory by 16-byte cp.async copies
+//   (keys past Skv zero-filled: v must be 0 there, as 0 * garbage can be
+//   NaN), in an XOR-swizzled layout so that ldmatrix (K) and ldmatrix.trans
+//   (V) run without bank conflicts.  The online softmax runs on the quad of
+//   lanes that holds a row in the accumulator layout, with exp on the
+//   special-function unit; the soft-cap and the mask each sit in a branch
+//   around a whole loop, so the common path's code stays short (inside the
+//   per-score loop they cost 1.8x).
+//   Why P is split: the product P V takes bf16 operands, and rounding the
+//   softmax weights P to bf16 once (the usual tensor-core design) moves
+//   ~10% of the outputs by more than one bf16 step from the plain version
+//   (9.6% at llama's shape on the H100), which rounds one float32 result
+//   once; the port holds every bf16 lane within that step.  So each float32 P is split into hi = bf16(P) and
+//   lo = bf16(P - hi), both built straight from the S accumulators (the
+//   m16n8k16 C layout is its A layout), and O += hi V + lo V: P is carried
+//   to ~2^-17 of itself, at 1.5x the tensor-core work of one bf16 P (on
+//   the H100 at llama's shape the lo products cost ~20% of the kernel's
+//   time).  The sum l is taken over the float32 P.  What keeps it from the
+//   FLOP bound is mma.sync itself (Hopper's full tensor-core rate needs
+//   wgmma) and the softmax's scalar work between the products; wgmma fed
+//   by TMA, with a producer warp, is the next step.
+// * float32: the CUDA cores (flash_kernel).  TF32 would not hold the 2e-5
+//   limit against the plain version.  64 rows a block; each thread owns a
+//   4-row x 8-key tile of scores and a 4-row x hd/8 tile of the output, so
+//   QK^T and PV each do 32 FMAs for three 16-byte shared-memory loads.  Q
+//   and K are staged transposed (d-major) and P key-major, so those loads
+//   are float4 reads of consecutive addresses.  It runs at up to 67
+//   TFLOP/s, far from the bf16 bound.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kRows = 64;            // (position, group head) rows per block
-constexpr int kKeys = 64;            // keys per K/V tile
-constexpr int kThreads = 128;        // 16 row groups x 8 key groups
-constexpr int kRowsPerThread = 4;
-constexpr int kKeysPerThread = 8;
-constexpr int kPad = 4;              // keeps float4 alignment
+constexpr int kKeys = 64;            // keys per K/V tile (both routes)
 constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 struct Args {
   const void* q; const void* k; const void* v; void* o;
@@ -68,6 +84,29 @@ struct Args {
   float softcap, scale;
 };
 
+// The first K/V tile some row of positions [q_lo, q_hi] can see, and the
+// end of the keys they can see.
+__device__ __forceinline__ void key_range(const Args& a, int q_lo, int q_hi,
+                                          int* k_begin, int* k_end) {
+  int lo = 0, hi = a.Skv;
+  if (a.causal) hi = min(hi, q_hi + 1);
+  if (a.window > 0) lo = max(0, q_lo - a.window + 1);
+  *k_begin = (lo / kKeys) * kKeys;
+  *k_end = hi;
+}
+
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
+
+namespace simt {
+
+constexpr int kRows = 64;            // (position, group head) rows per block
+constexpr int kThreads = 128;        // 16 row groups x 8 key groups
+constexpr int kRowsPerThread = 4;
+constexpr int kKeysPerThread = 8;
+constexpr int kPad = 4;              // keeps float4 alignment
+
 template <int HD>
 constexpr int smem_floats() {
   return HD * (kRows + kPad)        // Qs[d][row]
@@ -76,7 +115,7 @@ constexpr int smem_floats() {
        + kKeys * (kRows + kPad);    // Ps[key][row]
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const Args a) {
   constexpr int kCols = HD / 8;     // output columns per thread
@@ -86,10 +125,10 @@ flash_kernel(const Args a) {
   float* Vs = Ks + HD * (kKeys + kPad);
   float* Ps = Vs + kKeys * HD;
 
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  T* o = static_cast<T*>(a.o);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  float* o = static_cast<float*>(a.o);
 
   const int tile = gridDim.x - 1 - blockIdx.x;     // longest tiles first
   const int kvh = blockIdx.y;
@@ -100,14 +139,14 @@ flash_kernel(const Args a) {
   const int row0 = tile * kRows;
   const int n_rows = a.Sq * G;
 
-  // Stage the block's q rows, transposed, in float32.
+  // Stage the block's q rows, transposed.
   for (int idx = tid; idx < kRows * HD; idx += kThreads) {
     const int r = idx / HD, d = idx % HD;
     const int gr = row0 + r;
     float x = 0.0f;
     if (gr < n_rows) {
       const int pos = gr / G, h = kvh * G + gr % G;
-      x = to_f32(q[b * a.qsb + pos * a.qss + h * a.qsh + d]);
+      x = q[b * a.qsb + pos * a.qss + h * a.qsh + d];
     }
     Qs[d * (kRows + kPad) + r] = x;
   }
@@ -117,13 +156,9 @@ flash_kernel(const Args a) {
   for (int i = 0; i < kRowsPerThread; ++i)
     qpos[i] = (row0 + rg * kRowsPerThread + i) / G;
 
-  // The keys some row of this block can see.
-  const int q_lo = row0 / G;
-  const int q_hi = min((row0 + kRows - 1) / G, a.Sq - 1);
-  int k_begin = 0, k_end = a.Skv;
-  if (a.causal) k_end = min(k_end, q_hi + 1);
-  if (a.window > 0) k_begin = max(0, q_lo - a.window + 1);
-  k_begin = (k_begin / kKeys) * kKeys;
+  int k_begin, k_end;
+  key_range(a, row0 / G, min((row0 + kRows - 1) / G, a.Sq - 1), &k_begin,
+            &k_end);
 
   float m[kRowsPerThread], l[kRowsPerThread];
   float acc[kRowsPerThread][kCols];
@@ -142,8 +177,8 @@ flash_kernel(const Args a) {
       const int kp = kt + j;
       float kx = 0.0f, vx = 0.0f;
       if (kp < a.Skv) {
-        kx = to_f32(k[b * a.ksb + kp * a.kss + kvh * a.ksh + d]);
-        vx = to_f32(v[b * a.vsb + kp * a.vss + kvh * a.vsh + d]);
+        kx = k[b * a.ksb + kp * a.kss + kvh * a.ksh + d];
+        vx = v[b * a.vsb + kp * a.vss + kvh * a.vsh + d];
       }
       Ks[d * (kKeys + kPad) + j] = kx;
       Vs[j * HD + d] = vx;
@@ -251,34 +286,399 @@ flash_kernel(const Args a) {
     if (gr >= n_rows) continue;
     const int pos = gr / G, h = kvh * G + gr % G;
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
-    T* out = o + ((static_cast<int64_t>(b) * a.Sq + pos) * a.H + h) * HD
-             + cg * kCols;
+    float* out = o + ((static_cast<int64_t>(b) * a.Sq + pos) * a.H + h) * HD
+                 + cg * kCols;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) store(out + c, acc[i][c] * inv);
+    for (int c = 0; c < kCols; ++c) out[c] = acc[i][c] * inv;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const Args& a, int B, int KV, cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t rows = static_cast<int64_t>(a.Sq) * a.G;
   const dim3 grid(static_cast<unsigned>((rows + kRows - 1) / kRows), KV, B);
-  flash_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(a);
+  flash_kernel<HD><<<grid, kThreads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const Args& a, int B, int KV, int hd, cudaStream_t stream) {
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kWarps = 4;
+constexpr int kRows = 16 * kWarps;   // fold rows per block, 16 per warp
+constexpr int kThreads = 32 * kWarps;
+constexpr int kNT = kKeys / 8;       // 8-key column tiles of S per warp
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte copy; src_bytes = 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
+                                              uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr) : "memory");
+}
+
+// c += a b for one m16n8k16 tile (a 16x16 row-major, b 16x8 column-major).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// p0, p1 -> hi = bf16(p), lo = bf16(p - hi), each as a bf16 pair (the
+// lower column in the low half).
+__device__ __forceinline__ void split(float p0, float p1, uint32_t* hi,
+                                      uint32_t* lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  *hi = as_u32(h);
+  *lo = as_u32(__floats2bfloat162_rn(p0 - __low2float(h),
+                                     p1 - __high2float(h)));
+}
+
+// exp(x) as 2^(x log2 e), one instruction on the special-function unit:
+// within ~2^-22 of expf relative (results below 2^-126 flush to 0), far
+// below a bf16 step.  x = s - m is formed first, so a masked score at a
+// row's running max (-1e30 - -1e30) gives exactly 1 and one below a real
+// max gives 0, as with expf.
+__device__ __forceinline__ float exp_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// A tile of rows of HD bf16 values in shared memory, in 16-byte chunks.
+// Chunk c of row r is stored at chunk (c ^ f(r)), f chosen so that the 8
+// rows one ldmatrix phase reads at one column chunk fall in 8 different
+// 16-byte bank groups (rows of 64 or 32 bytes share a 128-byte line).
+template <int HD>
+struct Swizzle {
+  static constexpr int kChunks = HD / 8;
+  static constexpr int kRowsPerLine = kChunks >= 8 ? 1 : 8 / kChunks;
+  static constexpr int kMask = (kChunks >= 8 ? 8 : kChunks) - 1;
+  __device__ static __forceinline__ uint32_t off(int r, int c) {
+    return static_cast<uint32_t>(
+        (r * kChunks + (c ^ ((r / kRowsPerLine) & kMask))) * 16);
+  }
+};
+
+template <int HD>
+constexpr int smem_bytes() {
+  return (kRows + 4 * kKeys) * HD * 2;   // Q; K and V, two buffers each
+}
+
+// At hd <= 64, 128 registers a thread keep four blocks (16 warps) on an SM.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 4 : 2)
+flash_kernel_mma(const Args a, int n_tiles, int KV, int B) {
+  constexpr int kChunks = HD / 8;
+  constexpr int kSteps = HD / 16;    // k-steps of Q K^T
+  constexpr int kOut = HD / 8;       // 8-column tiles of O
+  constexpr uint32_t kTileBytes = kKeys * HD * 2;
+  using Sw = Swizzle<HD>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s_q = smem_u32(smem);
+  const uint32_t s_k = s_q + kRows * HD * 2;
+  const uint32_t s_v = s_k + 2 * kTileBytes;
+
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o);
+
+  // Blocks in launch order: every (KV head, batch) of the longest row tile,
+  // then of the next.
+  const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x) / (KV * B);
+  const int rest = static_cast<int>(blockIdx.x) % (KV * B);
+  const int kvh = rest % KV, b = rest / KV;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int G = a.G;
+  const int n_rows = a.Sq * G;
+  const int row0 = tile * kRows;
+
+  int k_begin, k_end;
+  key_range(a, row0 / G, min((row0 + kRows - 1) / G, a.Sq - 1), &k_begin,
+            &k_end);
+  const int n_kt = k_end > k_begin ? (k_end - k_begin + kKeys - 1) / kKeys
+                                   : 0;
+
+  // Stage Q (rows past the end are zeros).
+  for (int idx = tid; idx < kRows * kChunks; idx += kThreads) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    const int gr = row0 + r;
+    const __nv_bfloat16* src = q;
+    int bytes = 0;
+    if (gr < n_rows) {
+      const int pos = gr / G, h = kvh * G + gr % G;
+      src = q + b * a.qsb + pos * a.qss + h * a.qsh + c * 8;
+      bytes = 16;
+    }
+    cp_async16(s_q + Sw::off(r, c), src, bytes);
+  }
+  cp_async_commit();
+
+  // Each thread copies one 16-byte column chunk of every kRowStep-th key.
+  constexpr int kRowStep = kThreads / kChunks;
+  const int lr = tid / kChunks, lc = tid % kChunks;
+  const __nv_bfloat16* kg = k + b * a.ksb + kvh * a.ksh + lc * 8;
+  const __nv_bfloat16* vg = v + b * a.vsb + kvh * a.vsh + lc * 8;
+  auto load_kv = [&](int kt, int buf) {
+#pragma unroll
+    for (int r = lr; r < kKeys; r += kRowStep) {
+      const int kp = kt + r;
+      const bool in = kp < a.Skv;
+      const int64_t kr = in ? kp : 0;
+      const uint32_t dst = buf * kTileBytes + Sw::off(r, lc);
+      cp_async16(s_k + dst, kg + kr * a.kss, in ? 16 : 0);
+      cp_async16(s_v + dst, vg + kr * a.vss, in ? 16 : 0);
+    }
+  };
+  if (n_kt > 0) load_kv(k_begin, 0);
+  cp_async_commit();
+  cp_async_wait<1>();                // Q has landed
+  __syncthreads();
+
+  uint32_t qf[kSteps][4];            // A fragments of the warp's 16 rows
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk)
+    ldsm_x4(s_q + Sw::off(warp * 16 + lane % 16, 2 * kk + lane / 16),
+            qf[kk]);
+
+  // This thread holds rows r_a = wr0 + g and r_b = r_a + 8 of the warp's.
+  const int wr0 = row0 + warp * 16;
+  const int pos_a = (wr0 + g) / G, pos_b = (wr0 + g + 8) / G;
+  const int wq_lo = wr0 / G, wq_hi = (wr0 + 15) / G;
+
+  float acc[kOut][4];
+#pragma unroll
+  for (int n = 0; n < kOut; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  float m_a = kNeg, m_b = kNeg, l_a = 0.0f, l_b = 0.0f;
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int kt = k_begin + it * kKeys;
+    if (it + 1 < n_kt) {
+      load_kv(kt + kKeys, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // A tile that hides every key from all the warp's rows changes nothing
+    // (its weights are exp(-1e30 - m) = 0, or are rescaled away by 0).
+    const bool live = !(a.causal && kt > wq_hi)
+                      && !(a.window > 0 && kt + kKeys - 1 <= wq_lo - a.window);
+    if (live) {
+      const uint32_t kb = s_k + (it & 1) * kTileBytes;
+      const uint32_t vb = s_v + (it & 1) * kTileBytes;
+
+      float s[kNT][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+#pragma unroll
+        for (int jp = 0; jp < kNT / 2; ++jp) {
+          uint32_t kf[4];
+          ldsm_x4(kb + Sw::off(16 * jp + lane % 8 + 8 * (lane / 16),
+                               2 * kk + (lane / 8) % 2), kf);
+          mma_bf16(s[2 * jp], qf[kk], kf[0], kf[1]);
+          mma_bf16(s[2 * jp + 1], qf[kk], kf[2], kf[3]);
+        }
+      }
+
+      // Scale, cap; mask only where the tile crosses an edge of some row.
+      // Each branch holds a whole loop, so the common path stays short.
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= a.scale;
+      if (a.softcap > 0.0f) {
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = a.softcap * tanhf(s[j][e] / a.softcap);
+      }
+      if (kt + kKeys > a.Skv || (a.causal && kt + kKeys - 1 > wq_lo)
+          || (a.window > 0 && kt <= wq_hi - a.window)) {
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kp = kt + 8 * j + 2 * t + (e & 1);
+            const int pos = e < 2 ? pos_a : pos_b;
+            bool keep = kp < a.Skv;
+            if (a.causal) keep = keep && kp <= pos;
+            if (a.window > 0) keep = keep && kp > pos - a.window;
+            if (!keep) s[j][e] = kNeg;
+          }
+        }
+      }
+
+      // Online softmax; a row lives on the 4 lanes of a quad.
+      float mx_a = kNeg, mx_b = kNeg;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        mx_a = fmaxf(mx_a, fmaxf(s[j][0], s[j][1]));
+        mx_b = fmaxf(mx_b, fmaxf(s[j][2], s[j][3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      const float c_a = exp_sfu(m_a - mn_a), c_b = exp_sfu(m_b - mn_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        s[j][0] = exp_sfu(s[j][0] - mn_a);
+        s[j][1] = exp_sfu(s[j][1] - mn_a);
+        s[j][2] = exp_sfu(s[j][2] - mn_b);
+        s[j][3] = exp_sfu(s[j][3] - mn_b);
+        sum_a += s[j][0] + s[j][1];
+        sum_b += s[j][2] + s[j][3];
+      }
+      l_a = l_a * c_a + sum_a;       // this lane's share of the row's sum
+      l_b = l_b * c_b + sum_b;
+#pragma unroll
+      for (int n = 0; n < kOut; ++n) {
+        acc[n][0] *= c_a;
+        acc[n][1] *= c_a;
+        acc[n][2] *= c_b;
+        acc[n][3] *= c_b;
+      }
+
+      // O += hi V + lo V over the tile's four 16-key steps.
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+        uint32_t ph[4], pl[4];
+        split(s[2 * kk][0], s[2 * kk][1], &ph[0], &pl[0]);
+        split(s[2 * kk][2], s[2 * kk][3], &ph[1], &pl[1]);
+        split(s[2 * kk + 1][0], s[2 * kk + 1][1], &ph[2], &pl[2]);
+        split(s[2 * kk + 1][2], s[2 * kk + 1][3], &ph[3], &pl[3]);
+#pragma unroll
+        for (int np = 0; np < kOut / 2; ++np) {
+          uint32_t vf[4];
+          ldsm_x4_trans(vb + Sw::off(16 * kk + lane % 8 + 8 * ((lane / 8) % 2),
+                                     2 * np + lane / 16), vf);
+          mma_bf16(acc[2 * np], ph, vf[0], vf[1]);
+          mma_bf16(acc[2 * np + 1], ph, vf[2], vf[3]);
+          mma_bf16(acc[2 * np], pl, vf[0], vf[1]);
+          mma_bf16(acc[2 * np + 1], pl, vf[2], vf[3]);
+        }
+      }
+    }
+    __syncthreads();                 // this buffer is consumed
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float d_a = fmaxf(l_a, 1e-30f), d_b = fmaxf(l_b, 1e-30f);
+
+  // o is contiguous (B, Sq, H, hd).
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int gr = wr0 + g + 8 * half;
+    if (gr >= n_rows) continue;
+    const int pos = gr / G, h = kvh * G + gr % G;
+    const float d = half ? d_b : d_a;
+    __nv_bfloat16* out =
+        o + ((static_cast<int64_t>(b) * a.Sq + pos) * a.H + h) * HD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kOut; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) = __floats2bfloat162_rn(
+          acc[n][2 * half] / d, acc[n][2 * half + 1] / d);
+  }
+}
+
+template <int HD>
+int launch(const Args& a, int B, int KV, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t rows = static_cast<int64_t>(a.Sq) * a.G;
+  const int64_t n_tiles = (rows + kRows - 1) / kRows;
+  const int64_t blocks = n_tiles * KV * B;
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  flash_kernel_mma<HD><<<static_cast<unsigned>(blocks), kThreads, bytes,
+                         stream>>>(a, static_cast<int>(n_tiles), KV, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+template <int HD>
+int launch(bool tensor_cores, const Args& a, int B, int KV, cudaStream_t s) {
+  return tensor_cores ? tc::launch<HD>(a, B, KV, s)
+                      : simt::launch<HD>(a, B, KV, s);
+}
+
+int dispatch(bool tensor_cores, const Args& a, int B, int KV, int hd,
+             cudaStream_t s) {
   switch (hd) {
-    case 16: return launch<T, 16>(a, B, KV, stream);
-    case 32: return launch<T, 32>(a, B, KV, stream);
-    case 64: return launch<T, 64>(a, B, KV, stream);
-    case 128: return launch<T, 128>(a, B, KV, stream);
+    case 16: return launch<16>(tensor_cores, a, B, KV, s);
+    case 32: return launch<32>(tensor_cores, a, B, KV, s);
+    case 64: return launch<64>(tensor_cores, a, B, KV, s);
+    case 128: return launch<128>(tensor_cores, a, B, KV, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The bf16 route's 16-byte copies: base pointers 16-byte aligned, strides
+// along batch, sequence and head multiples of 8 elements.
+bool aligned16(const void* p, int64_t sb, int64_t ss, int64_t sh) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 8 == 0
+         && ss % 8 == 0 && sh % 8 == 0;
 }
 
 }  // namespace
@@ -287,8 +687,9 @@ extern "C" {
 
 // q (B, Sq, H, hd), k and v (B, Skv, KV, hd), each with unit stride along
 // hd and the given element strides along batch, sequence and head; o is
-// contiguous (B, Sq, H, hd) in q's dtype.  dtype 0 = float32, 1 = bf16;
-// hd in {16, 32, 64, 128}.  Returns a cudaError_t.
+// contiguous (B, Sq, H, hd) in q's dtype.  dtype 0 = float32 (CUDA cores),
+// 1 = bf16 (tensor cores; needs 16-byte aligned q, k, v and strides that
+// are multiples of 8); hd in {16, 32, 64, 128}.  Returns a cudaError_t.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int B, int Sq, int Skv, int H,
                            int KV, int hd, int64_t qsb, int64_t qss,
@@ -300,8 +701,13 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   const Args a{q, k, v, o, Sq, Skv, H, H / KV, qsb, qss, qsh, ksb, kss, ksh,
                vsb, vss, vsh, causal, window, softcap, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(a, B, KV, hd, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(a, B, KV, hd, s);
+  if (dtype == 0) return dispatch(false, a, B, KV, hd, s);
+  if (dtype == 1) {
+    if (!aligned16(q, qsb, qss, qsh) || !aligned16(k, ksb, kss, ksh)
+        || !aligned16(v, vsb, vss, vsh))
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    return dispatch(true, a, B, KV, hd, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -3,14 +3,17 @@ attention: prefill and training).
 
 Port of ``repro.kernels.flash_attention``.  On a CUDA tensor the wrapper
 launches the hand-written kernel in ``csrc/flash_attention.cu`` (float32
-scores and accumulator, output in q's dtype, float32 or bfloat16); on a CPU
-tensor it runs the plain version, ``kernels/ref.py::sdpa``.  Any other
-device raises; nothing falls back.  ``flash_attention.launches`` counts
-launches.
+scores and accumulator, output in q's dtype): bfloat16 on the tensor cores,
+float32 on the CUDA cores.  On a CPU tensor it runs the plain version,
+``kernels/ref.py::sdpa``.  Any other device raises; nothing falls back.
+``flash_attention.launches`` counts launches.
 
 Unlike the TPU kernel, any Sq and Skv are taken (the kernel masks the
 ragged edge), and q, k and v are read through their strides in the
-(B, S, heads, hd) layout.
+(B, S, heads, hd) layout.  The bfloat16 route copies 16 bytes at a time,
+so it needs each of q, k and v 16-byte aligned with its batch, sequence
+and head strides multiples of 8 elements; a view that breaks this raises
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -54,6 +57,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v must have unit stride along head_dim")
+    if q.dtype == torch.bfloat16:
+        for name, t in zip("qkv", (q, k, v)):
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+                raise ValueError(
+                    f"bfloat16 {name} must be 16-byte aligned with strides "
+                    f"along batch, sequence and head that are multiples of "
+                    f"8, got address {t.data_ptr():#x} and strides "
+                    f"{t.stride()}")
     if window < 0 or softcap < 0:
         raise ValueError(f"window {window} and softcap {softcap} must be >= 0")
     out = torch.empty(B, Sq, H, hd, dtype=q.dtype, device=q.device)

@@ -117,19 +117,57 @@ def test_flash_attention_kernel_allclose(dev, shape, dtype, tol):
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    want.float().cpu().numpy(),
                                    rtol=tol, atol=tol, err_msg=str(mode))
+        if dtype == "bfloat16":
+            assert _lanes_over_one_bf16_step(got, want) == 0, mode
 
 
-def test_flash_attention_reads_strided_inputs(dev):
+def _lanes_over_one_bf16_step(got, want):
+    """Lanes more than one bf16 step (2^-7 of the magnitude, + 1e-5) from the
+    plain output: kernel and plain version each round one float32 result
+    once (chip_smoke.py's check)."""
+    diff = (got.float() - want.float()).abs()
+    return int((diff > 2.0 ** -7 * want.float().abs() + 1e-5).sum())
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5),
+                                       ("bfloat16", 2e-2)])
+def test_flash_attention_reads_strided_inputs(dev, dtype, tol):
     """q, k, v as views of one fused (B, S, H + 2 KV, hd) projection."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     gen = torch.Generator(device=dev).manual_seed(0)
-    qkv = torch.randn(2, 200, 12, 64, generator=gen, device=dev)
+    qkv = torch.randn(2, 200, 12, 64, generator=gen, device=dev) \
+        .to(getattr(torch, dtype))
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
     got = flash_attention(q, k, v, causal=True)
     want = ref.sdpa(q, k, v, causal=True)
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+    if dtype == "bfloat16":
+        assert _lanes_over_one_bf16_step(got, want) == 0
+        # the same as on contiguous copies
+        again = flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=True)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("which", ["address", "stride"])
+def test_flash_attention_rejects_misaligned_bf16(dev, which):
+    """The bf16 route copies 16 bytes at a time: a view that is not 16-byte
+    aligned, or whose head stride is not a multiple of 8 elements, raises
+    before any launch (it never falls back)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    base = torch.randn(1, 64, 4, 72, device=dev).to(torch.bfloat16)
+    if which == "address":
+        q = base[..., 1:65]                  # 2 bytes past an aligned row
+    else:
+        q = torch.randn(1, 64, 4 * 68, device=dev).to(torch.bfloat16) \
+            .reshape(1, 64, 4, 68)[..., :64]  # head stride 68
+    k = v = torch.randn(1, 64, 4, 64, device=dev).to(torch.bfloat16)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(q, k, v, causal=True)
+    assert flash_attention.launches == before
 
 
 def test_llama_smoke_prefill_card_matches_cpu(dev):
