@@ -100,44 +100,61 @@ _EDITS = {
     "warps8": ("""constexpr int kWarps = 4;""", """constexpr int kWarps = 8;"""),
 }
 # warps8 keeps the 128-register cap: two blocks of 256 threads an SM
-_EXTRA = {"warps8": ("__launch_bounds__(kThreads, HD <= 64 ? 4 : 2)",
-                     "__launch_bounds__(kThreads, HD <= 64 ? 2 : 1)")}
+_EXTRA = {"warps8": [("__launch_bounds__(kThreads, HD <= 64 ? 4 : 2)",
+                      "__launch_bounds__(kThreads, HD <= 64 ? 2 : 1)")]}
 SHAPES = [(1, 8192, 32, 8, 64), (1, 4096, 32, 8, 128)]
 
 
-def variant_sources(src: str) -> dict:
+def variant_sources(src: str, edits: dict, extra: dict) -> dict:
+    """The committed source and one variant per edit: {name: text}.  Each
+    edit's old text must be in the source exactly once; ``extra`` holds
+    further (old, new) replacements of a variant."""
     out = {"kernel": src}
-    for name, (old, new) in _EDITS.items():
+    for name, (old, new) in edits.items():
         if src.count(old) != 1:
             raise RuntimeError(f"{name}: the edited text is not in the source "
                                f"exactly once")
         text = src.replace(old, new)
-        if name in _EXTRA:
-            text = text.replace(*_EXTRA[name])
+        for more_old, more_new in extra.get(name, ()):
+            if text.count(more_old) != 1:
+                raise RuntimeError(f"{name}: an extra edit's text is not in "
+                                   f"the source exactly once")
+            text = text.replace(more_old, more_new)
         out[name] = text
     return out
 
 
-def build(sources: dict, build_dir: Path, _build) -> dict:
+def build(sources: dict, build_dir: Path, _build,
+          kernel: str = "flash_attention") -> dict:
+    """Build every variant with ``kernel``'s flags (one nvcc each, in
+    parallel) and bind its ``<kernel>_launch``; each ptxas report is kept
+    beside its library as ``<variant>.log``."""
     build_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in sources.items():
         (build_dir / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
-            [_build.nvcc_path(), *_build._flags("flash_attention"), "-o",
-             str(build_dir / f"{name}.so"), str(build_dir / f"{name}.cu")],
+            _build.nvcc_command(kernel, build_dir / f"{name}.cu",
+                                build_dir / f"{name}.so"),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    argtypes, restype = _build._SIGNATURES["flash_attention"][
-        "flash_attention_launch"]
+    entry = f"{kernel}_launch"
+    argtypes, restype = _build._SIGNATURES[kernel][entry]
     fns = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
+        (build_dir / f"{name}.log").write_text(log)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(str(build_dir / f"{name}.so")).flash_attention_launch
+        fn = getattr(ctypes.CDLL(str(build_dir / f"{name}.so")), entry)
         fn.argtypes, fn.restype = argtypes, restype
         fns[name] = fn
     return fns
+
+
+def in_turns(names) -> list:
+    """Every variant, then every variant again in reverse order."""
+    order = list(names)
+    return order + order[::-1]
 
 
 def main() -> int:
@@ -151,7 +168,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ref
 
     fns = build(variant_sources(
-        (_build.CSRC / "flash_attention.cu").read_text()),
+        (_build.CSRC / "flash_attention.cu").read_text(), _EDITS, _EXTRA),
         ROOT / "build" / "ablation", _build)
     dev = torch.device("cuda:0")
     print(cs.gpu_line(), flush=True)
@@ -171,16 +188,14 @@ def main() -> int:
         want = ref.sdpa(q, k, v, causal=True).float()
         row = dict(shape=list(shape), dtype="bfloat16", mode="causal",
                    lanes=want.numel())
-        order = list(fns)
-        for turn in (order, order[::-1]):
-            for name in turn:
-                got = call(fns[name], q, k, v).float()
-                over = (got - want).abs() - cs.BF16_STEP * want.abs() \
-                    - cs.BF16_STEP_ATOL
-                rec = row.setdefault(name, dict(ms=[], lanes_over_one_step=0))
-                rec["lanes_over_one_step"] = int((over > 0).sum())
-                rec["ms"].append(cs.cuda_ms(lambda: call(fns[name], q, k, v),
-                                            warmup=2, runs=15))
+        for name in in_turns(fns):
+            got = call(fns[name], q, k, v).float()
+            over = (got - want).abs() - cs.BF16_STEP * want.abs() \
+                - cs.BF16_STEP_ATOL
+            rec = row.setdefault(name, dict(ms=[], lanes_over_one_step=0))
+            rec["lanes_over_one_step"] = int((over > 0).sum())
+            rec["ms"].append(cs.cuda_ms(lambda: call(fns[name], q, k, v),
+                                        warmup=2, runs=15))
         print(json.dumps(row), flush=True)
         del q, k, v, want
     return 0

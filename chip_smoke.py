@@ -70,28 +70,35 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  stepping the same prompt through ``decode_step`` (the
                  limit of ``tests/test_models_consistency.py``);
 9. ``ssd_chunk`` holds the Mamba-2 SSD kernel against its plain version
-                 (``ref.ssd_chunk_ref``) in float32 and with bf16 x, Bm, Cm
-                 at the three shapes of the JAX package's kernel test, the
-                 smoke config's, the ssm consistency case's, mamba2-2.7b's
+                 (``ref.ssd_chunk_ref``) in float32 (the CUDA-core route)
+                 and with bf16 x, Bm, Cm (the tensor-core route) at the
+                 three shapes of the JAX package's kernel test, the smoke
+                 config's, the ssm consistency case's, mamba2-2.7b's
                  prefill layer (1, 64 chunks, 128, 80 heads, 64), N = 128,
                  a B = 2 case and x as the strided view the model passes:
                  y and states within 1e-4, decays within 1e-5 / 1e-6 (the
                  limits of ``test_ssd_chunk_allclose``), reporting each
-                 reference's RMS; and the composed ``ssd`` (kernel plus
-                 torch recurrence) within 1e-4 of ``ref.ssd_ref`` at the
-                 layer shape;
-10. ``ssd_timing`` median CUDA-event times of the kernel and its plain
-                 version at the layer shape with bf16 inputs, beside the
-                 bound (bytes over 3.35 TB/s; the operations needed, over
-                 989 TFLOP/s bf16); no single PyTorch call computes it;
+                 reference's RMS and the worst lane's share of its limit;
+                 whether the card's ``torch.cumsum`` (the plain version's
+                 cum) is the kernel's left-to-right float32 sum; and the
+                 composed ``ssd`` (kernel plus torch recurrence) within
+                 1e-4 of ``ref.ssd_ref`` at the layer shape;
+10. ``ssd_timing`` median CUDA-event times of the kernel (its bf16 route, on
+                 the tensor cores, and its float32 route, on the CUDA
+                 cores) and its plain version at the layer shape, beside
+                 the bound (bytes over 3.35 TB/s; the operations needed,
+                 over 989 TFLOP/s bf16) and the bf16 route's share of it;
+                 no single PyTorch call computes it;
 11. ``mamba_path`` drives mamba2-2.7b at full width after llama's weights
                  are freed: (a) one ``prefill`` of B = 1, S = 8192 (64
                  layers, bf16) with the launch count set to 0 just before,
                  which must launch the kernel exactly 64 times and give
                  finite (1, 1, 50280) logits, then the median of 3 and a
-                 profiled run; (b) one prefill at S = 32,768 (64 launches,
-                 finite); (c) ``serve(..., smoke=False)`` at its defaults,
-                 which must launch no ssd_chunk; (d) at depth 2 in float32,
+                 profiled run, whose ssd kernels must all be the
+                 tensor-core route's (``ssd_chunk_kernel_mma``); (b) one
+                 prefill at S = 32,768 (64 launches, finite); (c)
+                 ``serve(..., smoke=False)`` at its defaults, which must
+                 launch no ssd_chunk; (d) at depth 2 in float32,
                  S = 512, the card's prefill within 1e-4 of the CPU's; (e)
                  at depth 2 in float32, S = 128, prefill within 2e-3 of
                  stepping the prompt through ``decode_step``.
@@ -614,6 +621,7 @@ def profiled_prefill(torch, transformer, cfg, params, batch, kernel_name):
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 kernel_device_ms=kernel_ms,
+                kernel_names=sorted(n for n in by_kernel if kernel_name in n),
                 kernel_share_of_wall=kernel_ms / wall_ms,
                 device_idle_share=1 - busy_ms / wall_ms,
                 device_launches=len(dev_events),
@@ -769,6 +777,9 @@ def check_ssd_chunk(torch, dev):
         dname = str(dtype).split(".")[-1]
         errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
         rms = [float(w.square().mean().sqrt()) for w in want]
+        # the worst lane's error as a share of its limit (1 = at the limit)
+        share = [float(((g - w).abs() / (at + rt * w.abs())).max())
+                 for g, w, (rt, at) in zip(got, want, SSD_TOL)]
         ok = all(g.dtype == torch.float32 and g.shape == w.shape
                  and bool(torch.isfinite(g).all())
                  and bool(torch.allclose(g, w, rtol=rt, atol=at))
@@ -777,6 +788,8 @@ def check_ssd_chunk(torch, dev):
                          max_abs_err=dict(zip(("y", "states", "decays"),
                                               errs)),
                          ref_rms=dict(zip(("y", "states", "decays"), rms)),
+                         worst_share_of_limit=dict(
+                             zip(("y", "states", "decays"), share)),
                          ok=ok))
         if shape == MAMBA_SSD and not strided:
             mamba[dname] = max(errs[:2])
@@ -789,6 +802,7 @@ def check_ssd_chunk(torch, dev):
     # chunked reference, at the layer shape in float32
     B, nc, Q, H, P, N = MAMBA_SSD
     x, dt, A, Bm, Cm = ssd_inputs(torch, dev, MAMBA_SSD, torch.float32, 300)
+    cum_left_to_right = cumsum_is_left_to_right(torch, dt, A)
     args = (x.reshape(B, nc * Q, H, P), dt.reshape(B, nc * Q, H), A,
             Bm.reshape(B, nc * Q, N), Cm.reshape(B, nc * Q, N))
     y, y_ref = ssd(*args, Q), ref.ssd_ref(*args, Q)
@@ -799,8 +813,21 @@ def check_ssd_chunk(torch, dev):
     if not torch.allclose(y, y_ref, rtol=1e-4, atol=1e-4):
         raise AssertionError(f"ssd vs ssd_ref: {composed}")
     emit(dict(phase="ssd_chunk", checks=rows, composed_ssd=composed,
-              mamba_shape_max_abs_err=mamba))
+              mamba_shape_max_abs_err=mamba,
+              cumsum_left_to_right=cum_left_to_right))
     return mamba["bfloat16"]
+
+
+def cumsum_is_left_to_right(torch, dt, A) -> bool:
+    """Whether ``torch.cumsum`` along the chunk axis, as the plain version
+    takes cum, is bitwise one left-to-right float32 sum, as the kernel
+    takes it."""
+    a = dt * A
+    seq, run = torch.empty_like(a), torch.zeros_like(a[:, :, 0])
+    for j in range(a.shape[2]):
+        run = run + a[:, :, j]
+        seq[:, :, j] = run
+    return bool(torch.equal(seq, torch.cumsum(a, dim=2)))
 
 
 def ssd_work(shape, in_bytes: int):
@@ -821,10 +848,12 @@ def time_ssd(torch, dev):
     from repro_torch.kernels.ssd_chunk import ssd_chunk
 
     ins = ssd_inputs(torch, dev, MAMBA_SSD, torch.bfloat16, 400)
+    ins32 = [t.float() for t in ins]
     nbytes, flops = ssd_work(MAMBA_SSD, 2)
     b, by = bound_ms(nbytes, flops, peak=BF16_FLOPS)
     row = dict(shape=list(MAMBA_SSD), dtype="bfloat16",
                ms=cuda_ms(lambda: ssd_chunk(*ins), warmup=3, runs=20),
+               f32_ms=cuda_ms(lambda: ssd_chunk(*ins32), warmup=2, runs=9),
                plain_ms=cuda_ms(lambda: ref.ssd_chunk_ref(*ins), warmup=2,
                                 runs=9),
                library_ms=None, bound_ms=b, bound_by=by, flops=flops,
@@ -883,6 +912,10 @@ def mamba_path(torch, dev, ssd_ms: float):
     torch.cuda.reset_peak_memory_stats()
     prof = profiled_prefill(torch, transformer, cfg, params, batch,
                             "ssd_chunk_kernel")
+    # bf16 x, B and C reach the tensor-core route and nothing else
+    if not prof["kernel_names"] or any(
+            "ssd_chunk_kernel_mma" not in n for n in prof["kernel_names"]):
+        raise AssertionError(f"profiled ssd kernels {prof['kernel_names']}")
     prefill = dict(batch=1, seq_len=8192, layers=cfg.n_layers,
                    dtype=cfg.dtype, n_params=n_params,
                    ssd_chunk_launches=launches, logits_finite=True,
@@ -987,7 +1020,8 @@ def main(argv) -> int:
               kind=torch.cuda.get_device_name(0), torch=torch.__version__,
               cuda=torch.version.cuda,
               ptxas={n: [ln.strip() for ln in _build.build_log(n).splitlines()
-                         if "registers" in ln or "spill" in ln]
+                         if "entry function" in ln or "registers" in ln
+                         or "spill" in ln]
                      for n in _build.SOURCES}))
 
     if argv[1:] == ["--profile"]:
@@ -1032,8 +1066,13 @@ def main(argv) -> int:
         dict(name="ssd_chunk", route="cuda", source=src + "ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_chunk.py:52",
              launches=ssd_launches, max_abs_err=ssd_err,
+             routes={"bfloat16": "tensor cores (mma.sync m16n8k16, M' split "
+                                 "into bf16 hi + mid + lo, the states' "
+                                 "weights into hi + lo); ms",
+                     "float32": "CUDA cores; f32_ms"},
              shape=list(MAMBA_SSD), **{k: t_ssd[k] for k in (
-                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+                 "ms", "f32_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")}),
     ]
     print(gpu_line(), flush=True)
     emit(dict(kernels=kernels))

@@ -3,8 +3,9 @@ bound with ``ctypes``).
 
 Each ``csrc/*.cu`` file is compiled on first use by its own ``nvcc``
 process (all started together) into ``build/kernels/`` at the root of the
-checkout, under a name that carries a hash of the source and the flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.
+checkout, under a name that carries a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and
+an unchanged one is loaded as it is.
 Nothing is compiled at import: the CPU tests import every module without a
 CUDA toolkit.
 """
@@ -53,9 +54,17 @@ def _flags(name: str) -> tuple:
     return _COMMON_FLAGS + SOURCES[name][1]
 
 
+def nvcc_command(name: str, src: Path, out: Path) -> list:
+    """The nvcc command that builds ``src`` with ``name``'s flags; the
+    shared headers are found in ``csrc`` wherever ``src`` lies."""
+    return [nvcc_path(), *_flags(name), "-I", str(CSRC), "-o", str(out),
+            str(src)]
+
+
 def library_path(name: str) -> Path:
     src = CSRC / SOURCES[name][0]
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
@@ -68,14 +77,12 @@ def build() -> Dict[str, float]:
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
     procs = {}
     t0 = time.perf_counter()
     for name in todo:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *_flags(name), "-o", str(tmp),
-               str(CSRC / SOURCES[name][0])]
+        cmd = nvcc_command(name, CSRC / SOURCES[name][0], tmp)
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

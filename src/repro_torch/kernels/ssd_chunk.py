@@ -3,10 +3,11 @@ chunked scan of the model's prefill.
 
 Port of ``repro.kernels.ssd_chunk`` and of ``repro.kernels.ops.ssd``.  On a
 CUDA tensor ``ssd_chunk`` launches the hand-written kernel in
-``csrc/ssd_chunk.cu`` (float32 arithmetic on float32 or bfloat16 x, Bm and
-Cm); on a CPU tensor it runs the plain version, ``ref.ssd_chunk_ref``.  Any
-other device raises; nothing falls back.  ``ssd_chunk.launches`` counts
-launches.
+``csrc/ssd_chunk.cu``: bfloat16 x, Bm and Cm go to its tensor-core route
+(bf16 products, float32 sums, the weights split into bf16 terms), float32
+ones to its CUDA-core route; on a CPU tensor it runs the plain version,
+``ref.ssd_chunk_ref``.  Any other device raises; nothing falls back.
+``ssd_chunk.launches`` counts launches.
 
 x, dt, Bm and Cm are read through their strides (unit stride along the
 last axis): the model's x is a view of the convolution's output, and the

@@ -64,6 +64,38 @@ def test_source_scan_finds_no_jax_or_repro_import():
     assert hits == []
 
 
+def test_chip_scripts_import_no_jax_or_repro():
+    """The root scripts that drive the port on the card import none of the
+    JAX package either."""
+    scripts = sorted(ROOT.glob("chip_*.py"))
+    assert {f.name for f in scripts} >= {"chip_smoke.py",
+                                         "chip_flash_ablation.py",
+                                         "chip_ssd_ablation.py"}
+    hits = [(f.name, m.group(0).strip())
+            for f in scripts for m in IMPORT_RE.finditer(f.read_text())]
+    assert hits == []
+
+
+def test_library_path_follows_the_shared_headers(tmp_path, monkeypatch):
+    """An edit of a shared header rebuilds every kernel, and nvcc finds the
+    headers wherever the source it compiles lies."""
+    import shutil
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert [h.name for h in headers] == ["tensor_core.cuh"]
+    before = {n: _build.library_path(n) for n in _build.SOURCES}
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert all(before[n] != after[n] for n in _build.SOURCES)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    cmd = _build.nvcc_command("ssd_chunk", tmp_path / "v.cu", tmp_path / "v.so")
+    assert cmd[cmd.index("-I") + 1] == str(csrc)
+    assert cmd[-1] == str(tmp_path / "v.cu")
+
+
 def test_cuda_sources_exist_for_every_kernel():
     from repro_torch.kernels import _build
     for name, (src, _) in _build.SOURCES.items():
