@@ -10,11 +10,16 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  ``src/repro_torch/kernels/csrc`` (one nvcc each, in
                  parallel) and reads the card's name and power limit;
 2. ``fed_select`` holds the selection kernel against its plain PyTorch
-                 version at N = 100, 2^20 and 1,000,003, a heavy-tie case
-                 and the edges (k = 0, k >= |avail|, nobody available), in
-                 all four weight modes and mask-only: mask, new_r and the
-                 unbiased / unbiased_frozen / uniform weights must match
-                 bit for bit; fedavg weights within rtol 1e-5;
+                 version at N = 100, 2^20, 1,000,003 and 2^22, heavy-tie
+                 cases, the crossover between its one-block and cooperative
+                 paths (N - 1, N, N + 1, and the one-block path's largest N,
+                 each also forced through both paths) and the edges (k = 0,
+                 k = 1, k >= |avail|, nobody available, everyone available
+                 with k = N, a cut on the unavailable clients' -1e30), in all four weight modes and mask-only: mask,
+                 new_r and the unbiased / unbiased_frozen / uniform weights
+                 must match bit for bit; fedavg weights within rtol 1e-5;
+                 and a torch.profiler trace of single calls on each path
+                 must show exactly one device kernel a call;
 3. ``fed_aggregate`` holds the aggregation kernel against its plain
                  version at (10, 610) float32, (10, 2^24) float32 and
                  (10, 2^24 + 3) bfloat16: every lane within
@@ -23,17 +28,23 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  bfloat16 sum breaks), and within the tolerances of the JAX
                  package's kernel tests (float32 2e-5, bf16 2e-2);
 4. ``timing``    median of CUDA-event times (>= 20 runs after warm-up) of
-                 each kernel (fed_select also in its mask-only mode at
-                 N = 2^20), its plain version and, where one exists, a
+                 each kernel (fed_select in both modes at N = 100 and
+                 2^20), its plain version and, where one exists, a
                  library call computing the same function, beside the
-                 bound (bytes moved over 3.35 TB/s);
+                 bound (bytes moved over 3.35 TB/s); ``torch.topk`` at
+                 N = 2^20, k = 1000, as context only (not the same
+                 function);
 5. ``main_path`` runs ``run_spec(RunSpec(), device="cuda")`` — the default
                  F3AST cell, 300 rounds — with the launch counts set to 0
                  just before, checks that each kernel was launched once a
                  round, and holds the run against the port's own CPU run of
                  the same spec: masks, K_t, |avail| and final r_k bitwise,
                  train loss and delta norm within 1e-4;
-6. ``flash_attention`` holds the attention kernel against its plain
+6. ``init``      the card's ``init_params`` of the llama and mamba2 smoke
+                 configs (float32 and bfloat16, two seeds) is bitwise
+                 the CPU's, which the CPU tests hold to JAX's (A_log within
+                 an ulp), and ``random.normal`` over 2^20 lanes is bitwise;
+7. ``flash_attention`` holds the attention kernel against its plain
                  version (``ref.sdpa``) at the four shapes of the JAX
                  package's kernel tests in float32 and bf16, each causal,
                  causal with window 128, non-causal and causal with soft-cap
@@ -49,14 +60,15 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  route at hd = 128, (1, 4096, 32, 8, 128) causal and with a
                  window of 32 (smaller than a key tile), and llama's shape
                  with that window; it reports each reference's RMS;
-7. ``flash_timing`` median CUDA-event times of the kernel (its bf16 route,
+8. ``flash_timing`` median CUDA-event times of the kernel (its bf16 route,
                  on the tensor cores, and its float32 route, on the CUDA
                  cores), its plain version and
                  ``scaled_dot_product_attention`` at llama's prefill shape,
                  beside the bound (the larger of bytes over 3.35 TB/s and
                  the unmasked QK^T + PV flops over 989 TFLOP/s bf16), the
                  bf16 route's TFLOP/s and its share of the bound;
-8. ``serve_path`` drives llama3.2-1b at full width: (a) one ``prefill``
+9. ``serve_path`` drives llama3.2-1b at full width (its ``init_params``
+                 timed on the card): (a) one ``prefill``
                  of B = 1, S = 8192 (16 layers, bf16) with the launch count
                  set to 0 just before, which must launch the kernel exactly
                  16 times and give finite logits, then its wall time
@@ -69,7 +81,7 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  float32, S = 128, the card's prefill within 2e-3 of
                  stepping the same prompt through ``decode_step`` (the
                  limit of ``tests/test_models_consistency.py``);
-9. ``ssd_chunk`` holds the Mamba-2 SSD kernel against its plain version
+10. ``ssd_chunk`` holds the Mamba-2 SSD kernel against its plain version
                  (``ref.ssd_chunk_ref``) in float32 (the CUDA-core route)
                  and with bf16 x, Bm, Cm (the tensor-core route) at the
                  three shapes of the JAX package's kernel test, the smoke
@@ -83,14 +95,15 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  cum) is the kernel's left-to-right float32 sum; and the
                  composed ``ssd`` (kernel plus torch recurrence) within
                  1e-4 of ``ref.ssd_ref`` at the layer shape;
-10. ``ssd_timing`` median CUDA-event times of the kernel (its bf16 route, on
+11. ``ssd_timing`` median CUDA-event times of the kernel (its bf16 route, on
                  the tensor cores, and its float32 route, on the CUDA
                  cores) and its plain version at the layer shape, beside
                  the bound (bytes over 3.35 TB/s; the operations needed,
                  over 989 TFLOP/s bf16) and the bf16 route's share of it;
                  no single PyTorch call computes it;
-11. ``mamba_path`` drives mamba2-2.7b at full width after llama's weights
-                 are freed: (a) one ``prefill`` of B = 1, S = 8192 (64
+12. ``mamba_path`` drives mamba2-2.7b at full width after llama's weights
+                 are freed (its ``init_params`` timed on the card): (a) one
+                 ``prefill`` of B = 1, S = 8192 (64
                  layers, bf16) with the launch count set to 0 just before,
                  which must launch the kernel exactly 64 times and give
                  finite (1, 1, 50280) logits, then the median of 3 and a
@@ -174,7 +187,8 @@ def cuda_ms(fn, *, warmup: int = 5, runs: int = 25) -> float:
 # fed_select
 # ---------------------------------------------------------------------------
 
-def select_case(n: int, seed: int, *, ties: bool = False, q: float = 0.5):
+def select_case(n: int, seed: int, *, ties: bool = False, q: float = 0.5,
+                sentinel: bool = False):
     import numpy as np
     rng = np.random.default_rng(seed)
     if ties:   # 8 score levels, with both zeros present
@@ -183,6 +197,9 @@ def select_case(n: int, seed: int, *, ties: bool = False, q: float = 0.5):
         scores = levels[rng.integers(0, 8, n)]
     else:
         scores = rng.normal(size=n).astype(np.float32)
+    if sentinel:   # available clients at the unavailable value and below
+        scores[rng.random(n) < 0.1] = np.float32(-1e30)
+        scores[rng.random(n) < 0.05] = -np.inf
     avail = rng.random(n) < q
     r = rng.random(n).astype(np.float32)
     p = (rng.random(n) / n).astype(np.float32)
@@ -195,13 +212,34 @@ def check_fed_select(torch, dev, beta: float = 1e-3):
     from repro_torch.kernels import ref
     from repro_torch.kernels.fed_select import fed_select, fed_select_mask
 
+    from repro_torch.kernels import _build
+    lib = _build.load("fed_select")
+    small_max, small_cap = lib.fed_select_small_max(), lib.fed_select_small_cap()
+    # with half the clients available, k = 0.7 |avail| of the tie levels
+    # puts the cut among the zeros (-0.0 and +0.0 must tie)
     cases = [("n100_main", 100, 0, dict(q=0.2), 10),
              ("n2^20", 1 << 20, 1, {}, 1000),
              ("n1000003", 1_000_003, 2, {}, 12345),
              ("ties_n2^20", 1 << 20, 3, dict(ties=True), 100_000),
              ("k0", 4096, 4, {}, 0),
              ("k_ge_avail", 4096, 5, {}, 4096),
-             ("none_avail", 4096, 6, dict(q=0.0), 17)]
+             ("none_avail", 4096, 6, dict(q=0.0), 17),
+             ("crossover-1_ties", small_max - 1, 8, dict(ties=True),
+              7 * small_max // 20),
+             ("crossover_k1", small_max, 9, {}, 1),
+             ("crossover+1_ties", small_max + 1, 10, dict(ties=True),
+              7 * small_max // 20),
+             ("all_avail_k_n", 5000, 11, dict(q=1.0), 5000),
+             ("small_cap_ties", small_cap, 12, dict(ties=True), 5734),
+             ("k1_n2^20", 1 << 20, 13, {}, 1),
+             ("n2^22", 1 << 22, 14, {}, 50_000),
+             # the cut on -1e30, the unavailable clients' value: available
+             # clients there tie with them, and the reference leaves the
+             # available -inf ones out even at k = N
+             ("sentinel_n100", 100, 15, dict(sentinel=True), 100),
+             ("sentinel_n2^20", 1 << 20, 16, dict(sentinel=True), 1 << 20),
+             ("sentinel_cut_n2^20", 1 << 20, 17, dict(sentinel=True),
+              500_000)]
     results = []
     addcmul_fuses = True
     for name, n, seed, kw, k in cases:
@@ -209,17 +247,28 @@ def check_fed_select(torch, dev, beta: float = 1e-3):
         cpu = [torch.from_numpy(x) for x in (scores, avail, r, p, rw)]
         gpu = [x.to(dev) for x in cpu]
         k_dev = torch.full((), k, dtype=torch.int32, device=dev)
-        row = dict(case=name, n=n, k=k, n_avail=int(avail.sum()))
-        m_k = fed_select_mask(gpu[0], gpu[1], k_dev)
+        # by N, and where one block can hold N, through each path forced
+        paths = (None, "small", "large") if n <= small_cap else (None,)
+        row = dict(case=name, n=n, k=k, n_avail=int(avail.sum()),
+                   paths=["by_n" if x is None else x for x in paths])
         m_cpu = ref.topk_threshold_mask(cpu[0], cpu[1],
                                         torch.tensor(k, dtype=torch.int32))
-        row["mask_only_mismatch"] = int((m_k.cpu() != m_cpu).sum())
-        if int(m_k.sum()) != min(k, int(avail.sum())):
-            raise AssertionError(f"{name}: |S| != min(k, |avail|)")
-        for mode in ref.SELECT_WEIGHT_MODES:
+        row["mask_only_mismatch"] = 0
+        # |S| = min(k, |avail|), but for the available clients that rank
+        # below the unavailable ones' -1e30
+        n_sel = (int(m_cpu.sum()) if kw.get("sentinel")
+                 else min(k, int(avail.sum())))
+        for path in paths:
+            m_k = fed_select_mask(gpu[0], gpu[1], k_dev, path=path)
+            row["mask_only_mismatch"] += int((m_k.cpu() != m_cpu).sum())
+            if int(m_k.sum()) != n_sel:
+                raise AssertionError(f"{name}: |S| = {int(m_k.sum())}, "
+                                     f"want {n_sel}")
+        for mode, path in ((m, x) for m in ref.SELECT_WEIGHT_MODES
+                           for x in paths):
             rwt = gpu[4] if mode == "unbiased_frozen" else None
             got = fed_select(gpu[0], gpu[1], k_dev, gpu[2], gpu[3], beta,
-                             weight_mode=mode, r_weight=rwt)
+                             weight_mode=mode, r_weight=rwt, path=path)
             # the plain version on the same inputs, on the CPU (bitwise the
             # JAX package's) and on the card
             want = ref.fed_select_ref(
@@ -239,28 +288,86 @@ def check_fed_select(torch, dev, beta: float = 1e-3):
                               != want[1].numpy().view(np.uint32)).sum())
             addcmul_fuses &= plain_newr == 0
             row.setdefault("max_abs_err", {})[mode] = max(
+                row.get("max_abs_err", {}).get(mode, 0.0),
                 float((g[1] - want[1]).abs().max()),
                 float((g[2] - want[2]).abs().max()))
-            # mismatching lanes: [mask, new_r, w]
-            row.setdefault("mismatch", {})[mode] = [mm["mask"], mm["new_r"],
-                                                    mm["w"]]
+            # mismatching lanes over the paths: [mask, new_r, w]
+            prev = row.setdefault("mismatch", {}).get(mode, [0, 0, 0])
+            row["mismatch"][mode] = [prev[0] + mm["mask"],
+                                     prev[1] + mm["new_r"],
+                                     prev[2] + mm["w"]]
             row["plain_on_card_new_r_mismatch"] = (
                 row.get("plain_on_card_new_r_mismatch", 0) + plain_newr)
             bitwise = ["mask", "new_r"] + (["w"] if mode != "fedavg" else [])
             if any(mm[f] for f in bitwise) or row["mask_only_mismatch"]:
-                raise AssertionError(f"fed_select {name} {mode}: {mm}")
+                raise AssertionError(f"fed_select {name} {mode} {path}: {mm}")
             if mode == "fedavg":
                 rel = float(((g[2] - want[2]).abs()
                              / want[2].abs().clamp_min(1e-30)).max())
-                row["fedavg_max_rel_err"] = rel
+                row["fedavg_max_rel_err"] = max(
+                    row.get("fedavg_max_rel_err", 0.0), rel)
                 if rel > 1e-5:
                     raise AssertionError(f"fedavg rel err {rel}")
         results.append(row)
-    emit(dict(phase="fed_select", cases=results,
-              cuda_addcmul_matches_fma=addcmul_fuses))
-    # the kernels line names the timed case: N = 2^20, unbiased weights
-    return next(row["max_abs_err"]["unbiased"] for row in results
-                if row["case"] == "n2^20")
+        del cpu, gpu
+    emit(dict(phase="fed_select", small_max=small_max, small_cap=small_cap,
+              cases=results, cuda_addcmul_matches_fma=addcmul_fuses,
+              device_kernels_per_call=kernels_per_call(torch, dev, beta)))
+    # the kernels line names the timed case: N = 2^20, unbiased weights;
+    # the mask-only mode's error is over every case (a bool: 0 or 1)
+    return (next(row["max_abs_err"]["unbiased"] for row in results
+                 if row["case"] == "n2^20"),
+            float(any(row["mask_only_mismatch"] for row in results)))
+
+
+def kernels_per_call(torch, dev, beta: float, calls: int = 10):
+    """Device kernels a call runs, and their device time, from a
+    torch.profiler trace of ``calls`` calls (after a warm-up call): fed_select_mask and fed_select (unbiased
+    and fedavg) at N = 100 (the one-block path) and N = 2^20 (the
+    cooperative one).  Each call must be exactly one kernel, the
+    fed_select kernel: no memset, no copy, no second launch.  A trace that
+    recorded no device event at all is the profiler's loss, not the
+    kernel's (the outputs are checked above): it is taken again, up to
+    three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.fed_select import fed_select, fed_select_mask
+
+    out = {}
+    for n in (100, 1 << 20):
+        scores, avail, r, p, _ = (torch.from_numpy(x).to(dev)
+                                  for x in select_case(n, 21))
+        k = torch.full((), max(n // 10, 1), dtype=torch.int32, device=dev)
+        calls_by_name = {
+            "fed_select_mask": lambda: fed_select_mask(scores, avail, k),
+            "fed_select_unbiased": lambda: fed_select(scores, avail, k, r, p,
+                                                      beta),
+            "fed_select_fedavg": lambda: fed_select(
+                scores, avail, k, r, p, beta, weight_mode="fedavg")}
+        for name, call in calls_by_name.items():
+            call()
+            torch.cuda.synchronize()
+            for attempt in range(3):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(calls):
+                        call()
+                    torch.cuda.synchronize()
+                events = [e for e in prof.events()
+                          if e.device_type == DeviceType.CUDA]
+                names = [e.name for e in events]
+                if names:
+                    break
+            out[f"{name}_n{n}"] = dict(
+                kernels_per_call=len(names) / calls,
+                names=sorted(set(names)), traces_taken=attempt + 1,
+                device_us_per_call=sum(e.time_range.elapsed_us()
+                                       for e in events) / calls)
+            if len(names) != calls or any("fed_select_kernel" not in x
+                                          for x in names):
+                raise AssertionError(f"{name} at N = {n}: device work "
+                                     f"{names} over {calls} calls, want one "
+                                     f"fed_select kernel a call")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -322,15 +429,23 @@ def time_kernels(torch, dev, beta: float = 1e-3):
             plain_ms=cuda_ms(lambda: ref.fed_select_ref(scores, avail, k,
                                                         r, p, beta)),
             bound_ms=b, bound_by=by, bytes=nbytes, library_ms=None)
-    # the mask-only mode (fed_select_mask, the TPU's _mask_pallas) on the
-    # loop's last inputs, N = 2^20: scores 4 + avail 1 read, mask 1
-    # written, per client
-    nbytes = 6 * n + 4
-    b, by = bound_ms(nbytes)
-    out[f"fed_select_mask_n{n}"] = dict(
-        ms=cuda_ms(lambda: fed_select_mask(scores, avail, k)),
-        plain_ms=cuda_ms(lambda: ref.topk_threshold_mask(scores, avail, k)),
-        bound_ms=b, bound_by=by, bytes=nbytes, library_ms=None)
+        # the mask-only mode (fed_select_mask, the TPU's _mask_pallas):
+        # scores 4 + avail 1 read, mask 1 written, per client
+        nbytes = 6 * n + 4
+        b, by = bound_ms(nbytes)
+        out[f"fed_select_mask_n{n}"] = dict(
+            ms=cuda_ms(lambda: fed_select_mask(scores, avail, k)),
+            plain_ms=cuda_ms(lambda: ref.topk_threshold_mask(scores, avail,
+                                                             k)),
+            bound_ms=b, bound_by=by, bytes=nbytes, library_ms=None)
+        for key in (f"fed_select_n{n}", f"fed_select_mask_n{n}"):
+            out[key]["bound_share"] = out[key]["bound_ms"] / out[key]["ms"]
+    # context only, not the same function (no stable tie order, no EMA or
+    # weights): torch.topk of k = 1000 over the masked scores at N = 2^20,
+    # which order the clients as the kernel's keys do
+    masked = torch.where(avail, scores, torch.full_like(scores, -1e30))
+    out["topk_context_n1048576_k1000_ms"] = cuda_ms(
+        lambda: torch.topk(masked, 1000))
     for k_rows, d in ((10, 610), (10, 1 << 24)):
         gen = torch.Generator(device=dev).manual_seed(1)
         v = torch.randn(k_rows, d, generator=gen, device=dev)
@@ -589,6 +704,82 @@ def time_flash_attention(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# init: the model zoo's parameters, card against CPU
+# ---------------------------------------------------------------------------
+
+def check_init(torch, dev):
+    """The card's ``init_params`` is bitwise the CPU's (which the CPU tests
+    hold bitwise to JAX's) for the llama and mamba2 smoke configs, in
+    float32 and bfloat16, at two seeds; A_log (not drawn: torch's linspace
+    and log) within an ulp.  Plus ``random.normal`` over 2^20 lanes, with
+    the count of lanes in erf_inv's second branch (|z| > ~2.75)."""
+    import numpy as np
+    from repro_torch import random as jr
+    from repro_torch import xla_math
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import params_to_numpy
+    from repro_torch.models import transformer
+
+    rows = []
+    for arch in ("llama3.2-1b", "mamba2-2.7b"):
+        smoke = get_arch(arch).smoke_model
+        for cfg in (smoke.replace(dtype=d) for d in ("float32", "bfloat16")):
+            for seed in (0, 3):
+                card = params_to_numpy(transformer.init_params(
+                    cfg, jr.PRNGKey(seed, device=dev), dev))
+                cpu = params_to_numpy(transformer.init_params(
+                    cfg, jr.PRNGKey(seed, device="cpu"), "cpu"))
+                leaves = dict(tree_items(card))
+                differ, a_log_ulps = [], 0
+                for path, want in tree_items(cpu):
+                    got = leaves[path]
+                    if path.endswith("A_log"):
+                        a_log_ulps = int(np.abs(
+                            got.view(np.int32).astype(np.int64)
+                            - want.view(np.int32).astype(np.int64)).max())
+                    elif got.tobytes() != want.tobytes():
+                        differ.append(path)
+                rows.append(dict(arch=arch, dtype=cfg.dtype, seed=seed,
+                                 leaves=len(leaves), leaves_not_bitwise=differ,
+                                 a_log_max_ulps=a_log_ulps))
+                if differ or a_log_ulps > 1:
+                    raise AssertionError(f"init_params {arch} {cfg.dtype} "
+                                         f"seed {seed}: card differs from the "
+                                         f"CPU in {differ}, A_log "
+                                         f"{a_log_ulps} ulps")
+    key = jr.PRNGKey(5, device=dev)
+    z = jr.normal(key, 1 << 20)
+    z_cpu = jr.normal(jr.PRNGKey(5, device="cpu"), 1 << 20)
+    u = jr.uniform(key, 1 << 20, -1.0 + 2.0 ** -24, 1.0)
+    tail = int((-xla_math.log1p(u * -u) >= 5.0).sum())
+    normal_ok = bool(torch.equal(z.cpu(), z_cpu))
+    emit(dict(phase="init", checks=rows, normal_2to20_bitwise=normal_ok,
+              normal_tail_lanes=tail))
+    if not normal_ok or tail == 0:
+        raise AssertionError(f"normal on the card: bitwise {normal_ok}, "
+                             f"{tail} tail lanes")
+
+
+def tree_items(tree, prefix=""):
+    """(path, leaf) pairs of a nested dict, in its order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from tree_items(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def timed_init(torch, transformer, cfg, seed, dev):
+    """Full-width ``init_params`` on the card and its seconds."""
+    from repro_torch import random as jr
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, jr.PRNGKey(seed, device=dev), dev)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
 # serve path: llama3.2-1b at full width
 # ---------------------------------------------------------------------------
 
@@ -638,7 +829,7 @@ def serve_path(torch, dev, flash_ms: float):
 
     arch = get_arch("llama3.2-1b")
     cfg = arch.model
-    params = transformer.init_params(cfg, jr.PRNGKey(0, device=dev), dev)
+    params, init_s = timed_init(torch, transformer, cfg, 0, dev)
     n_params = sum(x.numel() for x in tree_leaves(params))
     gen = torch.Generator(device=dev).manual_seed(0)
     tokens = torch.randint(0, cfg.vocab, (1, 8192), generator=gen,
@@ -668,7 +859,7 @@ def serve_path(torch, dev, flash_ms: float):
         walls.append(1e3 * (time.perf_counter() - t0))
     prefill_ms = sorted(walls)[1]
     prefill = dict(batch=1, seq_len=8192, layers=cfg.n_layers,
-                   dtype=cfg.dtype, n_params=n_params,
+                   dtype=cfg.dtype, n_params=n_params, init_params_s=init_s,
                    flash_launches=launches, logits_finite=finite,
                    first_call_ms=first_ms, wall_ms_median_of_3=prefill_ms,
                    wall_ms_runs=walls,
@@ -878,7 +1069,7 @@ def mamba_path(torch, dev, ssd_ms: float):
 
     torch.cuda.empty_cache()                 # llama's weights are gone
     cfg = get_arch("mamba2-2.7b").model
-    params = transformer.init_params(cfg, jr.PRNGKey(0, device=dev), dev)
+    params, init_s = timed_init(torch, transformer, cfg, 0, dev)
     n_params = sum(x.numel() for x in tree_leaves(params))
     gen = torch.Generator(device=dev).manual_seed(1)
 
@@ -917,7 +1108,7 @@ def mamba_path(torch, dev, ssd_ms: float):
             "ssd_chunk_kernel_mma" not in n for n in prof["kernel_names"]):
         raise AssertionError(f"profiled ssd kernels {prof['kernel_names']}")
     prefill = dict(batch=1, seq_len=8192, layers=cfg.n_layers,
-                   dtype=cfg.dtype, n_params=n_params,
+                   dtype=cfg.dtype, n_params=n_params, init_params_s=init_s,
                    ssd_chunk_launches=launches, logits_finite=True,
                    first_call_ms=first_ms, wall_ms_median_of_3=prefill_ms,
                    wall_ms_runs=walls,
@@ -1027,10 +1218,11 @@ def main(argv) -> int:
     if argv[1:] == ["--profile"]:
         profile_main_path(torch, dev)
         return 0
-    sel_err = check_fed_select(torch, dev)
+    sel_err, mask_err = check_fed_select(torch, dev)
     agg_err = check_fed_aggregate(torch, dev)
     timing = time_kernels(torch, dev)
     launches = main_path(torch, dev)
+    check_init(torch, dev)
     attn_err = check_flash_attention(torch, dev)
     t_attn = time_flash_attention(torch, dev)
     flash_launches = serve_path(torch, dev, t_attn["ms"])
@@ -1039,13 +1231,20 @@ def main(argv) -> int:
     ssd_launches = mamba_path(torch, dev, t_ssd["ms"])
 
     src = "src/repro_torch/kernels/csrc/"
-    t_sel, t_agg = timing["fed_select_n1048576"], timing[
-        "fed_aggregate_10x16777216"]
+    t_sel, t_mask, t_agg = (timing["fed_select_n1048576"],
+                            timing["fed_select_mask_n1048576"],
+                            timing["fed_aggregate_10x16777216"])
     kernels = [
         dict(name="fed_select", route="cuda", source=src + "fed_select.cu",
              replaces="src/repro/kernels/fed_select.py:168",
              launches=launches["fed_select"], max_abs_err=sel_err,
              shape=[1 << 20], **{k: t_sel[k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+        dict(name="fed_select_mask", route="cuda",
+             source=src + "fed_select.cu",
+             replaces="src/repro/kernels/fed_select.py:152",
+             launches=launches["fed_select_mask"], max_abs_err=mask_err,
+             shape=[1 << 20], **{k: t_mask[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
         dict(name="fed_aggregate", route="cuda",
              source=src + "fed_aggregate.cu",

@@ -110,10 +110,12 @@ _VP, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
 
 _SIGNATURES = {
     "fed_select": {
-        "fed_select_workspace_words": ([_I], _I),
-        "fed_select_workspace_floats": ([_I], _I),
-        "fed_select_launch": ([_VP] * 9 + [_I, _F, _F, _I, _VP, _VP, _VP],
-                              _I),
+        "fed_select_small_max": ([], _I),
+        "fed_select_small_cap": ([], _I),
+        "fed_select_workspace_words": ([], _I),
+        "fed_select_workspace_floats": ([], _I),
+        "fed_select_launch": ([_VP] * 3 + [_I] + [_VP] * 6
+                              + [_I, _F, _F, _I, _VP, _VP, _I, _VP], _I),
     },
     "fed_aggregate": {
         "fed_aggregate_f32": ([_VP, _VP, _VP, _I, _I64, _VP], _I),

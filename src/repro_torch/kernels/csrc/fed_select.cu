@@ -1,4 +1,4 @@
-// fed_select: the F3AST per-round selection step in one call (Alg. 1
+// fed_select: the F3AST per-round selection step in one launch (Alg. 1
 // lines 4, 5 and 9), for sm_90a.
 //
 //   mask  = top-min(K_t, |avail|) clients by score, stable (score, id) order
@@ -13,55 +13,103 @@
 //
 // What bounds it on the H100: bytes.  Each of the N clients needs its score
 // and avail flag read and, for the full step, r and p read and mask, new_r
-// and w written: 22 bytes per client, ~7 us at N = 2^20 over 3.35 TB/s.  At
-// the main path's N = 100 it is bound by its ~13 launches instead.
+// and w written: 22 bytes a client, ~7 us at N = 2^20 over 3.35 TB/s.  The
+// cut is four dependent radix passes, so what stands between a kernel and
+// that bound is the cost of each dependency: this file pays one launch a
+// call and nothing else (no memset, no second kernel).
 //
-// Design.  The TPU kernel sorts the whole client axis in one VMEM block with
-// a bitonic network.  Nothing here needs a sort: the cut is a threshold.
+// The cut is a threshold, not a sort.
 //   1. Scores map to order-preserving uint32 keys (unavailable -> -1e30,
 //      -0.0 canonicalised to +0.0, since the reference compares with > and
-//      ==).  Keys are recomputed from the scores on each pass, never stored.
+//      ==).  A thread holds the keys of 4 consecutive ids per tile of
+//      4 x blockDim ids, read once (16-byte loads) and kept in registers.
 //   2. thr, the k_eff-th largest key, comes from a radix select: four 8-bit
-//      passes, each a grid-stride histogram in shared memory merged into
-//      global memory with atomics, then a one-block pick of the digit.  The
-//      first pass also counts |avail|, so k_eff = min(k, |avail|) is known
-//      at the first pick.  k is read from device memory: no host sync.
-//   3. g = #{key > thr} and per-tile tie counts, one block per tile of 1024
-//      consecutive ids; a one-block scan turns tie counts into offsets.
-//   4. The final pass recomputes keys, ranks ties in id order (block scan +
-//      tile offset) and writes mask = gt | (eq & tie_rank < k_eff - g),
-//      then the EMA and the weights elementwise.  uniform and fedavg need
-//      |S| or the cohort's sum of p: per-tile partials, a one-block
-//      reduction in a fixed order, and an elementwise weights pass.
+//      passes, each a histogram in shared memory (one atomic a key: on the
+//      H100 that beats aggregating a warp's equal bins first, even with
+//      heavy ties) from which a warp picks the digit.
+//      The first pass counts |avail|, so k_eff = min(k, |avail|) is known at
+//      the first pick.  k is read from device memory: no host sync.
+//   3. mask = gt | (eq & tie_rank < k_eff - g), with g = #{key > thr}.
+//      k_eff - g needs no count: it is the rank the select has left after
+//      its last pick (each pick subtracts the keys above its digit).  Ties
+//      are ranked in id order by a block scan of the threads' tie counts
+//      (four tiles at once, packed in 16-bit fields of a 64-bit scan).
+//      The EMA and the weights follow in the same pass; uniform and fedavg
+//      first need |S| or the cohort's sum of p, reduced in a fixed order.
+// Two paths, one source:
+//   small (N <= kSmallMax): one block of up to 1024 threads; every key in
+//      registers, every reduction in shared memory, no workspace.
+//   large: one cooperative launch of one 1024-thread block per SM (as many
+//      as the occupancy query allows and the data needs).  Each block owns
+//      a contiguous range of ids; the passes merge the blocks' histograms
+//      into a global one with atomics and a grid sync, after which every
+//      block picks the digit itself.  In the last pass each block also
+//      publishes its own histogram: its count in thr's bin is its tie count
+//      (less its unavailable clients when thr is their key), so a tie's
+//      rank adds the earlier blocks' counts with no further grid sync.
+//      Block 0 zeroes the workspace's counters before the first of the
+//      five grid syncs (six for uniform and fedavg): no memset launch.
+//      Keys of the first kLargeCache tiles stay in registers; later tiles
+//      are read again from L2 (scores + avail of N <= 2^23 fit in its
+//      50 MB).
 // Bit parity: the EMA is __fmaf_rn(1 - beta, r, beta * m), which is what
 // the jitted reference computes; this file is compiled with --fmad=false so
-// that nothing else is contracted, and divisions are __fdiv_rn.
+// that nothing else is contracted, and divisions are __fdiv_rn.  The fedavg
+// sum is taken in a fixed order (bitwise run to run, not the reference's
+// order: rtol 1e-5).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItems = 4;
-constexpr int kTile = kThreads * kItems;
-constexpr int kHistBlocksMax = 132 * 8;
-constexpr int kScanThreads = 1024;
+constexpr int kThreads = 1024;      // threads a block, at most
+constexpr int kItems = 4;           // consecutive ids a thread holds a tile
+constexpr int kSmallTiles = 4;      // small path: 16,384 keys in registers
+constexpr int kLargeCache = 2;      // large path: tiles kept in registers
+// The crossover: at and below it, the one-block path (chip_select_ablation
+// times both paths around it: on the H100 the one block is the faster up to
+// N = 8,192 and the two are level at 16,384).
+constexpr int kSmallMax = 8192;
+constexpr int kSmallCap = kThreads * kItems * kSmallTiles;
 
-// Workspace layout, in 32-bit words.
-constexpr int kNAvail = 0;
-constexpr int kKEff = 1;
-constexpr int kKRem = 2;
-constexpr int kPrefix = 3;
-constexpr int kGt = 4;
-constexpr int kNSel = 5;
-constexpr int kHist = 8;
-constexpr int kHeader = kHist + 256;  // then nblk tie counts, nblk cohort counts
+// Large-path workspace, in 32-bit words: a histogram per pass and |avail|
+// (zeroed in the kernel), then per block its last-pass histogram and its
+// count of unavailable clients (kPublished words), then per block its
+// cohort size.
+constexpr int kNAvail = 4 * 256;
+constexpr int kZeroed = kNAvail + 1;
+constexpr int kPublished = 256 + 1;
 
 constexpr float kNeg = -1e30f;
 constexpr float kRMin = 1e-3f;
+constexpr unsigned kFull = 0xffffffffu;
 
 enum Mode { kMaskOnly = 0, kUnbiased = 1, kUnbiasedFrozen = 2, kUniform = 3,
             kFedavg = 4 };
+
+struct Params {
+  const float* scores;
+  const uint8_t* avail;
+  const int* k_ptr;          // the budget in device memory, or null:
+  int k_value;               // then this value
+  const float* r;
+  const float* p;
+  const float* rw;
+  uint8_t* mask;
+  float* new_r;
+  float* w;
+  int n;
+  float beta;
+  float one_minus_beta;
+  int mode;
+  int tiles;                 // tiles of 4 x blockDim ids a block owns
+  int vec;                   // every array aligned for 16- / 4-byte access
+  uint32_t* ws;              // large path only
+  float* ws_f;
+};
 
 __device__ __forceinline__ uint32_t order_key(float s, bool avail) {
   uint32_t u = __float_as_uint(avail ? s : kNeg);
@@ -69,286 +117,491 @@ __device__ __forceinline__ uint32_t order_key(float s, bool avail) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// Exclusive block scan of one value per thread; *total gets the block sum.
-// Must be called by every thread of the block.
-__device__ uint32_t block_exclusive_scan(uint32_t v, uint32_t* total) {
-  __shared__ uint32_t warp_sums[32];
+// First id of this thread's 4 in tile t of its block.
+__device__ __forceinline__ int64_t first_id(const Params& a, int t) {
+  return (static_cast<int64_t>(blockIdx.x) * a.tiles + t)
+         * (kItems * blockDim.x) + kItems * threadIdx.x;
+}
+
+__device__ __forceinline__ bool whole(const Params& a, int64_t i0) {
+  return a.vec && i0 + kItems <= a.n;
+}
+
+__device__ __forceinline__ void load4(const float* x, const Params& a,
+                                      int64_t i0, float (&v)[kItems]) {
+  if (whole(a, i0)) {
+    const float4 f = *reinterpret_cast<const float4*>(x + i0);
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) v[j] = i0 + j < a.n ? x[i0 + j] : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void store4(float* x, const Params& a, int64_t i0,
+                                       const float (&v)[kItems]) {
+  if (whole(a, i0)) {
+    *reinterpret_cast<float4*>(x + i0) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) if (i0 + j < a.n) x[i0 + j] = v[j];
+  }
+}
+
+// The keys of this thread's 4 ids of tile t; bit j of *av: id j available.
+__device__ __forceinline__ void load_keys(const Params& a, int t,
+                                          uint32_t (&key)[kItems],
+                                          uint32_t* av) {
+  const int64_t i0 = first_id(a, t);
+  float s[kItems];
+  load4(a.scores, a, i0, s);
+  uint32_t bytes = 0u;
+  if (whole(a, i0)) {
+    bytes = *reinterpret_cast<const uint32_t*>(a.avail + i0);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j)
+      if (i0 + j < a.n) bytes |= static_cast<uint32_t>(a.avail[i0 + j])
+                                 << (8 * j);
+  }
+  *av = 0u;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const bool ok = ((bytes >> (8 * j)) & 0xFFu) != 0u;
+    key[j] = order_key(s[j], ok);
+    *av |= (ok ? 1u : 0u) << j;
+  }
+}
+
+// The keys of the first kCache tiles, held in registers; later tiles are
+// read again where they are needed.
+template <int kCache>
+struct Keys {
+  uint32_t key[kCache][kItems];
+  uint32_t av;
+
+  __device__ void load(const Params& a) {
+    av = 0u;
+#pragma unroll
+    for (int c = 0; c < kCache; ++c) {
+      uint32_t bits = 0u;
+      if (c < a.tiles) {
+        load_keys(a, c, key[c], &bits);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kItems; ++j) key[c][j] = 0u;
+      }
+      av |= bits << (kItems * c);
+    }
+  }
+
+  __device__ __forceinline__ void get(const Params& a, int t,
+                                      uint32_t (&k)[kItems],
+                                      uint32_t* bits) const {
+    if (t >= kCache) {
+      load_keys(a, t, k, bits);
+      return;
+    }
+#pragma unroll
+    for (int c = 0; c < kCache; ++c) {
+      if (c == t) {
+#pragma unroll
+        for (int j = 0; j < kItems; ++j) k[j] = key[c][j];
+        *bits = (av >> (kItems * c)) & 0xFu;
+      }
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Block-wide primitives (every thread of the block calls them)
+// ---------------------------------------------------------------------------
+
+// Sum over the block in a fixed order (a warp tree, then a tree over the
+// warps' sums); every thread gets the result.
+template <typename T, typename Add>
+__device__ T block_sum(T v, Add add) {
+  __shared__ T sums[32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = (blockDim.x + 31) >> 5;
-  uint32_t incl = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    uint32_t y = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += y;
-  }
-  if (lane == 31) warp_sums[warp] = incl;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = add(v, __shfl_down_sync(kFull, v, o));
+  if (lane == 0) sums[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    uint32_t x = lane < nwarps ? warp_sums[lane] : 0u;
-    for (int o = 1; o < 32; o <<= 1) {
-      uint32_t y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
-    }
-    warp_sums[lane] = x;
+    T x = lane < nwarps ? sums[lane] : T(0);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x = add(x, __shfl_down_sync(kFull, x, o));
+    if (lane == 0) sums[0] = x;
   }
   __syncthreads();
-  const uint32_t off = warp > 0 ? warp_sums[warp - 1] : 0u;
-  *total = warp_sums[nwarps - 1];
+  const T out = sums[0];
+  __syncthreads();
+  return out;
+}
+
+struct AddInt {
+  template <typename T>
+  __device__ __forceinline__ T operator()(T x, T y) const { return x + y; }
+};
+struct AddF32 {
+  __device__ __forceinline__ float operator()(float x, float y) const {
+    return __fadd_rn(x, y);
+  }
+};
+
+// Exclusive scan over the block in thread order; *total gets the sum.
+__device__ uint64_t block_exclusive_scan(uint64_t v, uint64_t* total) {
+  __shared__ uint64_t sums[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  uint64_t incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint64_t y = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    uint64_t x = lane < nwarps ? sums[lane] : 0u;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint64_t y = __shfl_up_sync(kFull, x, o);
+      if (lane >= o) x += y;
+    }
+    sums[lane] = x;
+  }
+  __syncthreads();
+  const uint64_t off = warp > 0 ? sums[warp - 1] : 0u;
+  *total = sums[nwarps - 1];
   __syncthreads();
   return off + incl - v;
 }
 
-// Block sum of a float in a fixed order (thread 0 gets the result).
-__device__ float block_sum_f32(float v) {
-  __shared__ float warp_sums[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, o));
-  if (lane == 0) warp_sums[warp] = v;
-  __syncthreads();
-  float s = 0.0f;
-  if (warp == 0) {
-    s = lane < nwarps ? warp_sums[lane] : 0.0f;
-    for (int o = 16; o > 0; o >>= 1) s = __fadd_rn(s, __shfl_down_sync(0xffffffffu, s, o));
-  }
-  __syncthreads();
-  return s;
-}
-
-// One radix pass: histogram of the digit at `shift` over the keys whose
-// higher digits equal the prefix picked so far.  The first pass also counts
-// the available clients.
-__global__ void hist_kernel(const float* __restrict__ scores,
-                            const uint8_t* __restrict__ avail, int n,
-                            uint32_t* ws, int shift, int first) {
-  __shared__ uint32_t h[256];
-  __shared__ uint32_t n_avail;
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) h[i] = 0u;
-  if (threadIdx.x == 0) n_avail = 0u;
-  __syncthreads();
-  const uint32_t hmask = shift >= 24 ? 0u : (0xFFFFFFFFu << (shift + 8));
-  const uint32_t prefix = ws[kPrefix] & hmask;
-  uint32_t mine = 0u;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    const bool a = avail[i] != 0;
-    mine += a ? 1u : 0u;
-    const uint32_t key = order_key(scores[i], a);
-    if ((key & hmask) == prefix) atomicAdd(&h[(key >> shift) & 0xFFu], 1u);
-  }
-  if (first) {
-    for (int o = 16; o > 0; o >>= 1) mine += __shfl_down_sync(0xffffffffu, mine, o);
-    if ((threadIdx.x & 31) == 0 && mine) atomicAdd(&n_avail, mine);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 256; i += blockDim.x)
-    if (h[i]) atomicAdd(&ws[kHist + i], h[i]);
-  if (first && threadIdx.x == 0 && n_avail) atomicAdd(&ws[kNAvail], n_avail);
-}
-
-// Pick the digit holding the k_rem-th largest key; clear the histogram.
-// With k_eff == 0 every pick takes digit 255, so thr = 0xFFFFFFFF and the
-// final pass selects nothing (as the reference does).
-__global__ void pick_kernel(uint32_t* ws, const int* __restrict__ k_ptr,
-                            int shift) {
-  __shared__ uint32_t h[256];
-  const int t = threadIdx.x;
-  h[t] = ws[kHist + t];
-  ws[kHist + t] = 0u;
-  __syncthreads();
-  if (t != 0) return;
-  uint32_t k_rem;
-  if (shift == 24) {
-    const int k = *k_ptr;
-    const uint32_t kk = k > 0 ? static_cast<uint32_t>(k) : 0u;
-    k_rem = kk < ws[kNAvail] ? kk : ws[kNAvail];
-    ws[kKEff] = k_rem;
-  } else {
-    k_rem = ws[kKRem];
-  }
-  uint32_t cum = 0u;
-  int d = 255;
-  for (; d > 0; --d) {
-    if (cum + h[d] >= k_rem) break;
-    cum += h[d];
-  }
-  ws[kPrefix] |= static_cast<uint32_t>(d) << shift;
-  ws[kKRem] = k_rem - cum;
-}
-
-// g = #{key > thr} over all lanes, and each tile's count of available ties.
-__global__ void count_kernel(const float* __restrict__ scores,
-                             const uint8_t* __restrict__ avail, int n,
-                             uint32_t* ws) {
-  const uint32_t thr = ws[kPrefix];
-  const int base = blockIdx.x * kTile + threadIdx.x * kItems;
-  uint32_t gt = 0u, eq = 0u;
+// Warp 0: the digit holding the k_rem-th largest key (1-based) among the
+// 256 counts, counting from digit 255 down; ORs it into *prefix at `shift`
+// and leaves the rank left within that digit in *k_rem_out.  Lane l looks
+// at digits 255 - 8l down to 248 - 8l.  With k_rem == 0 it picks 255, so a
+// cut of 0 keeps thr = 0xFFFFFFFF and selects nothing (as the reference).
+__device__ void pick_digit(const uint32_t* hist, uint32_t k_rem, int shift,
+                           uint32_t* prefix, uint32_t* k_rem_out) {
+  const int lane = threadIdx.x & 31;
+  const int top = 255 - 8 * lane;
+  uint32_t h[8], c = 0u;                 // in registers: one load latency
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const int i = base + j;
-    if (i < n) {
-      const bool a = avail[i] != 0;
-      const uint32_t key = order_key(scores[i], a);
-      gt += key > thr ? 1u : 0u;
-      eq += (key == thr && a) ? 1u : 0u;
+  for (int i = 0; i < 8; ++i) {
+    h[i] = hist[top - i];
+    c += h[i];
+  }
+  uint32_t incl = c;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += y;
+  }
+  const unsigned hit = __ballot_sync(kFull, incl >= k_rem);
+  if (lane == (hit ? __ffs(hit) - 1 : 31)) {
+    uint32_t cum = incl - c;
+    int i = 0;                           // the lane's last digit if no other
+#pragma unroll
+    for (; i < 7; ++i) {
+      if (cum + h[i] >= k_rem) break;
+      cum += h[i];
     }
-  }
-  uint32_t gt_total, eq_total;
-  block_exclusive_scan(gt, &gt_total);
-  block_exclusive_scan(eq, &eq_total);
-  if (threadIdx.x == 0) {
-    if (gt_total) atomicAdd(&ws[kGt], gt_total);
-    ws[kHeader + blockIdx.x] = eq_total;
+    *prefix |= static_cast<uint32_t>(top - i) << shift;
+    *k_rem_out = k_rem - cum;
   }
 }
 
-// Exclusive scan of the per-tile tie counts, in place (one block).
-__global__ void scan_kernel(uint32_t* ws, int nblk) {
-  uint32_t carry = 0u;
-  for (int lo = 0; lo < nblk; lo += blockDim.x) {
-    const int i = lo + threadIdx.x;
-    const uint32_t v = i < nblk ? ws[kHeader + i] : 0u;
-    uint32_t total;
-    const uint32_t ex = block_exclusive_scan(v, &total);
-    if (i < nblk) ws[kHeader + i] = carry + ex;
-    carry += total;
-  }
-}
+// ---------------------------------------------------------------------------
+// The kernel: kGrid selects the cooperative large path
+// ---------------------------------------------------------------------------
 
-__global__ void final_kernel(const float* __restrict__ scores,
-                             const uint8_t* __restrict__ avail,
-                             const float* __restrict__ r,
-                             const float* __restrict__ p,
-                             const float* __restrict__ rw,
-                             uint8_t* __restrict__ mask,
-                             float* __restrict__ new_r,
-                             float* __restrict__ w, int n, float beta,
-                             float one_minus_beta, int mode, uint32_t* ws,
-                             float* ws_f, int nblk) {
-  const uint32_t thr = ws[kPrefix];
-  const int quota = static_cast<int>(ws[kKEff]) - static_cast<int>(ws[kGt]);
-  const int base = blockIdx.x * kTile + threadIdx.x * kItems;
-  uint32_t key[kItems];
-  bool av[kItems];
-  uint32_t eq = 0u;
+template <int kCache, bool kGrid>
+__global__ void __launch_bounds__(kThreads)
+fed_select_kernel(const Params a) {
+  __shared__ uint32_t hist[256];
+  __shared__ uint32_t s_prefix, s_krem, s_navail;
+  __shared__ int s_k;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+
+  if (tid == 0) {
+    s_k = a.k_ptr ? *a.k_ptr : a.k_value;   // read early, used at the pick
+    s_prefix = 0u;
+    s_navail = 0u;
+  }
+  Keys<kCache> keys;
+  keys.load(a);
+  uint32_t block_unavail = 0u;           // thread 0: this block's, for later
+
+  // --- the radix select: thr = the k_eff-th largest key --------------------
+  for (int pass = 0; pass < 4; ++pass) {
+    const int shift = 24 - 8 * pass;
+    const uint32_t hmask = pass == 0 ? 0u : 0xFFFFFFFFu << (shift + 8);
+    for (int i = tid; i < 256; i += blockDim.x) hist[i] = 0u;
+    __syncthreads();
+    const uint32_t prefix = s_prefix;
+    uint32_t n_avail = 0u;
+    for (int t = 0; t < a.tiles; ++t) {
+      uint32_t k[kItems], av;
+      keys.get(a, t, k, &av);
+      const int64_t i0 = first_id(a, t);
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const int i = base + j;
-    av[j] = i < n && avail[i] != 0;
-    key[j] = i < n ? order_key(scores[i], av[j]) : 0u;
-    eq += (i < n && av[j] && key[j] == thr) ? 1u : 0u;
+      for (int j = 0; j < kItems; ++j)
+        if (i0 + j < a.n && (k[j] & hmask) == prefix)
+          atomicAdd(&hist[(k[j] >> shift) & 0xFFu], 1u);
+      n_avail += __popc(av);
+    }
+    if (pass == 0) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        n_avail += __shfl_down_sync(kFull, n_avail, o);
+      if (lane == 0 && n_avail) atomicAdd(&s_navail, n_avail);
+    }
+    __syncthreads();
+    if constexpr (kGrid) {
+      cg::grid_group grid = cg::this_grid();
+      uint32_t* global_hist = a.ws + 256 * pass;
+      if (pass == 0) {
+        if (blockIdx.x == 0)
+          for (int i = tid; i < kZeroed; i += blockDim.x) a.ws[i] = 0u;
+        if (tid == 0) {
+          const int64_t span = static_cast<int64_t>(a.tiles) * kItems
+                               * blockDim.x;
+          const int64_t left = a.n - blockIdx.x * span;
+          block_unavail = static_cast<uint32_t>(
+              left < 0 ? 0 : (left < span ? left : span)) - s_navail;
+        }
+        grid.sync();
+      }
+      if (pass == 3) {                   // published for the tie ranks
+        uint32_t* mine = a.ws + kZeroed + kPublished * blockIdx.x;
+        for (int i = tid; i < 256; i += blockDim.x) mine[i] = hist[i];
+        if (tid == 0) mine[256] = block_unavail;
+      }
+      for (int i = tid; i < 256; i += blockDim.x)
+        if (hist[i]) atomicAdd(&global_hist[i], hist[i]);
+      if (pass == 0 && tid == 0 && s_navail) atomicAdd(&a.ws[kNAvail], s_navail);
+      grid.sync();
+      for (int i = tid; i < 256; i += blockDim.x)
+        hist[i] = __ldcg(&global_hist[i]);
+      if (pass == 0 && tid == 0) s_navail = __ldcg(&a.ws[kNAvail]);
+      __syncthreads();
+    }
+    if (tid < 32) {
+      uint32_t k_rem;
+      if (pass == 0) {                   // k_eff = min(k, |avail|)
+        const uint32_t kk = s_k > 0 ? static_cast<uint32_t>(s_k) : 0u;
+        k_rem = kk < s_navail ? kk : s_navail;
+      } else {
+        k_rem = s_krem;
+      }
+      pick_digit(hist, k_rem, shift, &s_prefix, &s_krem);
+    }
+    __syncthreads();
   }
-  uint32_t tile_ties;
-  int rank = static_cast<int>(ws[kHeader + blockIdx.x]
-                              + block_exclusive_scan(eq, &tile_ties));
+  const uint32_t thr = s_prefix;
+
+  // k_eff - g: the rank left within thr's bin after the last pick
+  const int quota = static_cast<int>(s_krem);
+  uint32_t rank0 = 0u;        // available ties in the blocks before this one
+  if constexpr (kGrid) {
+    const uint32_t unavail_key = order_key(kNeg, false);
+    uint32_t before = 0u;
+    for (int b = tid; b < static_cast<int>(blockIdx.x); b += blockDim.x) {
+      const uint32_t* row = a.ws + kZeroed + kPublished * b;
+      before += __ldcg(&row[thr & 0xFFu])
+                - (thr == unavail_key ? __ldcg(&row[256]) : 0u);
+    }
+    rank0 = block_sum(before, AddInt());
+  }
+
+  // --- mask, the EMA and the per-client weights ------------------------------
   uint32_t n_sel = 0u;
   float p_sel = 0.0f;
+  for (int t0 = 0; t0 < a.tiles; t0 += 4) {
+    // four tiles' tie counts in 16-bit fields: one scan ranks them all
+    uint64_t packed = 0u;
+    for (int t = t0; t < t0 + 4 && t < a.tiles; ++t) {
+      uint32_t k[kItems], av, c = 0u;
+      keys.get(a, t, k, &av);
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const int i = base + j;
-    if (i >= n) continue;
-    const bool is_eq = av[j] && key[j] == thr;
-    const bool sel = av[j] && (key[j] > thr || (is_eq && rank < quota));
-    if (is_eq) ++rank;
-    mask[i] = sel ? 1 : 0;
-    if (mode == kMaskOnly) continue;
-    const float m = sel ? 1.0f : 0.0f;
-    const float nr = __fmaf_rn(one_minus_beta, r[i], __fmul_rn(beta, m));
-    new_r[i] = nr;
-    if (mode == kUnbiased) {
-      w[i] = sel ? __fdiv_rn(p[i], fmaxf(nr, kRMin)) : 0.0f;
-    } else if (mode == kUnbiasedFrozen) {
-      w[i] = sel ? __fdiv_rn(p[i], fmaxf(rw[i], kRMin)) : 0.0f;
-    } else if (sel) {
-      n_sel += 1u;
-      p_sel = __fadd_rn(p_sel, p[i]);
+      for (int j = 0; j < kItems; ++j)
+        c += (((av >> j) & 1u) && k[j] == thr) ? 1u : 0u;
+      packed |= static_cast<uint64_t>(c) << (16 * (t - t0));
+    }
+    uint64_t totals;
+    const uint64_t mine = block_exclusive_scan(packed, &totals);
+    for (int t = t0; t < t0 + 4 && t < a.tiles; ++t) {
+      const int f = 16 * (t - t0);
+      int rank = static_cast<int>(rank0 + ((mine >> f) & 0xFFFFu));
+      rank0 += static_cast<uint32_t>((totals >> f) & 0xFFFFu);
+      uint32_t k[kItems], av;
+      keys.get(a, t, k, &av);
+      const int64_t i0 = first_id(a, t);
+      bool sel[kItems];
+      uint32_t m4 = 0u;
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        const bool ok = (av >> j) & 1u;
+        const bool is_eq = ok && k[j] == thr;
+        sel[j] = ok && (k[j] > thr || (is_eq && rank < quota));
+        rank += is_eq ? 1 : 0;
+        m4 |= (sel[j] ? 1u : 0u) << (8 * j);
+      }
+      if (whole(a, i0)) {
+        *reinterpret_cast<uint32_t*>(a.mask + i0) = m4;
+      } else {
+#pragma unroll
+        for (int j = 0; j < kItems; ++j)
+          if (i0 + j < a.n) a.mask[i0 + j] = sel[j] ? 1 : 0;
+      }
+      if (a.mode == kMaskOnly) continue;
+      float r[kItems], nr[kItems], pv[kItems], wv[kItems];
+      load4(a.r, a, i0, r);
+#pragma unroll
+      for (int j = 0; j < kItems; ++j)
+        nr[j] = __fmaf_rn(a.one_minus_beta, r[j],
+                          __fmul_rn(a.beta, sel[j] ? 1.0f : 0.0f));
+      store4(a.new_r, a, i0, nr);
+      if (a.mode == kUniform) {
+#pragma unroll
+        for (int j = 0; j < kItems; ++j) n_sel += sel[j] ? 1u : 0u;
+        continue;
+      }
+      load4(a.p, a, i0, pv);
+      if (a.mode == kFedavg) {
+#pragma unroll
+        for (int j = 0; j < kItems; ++j)
+          if (sel[j] && i0 + j < a.n) p_sel = __fadd_rn(p_sel, pv[j]);
+        continue;
+      }
+      if (a.mode == kUnbiasedFrozen) load4(a.rw, a, i0, nr);
+#pragma unroll
+      for (int j = 0; j < kItems; ++j)
+        wv[j] = sel[j] ? __fdiv_rn(pv[j], fmaxf(nr[j], kRMin)) : 0.0f;
+      store4(a.w, a, i0, wv);
     }
   }
-  if (mode == kUniform || mode == kFedavg) {
-    uint32_t sel_total;
-    block_exclusive_scan(n_sel, &sel_total);
-    const float p_total = block_sum_f32(p_sel);
-    if (threadIdx.x == 0) {
-      ws[kHeader + nblk + blockIdx.x] = sel_total;
-      ws_f[blockIdx.x] = p_total;
+  if (a.mode != kUniform && a.mode != kFedavg) return;
+
+  // --- uniform / fedavg: |S| or the cohort's sum of p, then the weights -----
+  n_sel = block_sum(n_sel, AddInt());
+  p_sel = block_sum(p_sel, AddF32());
+  if constexpr (kGrid) {
+    cg::grid_group grid = cg::this_grid();
+    uint32_t* block_sel = a.ws + kZeroed + kPublished * gridDim.x;
+    if (tid == 0) {
+      block_sel[blockIdx.x] = n_sel;
+      a.ws_f[blockIdx.x] = p_sel;
     }
+    grid.sync();
+    uint32_t c = 0u;
+    float s = 0.0f;
+    for (int b = tid; b < static_cast<int>(gridDim.x); b += blockDim.x) {
+      c += __ldcg(&block_sel[b]);
+      s = __fadd_rn(s, __ldcg(&a.ws_f[b]));
+    }
+    n_sel = block_sum(c, AddInt());
+    p_sel = block_sum(s, AddF32());
+  }
+  const float scale = a.mode == kUniform
+      ? __fdiv_rn(1.0f, fmaxf(static_cast<float>(n_sel), 1.0f))
+      : fmaxf(p_sel, 1e-12f);
+  for (int t = 0; t < a.tiles; ++t) {
+    const int64_t i0 = first_id(a, t);
+    float pv[kItems], wv[kItems];
+    if (a.mode == kFedavg) load4(a.p, a, i0, pv);
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const bool sel = i0 + j < a.n && a.mask[i0 + j] != 0;
+      wv[j] = !sel ? 0.0f
+                   : (a.mode == kUniform ? scale : __fdiv_rn(pv[j], scale));
+    }
+    store4(a.w, a, i0, wv);
   }
 }
 
-// |S| and the cohort's sum of p from the per-tile partials, in a fixed
-// order (one block): thread t sums tiles t, t + 1024, ... then a tree.
-__global__ void reduce_kernel(uint32_t* ws, float* ws_f, int nblk) {
-  uint32_t c = 0u;
-  float s = 0.0f;
-  for (int i = threadIdx.x; i < nblk; i += blockDim.x) {
-    c += ws[kHeader + nblk + i];
-    s = __fadd_rn(s, ws_f[i]);
+// The cooperative path's grid: one block a co-resident slot, on every SM.
+int large_grid_max() {
+  static int blocks = 0;
+  if (blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+        != cudaSuccess) return 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, fed_select_kernel<kLargeCache, true>, kThreads, 0)
+        != cudaSuccess) return 0;
+    blocks = sms * per_sm;
   }
-  uint32_t c_total;
-  block_exclusive_scan(c, &c_total);
-  const float s_total = block_sum_f32(s);
-  if (threadIdx.x == 0) {
-    ws[kNSel] = c_total;
-    ws_f[nblk] = s_total;
-  }
+  return blocks;
 }
 
-__global__ void weights_kernel(const uint8_t* __restrict__ mask,
-                               const float* __restrict__ p,
-                               float* __restrict__ w, int n, int mode,
-                               const uint32_t* ws, const float* ws_f,
-                               int nblk) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const bool sel = mask[i] != 0;
-  if (mode == kUniform) {
-    const float count = static_cast<float>(ws[kNSel]);
-    w[i] = sel ? __fdiv_rn(1.0f, fmaxf(count, 1.0f)) : 0.0f;
-  } else {
-    w[i] = sel ? __fdiv_rn(p[i], fmaxf(ws_f[nblk], 1e-12f)) : 0.0f;
-  }
+inline bool aligned(const void* x, uintptr_t to) {
+  return (reinterpret_cast<uintptr_t>(x) & (to - 1)) == 0;
 }
-
-inline int num_tiles(int n) { return (n + kTile - 1) / kTile; }
 
 }  // namespace
 
 extern "C" {
 
-// Workspace sizes the wrapper allocates: 32-bit words and floats.
-int fed_select_workspace_words(int n) { return kHeader + 2 * num_tiles(n); }
-int fed_select_workspace_floats(int n) { return num_tiles(n) + 1; }
+// The small path's largest N (the crossover), and the largest it can take.
+int fed_select_small_max(void) { return kSmallMax; }
+int fed_select_small_cap(void) { return kSmallCap; }
+
+// Workspace the large path needs (the small one needs none): 32-bit words
+// and floats; -1 if the device cannot be queried.
+int fed_select_workspace_words(void) {
+  const int blocks = large_grid_max();
+  return blocks > 0 ? kZeroed + (kPublished + 1) * blocks : -1;
+}
+int fed_select_workspace_floats(void) {
+  const int blocks = large_grid_max();
+  return blocks > 0 ? blocks : -1;
+}
 
 // mode: 0 mask only, 1 unbiased, 2 unbiased_frozen, 3 uniform, 4 fedavg.
-// k points to one int32 in device memory.  r/p/rw/new_r/w may be null where
-// the mode does not read or write them.  Returns a cudaError_t.
+// k points to one int32 in device memory, or is null and k_value is the
+// budget.  r/p/rw/new_r/w may be null where the mode does not read or
+// write them; ws/ws_f may be null on the small path.  path: 0 by N (small
+// at N <= fed_select_small_max()), 1 small (N <= fed_select_small_cap()),
+// 2 large.  One launch; returns a cudaError_t.
 int fed_select_launch(const float* scores, const uint8_t* avail, const int* k,
-                      const float* r, const float* p, const float* rw,
-                      uint8_t* mask, float* new_r, float* w, int n,
-                      float beta, float one_minus_beta, int mode,
-                      uint32_t* ws, float* ws_f, void* stream_ptr) {
+                      int k_value, const float* r, const float* p,
+                      const float* rw, uint8_t* mask, float* new_r, float* w,
+                      int n, float beta, float one_minus_beta, int mode,
+                      uint32_t* ws, float* ws_f, int path, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int nblk = num_tiles(n);
-  cudaError_t err = cudaMemsetAsync(ws, 0, kHeader * sizeof(uint32_t), stream);
+  if (n <= 0 || path < 0 || path > 2) return cudaErrorInvalidValue;
+  const bool small = path == 1 || (path == 0 && n <= kSmallMax);
+  if (small && n > kSmallCap) return cudaErrorInvalidValue;
+  Params a{scores, avail, k, k_value, r, p, rw, mask, new_r, w, n, beta,
+           one_minus_beta, mode, 0, 0, ws, ws_f};
+  a.vec = aligned(scores, 16) && aligned(avail, 4) && aligned(mask, 4)
+          && aligned(r, 16) && aligned(p, 16) && aligned(rw, 16)
+          && aligned(new_r, 16) && aligned(w, 16);
+  if (small) {
+    int threads = (n + kItems - 1) / kItems;
+    threads = threads < kThreads ? (threads + 31) / 32 * 32 : kThreads;
+    a.tiles = (n + kItems * threads - 1) / (kItems * threads);
+    fed_select_kernel<kSmallTiles, false><<<1, threads, 0, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int grid_max = large_grid_max();
+  if (grid_max <= 0 || ws == nullptr || ws_f == nullptr)
+    return cudaErrorInvalidValue;
+  const int64_t tiles = (static_cast<int64_t>(n) + kItems * kThreads - 1)
+                        / (kItems * kThreads);
+  a.tiles = static_cast<int>((tiles + grid_max - 1) / grid_max);
+  const int blocks = static_cast<int>((tiles + a.tiles - 1) / a.tiles);
+  void* args[] = {&a};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(fed_select_kernel<kLargeCache, true>),
+      dim3(blocks), dim3(kThreads), args, 0, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int hist_blocks = (n + kThreads - 1) / kThreads;
-  if (hist_blocks > kHistBlocksMax) hist_blocks = kHistBlocksMax;
-  for (int pass = 0; pass < 4; ++pass) {
-    const int shift = 24 - 8 * pass;
-    hist_kernel<<<hist_blocks, kThreads, 0, stream>>>(scores, avail, n, ws,
-                                                       shift, pass == 0);
-    pick_kernel<<<1, 256, 0, stream>>>(ws, k, shift);
-  }
-  count_kernel<<<nblk, kThreads, 0, stream>>>(scores, avail, n, ws);
-  scan_kernel<<<1, kScanThreads, 0, stream>>>(ws, nblk);
-  final_kernel<<<nblk, kThreads, 0, stream>>>(scores, avail, r, p, rw, mask,
-                                              new_r, w, n, beta,
-                                              one_minus_beta, mode, ws, ws_f,
-                                              nblk);
-  if (mode == kUniform || mode == kFedavg) {
-    reduce_kernel<<<1, kScanThreads, 0, stream>>>(ws, ws_f, nblk);
-    weights_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-        mask, p, w, n, mode, ws, ws_f, nblk);
-  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,10 +5,12 @@
     w_k   = weight rule on the cohort (p_k / r_k, 1/|S|, …)  (line 9)
 
 Port of ``repro.kernels.fed_select``.  On a CUDA tensor the wrappers launch
-the hand-written kernel in ``csrc/fed_select.cu`` (a radix-select threshold
-cut with the stable (score, id) tie-break, then the EMA and weights in the
-same pass); on a CPU tensor they run the plain version in
-``kernels/ref.py``.  Any other device raises; nothing falls back.
+the hand-written kernel in ``csrc/fed_select.cu`` once a call (a radix-select
+threshold cut with the stable (score, id) tie-break, then the EMA and
+weights in the same kernel: one block up to its crossover N, one
+cooperative launch across the SMs above it); on a CPU tensor they run the
+plain version in ``kernels/ref.py``.  Any other device raises; nothing
+falls back.
 
 Bit-parity contract, as in the JAX package: the mask, r_k and the
 ``unbiased``, ``unbiased_frozen`` and ``uniform`` weights are bitwise the
@@ -42,38 +44,60 @@ def _check_vec(name: str, x: torch.Tensor, n: int, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _k_tensor(k, device) -> torch.Tensor:
+def _k_arg(k, device):
+    """(tensor or None, value): the budget as the kernel reads it, from
+    device memory (one int32 element: no host sync) or by value (an
+    int)."""
     if torch.is_tensor(k):
         if k.device != device or k.numel() != 1:
             raise ValueError(f"k must be one value on {device}, got "
                              f"{tuple(k.shape)} on {k.device}")
-        return k.reshape(()).to(torch.int32)
-    return torch.full((), int(k), dtype=torch.int32, device=device)
+        return (k if k.dtype == torch.int32 else k.to(torch.int32)), 0
+    return None, int(k)
 
 
-def _launch(scores, avail, k, r, p, rw, beta: float, mode: int):
-    """One call of the CUDA kernel; returns (mask, new_r, w) (the last two
-    None in mask-only mode)."""
+# path: 0 by N (the kernel's crossover), 1 the one-block path, 2 the
+# cooperative one; anything but 0 is for measuring the two
+_PATHS = {None: 0, "small": 1, "large": 2}
+
+
+def _launch(scores, avail, k, r, p, rw, beta: float, mode: int,
+            path: str | None = None):
+    """One launch of the CUDA kernel; returns (mask, new_r, w) (the last
+    two None in mask-only mode)."""
+    if path not in _PATHS:
+        raise ValueError(f"unknown path {path!r}; known: small, large")
     dev = scores.device
     n = scores.shape[0]
     lib = _build.load("fed_select")
-    k_dev = _k_tensor(k, dev)
+    k_dev, k_value = _k_arg(k, dev)
     mask = torch.empty(n, dtype=torch.bool, device=dev)
     full = mode != 0
     new_r = torch.empty(n, dtype=torch.float32, device=dev) if full else None
     w = torch.empty(n, dtype=torch.float32, device=dev) if full else None
-    ws = torch.empty(lib.fed_select_workspace_words(n), dtype=torch.int32,
-                     device=dev)
-    ws_f = torch.empty(lib.fed_select_workspace_floats(n),
-                       dtype=torch.float32, device=dev)
+    ws = ws_words = None
+    if path == "large" or (path is None and n > lib.fed_select_small_max()):
+        ws_words = lib.fed_select_workspace_words()
+        floats = lib.fed_select_workspace_floats()
+        if ws_words < 0 or floats < 0:
+            raise RuntimeError("fed_select: the device's SM count or the "
+                               "kernel's occupancy could not be read")
+        # one allocation: the 32-bit words, then the floats
+        ws = torch.empty(ws_words + floats, dtype=torch.int32, device=dev)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
+    # the current stream's handle without building a torch Stream object
+    # (torch.cuda.current_stream costs several microseconds a call, more
+    # than this kernel at the main path's N)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
     err = lib.fed_select_launch(
-        ptr(scores), ptr(avail), ptr(k_dev), ptr(r), ptr(p), ptr(rw),
-        ptr(mask), ptr(new_r), ptr(w), n, float(beta), 1.0 - float(beta),
-        mode, ptr(ws), ptr(ws_f), torch.cuda.current_stream(dev).cuda_stream)
+        ptr(scores), ptr(avail), ptr(k_dev), k_value, ptr(r), ptr(p),
+        ptr(rw), ptr(mask), ptr(new_r), ptr(w), n, float(beta),
+        1.0 - float(beta), mode, ptr(ws),
+        None if ws is None else ws.data_ptr() + 4 * ws_words,
+        _PATHS[path], stream)
     _build.check(err, "fed_select kernel launch")
     return mask, new_r, w
 
@@ -85,17 +109,19 @@ def _device_of(scores: torch.Tensor) -> str:
     return scores.device.type
 
 
-def fed_select_mask(scores: torch.Tensor, avail: torch.Tensor,
-                    k) -> torch.Tensor:
+def fed_select_mask(scores: torch.Tensor, avail: torch.Tensor, k, *,
+                    path: str | None = None) -> torch.Tensor:
     """The top-k cut alone: drop-in for ``core.selection._topk_mask`` (used
-    when a completion hook separates the cut from the EMA and weights)."""
+    when a completion hook separates the cut from the EMA and weights).
+    ``path`` ("small", "large") forces one of the kernel's two paths, for
+    measuring them; by default N decides."""
     if _device_of(scores) == "cpu":
         return _ref.topk_threshold_mask(scores, avail,
                                         torch.as_tensor(k, dtype=torch.int32))
     n = scores.shape[0]
     _check_vec("scores", scores, n, torch.float32, scores.device)
     _check_vec("avail", avail, n, torch.bool, scores.device)
-    mask, _, _ = _launch(scores, avail, k, None, None, None, 0.0, 0)
+    mask, _, _ = _launch(scores, avail, k, None, None, None, 0.0, 0, path)
     fed_select_mask.launches += 1
     return mask
 
@@ -105,14 +131,16 @@ fed_select_mask.launches = 0
 
 def fed_select(scores: torch.Tensor, avail: torch.Tensor, k, r: torch.Tensor,
                p: torch.Tensor, beta: float, *, weight_mode: str = "unbiased",
-               r_weight: torch.Tensor | None = None):
+               r_weight: torch.Tensor | None = None,
+               path: str | None = None):
     """The fused selection step: ``(mask, new_r, weights)`` in one call.
 
     ``scores``/``avail``/``r``/``p``: (N,) round inputs (float32, bool);
     ``k``: the round budget K_t (an int32 scalar tensor on the same device,
     or an int); ``beta``: the rate-EMA step (a Python float, folded with
     1 − β in float64 and cast to float32 once, as JAX folds it).
-    ``weight_mode="unbiased_frozen"`` also needs ``r_weight``.
+    ``weight_mode="unbiased_frozen"`` also needs ``r_weight``; ``path`` as
+    in :func:`fed_select_mask`.
     """
     if weight_mode not in SELECT_WEIGHT_MODES:
         raise ValueError(f"unknown weight_mode {weight_mode!r}; "
@@ -136,7 +164,7 @@ def fed_select(scores: torch.Tensor, avail: torch.Tensor, k, r: torch.Tensor,
         _check_vec("r_weight", r_weight, n, torch.float32, dev)
     out = _launch(scores, avail, k, r, p,
                   r_weight if weight_mode == "unbiased_frozen" else None,
-                  beta, _MODES[weight_mode])
+                  beta, _MODES[weight_mode], path)
     fed_select.launches += 1
     return out
 

@@ -15,6 +15,8 @@ import math
 
 import torch
 
+from .. import random as jr
+from .. import xla_math
 from ..kernels.flash_attention import flash_attention
 # The model's attention is the plain version of the flash_attention kernel
 # and lives beside it; it is the same function as the JAX layers' sdpa.
@@ -129,28 +131,59 @@ def rotary(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _normal(gen: torch.Generator, shape, scale: float, dtype, device):
-    """``jax.random.normal(k, shape) * scale`` cast to ``dtype``: the same
-    shape, distribution and rounding, drawn from a torch generator (so not
-    JAX's bits)."""
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * torch.tensor(scale, dtype=torch.float32)).to(dtype)
+_DRAW_CHUNK = 1 << 24
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig, device,
-                   lead: tuple = ()):
-    """Attention weights, each with ``lead`` axes in front (the stacked
-    layer axis)."""
+def inv_sqrt(n: int, device) -> torch.Tensor:
+    """``1.0 / jnp.sqrt(n)`` as JAX forms it: a float32 root, then a
+    float32 reciprocal (not a Python double)."""
+    return 1.0 / sqrt_f32(n, device)
+
+
+def sqrt_f32(n: int, device) -> torch.Tensor:
+    """``jnp.sqrt(n)`` of a Python int: the correctly rounded float32
+    root."""
+    return xla_math.sqrt(torch.tensor(float(n), dtype=torch.float32,
+                                      device=device))
+
+
+def _normal(keys: torch.Tensor, shape, scale: torch.Tensor, dtype, *,
+            divide: bool = False) -> torch.Tensor:
+    """``(jax.random.normal(k, shape) * scale).astype(dtype)`` (``/ scale``
+    with ``divide``) for every key ``k`` of ``keys`` (shape ``lead + (2,)``),
+    stacked along ``lead``, bit for bit.  ``scale`` is a float32 tensor.
+    Each draw is made in chunks of at most 2^24 lanes, the same bits, so a
+    large leaf needs no multi-GB temporaries."""
+    lead = tuple(keys.shape[:-1])
+    out = torch.empty(lead + tuple(shape), dtype=dtype, device=keys.device)
+    n = math.prod(shape)
+    rows = out.view(-1, n)
+    for i, key in enumerate(keys.reshape(-1, 2)):
+        for start in range(0, n, _DRAW_CHUNK):
+            m = min(_DRAW_CHUNK, n - start)
+            x = jr.normal(key, m, start=start)
+            rows[i, start:start + m] = (x / scale if divide
+                                        else x * scale).to(dtype)
+    return out
+
+
+def init_attention(key: torch.Tensor, cfg: ModelConfig):
+    """Attention weights from ``key`` as the JAX package draws them
+    (``split(key, 4)``: wq, wk, wv, wo).  ``key`` may be a stack of keys
+    ``lead + (2,)`` (one per layer), which gives each leaf the ``lead``
+    axes in front."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    s = 1.0 / math.sqrt(d)
+    lead = tuple(key.shape[:-1])
+    k = jr.split(key, 4)
+    s = inv_sqrt(d, key.device)
     dt = cfg.torch_dtype
-    p = {"wq": _normal(gen, lead + (d, h * hd), s, dt, device),
-         "wk": _normal(gen, lead + (d, kv * hd), s, dt, device),
-         "wv": _normal(gen, lead + (d, kv * hd), s, dt, device),
-         "wo": _normal(gen, lead + (h * hd, d), s, dt, device)}
+    p = {"wq": _normal(k[..., 0, :], (d, h * hd), s, dt),
+         "wk": _normal(k[..., 1, :], (d, kv * hd), s, dt),
+         "wv": _normal(k[..., 2, :], (d, kv * hd), s, dt),
+         "wo": _normal(k[..., 3, :], (h * hd, d), s, dt)}
     if cfg.qk_norm:
-        p["q_norm"] = torch.zeros(lead + (hd,), dtype=dt, device=device)
-        p["k_norm"] = torch.zeros(lead + (hd,), dtype=dt, device=device)
+        p["q_norm"] = torch.zeros(lead + (hd,), dtype=dt, device=key.device)
+        p["k_norm"] = torch.zeros(lead + (hd,), dtype=dt, device=key.device)
     return p
 
 
@@ -240,15 +273,18 @@ def _decode_sdpa(q, k, v, valid, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(gen: torch.Generator, cfg: ModelConfig, device,
-             lead: tuple = ()):
+def init_mlp(key: torch.Tensor, cfg: ModelConfig):
+    """MLP weights from ``key`` as the JAX package draws them
+    (``split(key, 3)``: w1 takes the first, w3 the second, w2 the third);
+    ``key`` may be a stack of keys, as in :func:`init_attention`."""
     d, f = cfg.d_model, cfg.d_ff
-    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    k = jr.split(key, 3)
+    s_in, s_out = inv_sqrt(d, key.device), inv_sqrt(f, key.device)
     dt = cfg.torch_dtype
-    p = {"w1": _normal(gen, lead + (d, f), s_in, dt, device),
-         "w2": _normal(gen, lead + (f, d), s_out, dt, device)}
+    p = {"w1": _normal(k[..., 0, :], (d, f), s_in, dt),
+         "w2": _normal(k[..., 2, :], (f, d), s_out, dt)}
     if cfg.mlp != "gelu":  # gated variants need the second in-projection
-        p["w3"] = _normal(gen, lead + (d, f), s_in, dt, device)
+        p["w3"] = _normal(k[..., 1, :], (d, f), s_in, dt)
     return p
 
 

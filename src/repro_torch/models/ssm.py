@@ -10,12 +10,12 @@ hybrid family is ROADMAP.md queue 1 item 12.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
+from .. import random as jr
 from ..kernels.ssd_chunk import ssd
-from .layers import ModelConfig, _normal, _silu, _softplus, rms_norm
+from .layers import (ModelConfig, _normal, _silu, _softplus, inv_sqrt,
+                     rms_norm, sqrt_f32)
 
 __all__ = ["causal_conv1d", "causal_conv1d_step", "mamba2_dims",
            "init_mamba2", "mamba2_block", "mamba2_init_state",
@@ -66,32 +66,38 @@ def mamba2_dims(cfg: ModelConfig):
     return d_inner, n_heads, conv_dim
 
 
-def init_mamba2(gen: torch.Generator, cfg: ModelConfig, device,
-                lead: tuple = ()):
-    """The mixer's weights with ``lead`` axes in front (the stacked layer
-    axis): in_proj, conv_w and out_proj are normal draws with JAX's scales
-    (not JAX's bits); A_log = log(linspace(1, 16, H)), D = 1, dt_bias = 0,
-    conv_b = 0 and norm = 0 are JAX's leaves (A_log within an ulp: torch's
-    and XLA's linspace and log round differently)."""
+def init_mamba2(key: torch.Tensor, cfg: ModelConfig):
+    """The mixer's weights from ``key`` as the JAX package draws them
+    (``split(key, 6)``: in_proj, conv_w, out_proj from the first three;
+    in_proj times ``1 / sqrt(d)``, conv_w times float32 0.1, out_proj
+    divided by ``sqrt(d_inner)``, all in float32 before the cast).
+    A_log = log(linspace(1, 16, H)), D = 1, dt_bias = 0, conv_b = 0 and
+    norm = 0 are JAX's leaves (A_log within an ulp: torch's and XLA's
+    linspace and log round differently).  ``key`` may be a stack of keys
+    ``lead + (2,)`` (one per layer), which gives each leaf the ``lead``
+    axes in front."""
     d = cfg.d_model
     d_inner, H, conv_dim = mamba2_dims(cfg)
     N = cfg.ssm_state
     proj_out = 2 * d_inner + 2 * N + H           # z, x, B, C, dt
     dt = cfg.torch_dtype
+    device = key.device
+    lead = tuple(key.shape[:-1])
+    k = jr.split(key, 6)
     f32 = dict(dtype=torch.float32, device=device)
     a_log = torch.log(torch.linspace(1.0, 16.0, H, **f32))
     return {
-        "in_proj": _normal(gen, lead + (d, proj_out), 1.0 / math.sqrt(d), dt,
-                           device),
-        "conv_w": _normal(gen, lead + (cfg.conv_width, conv_dim), 0.1, dt,
-                          device),
+        "in_proj": _normal(k[..., 0, :], (d, proj_out), inv_sqrt(d, device),
+                           dt),
+        "conv_w": _normal(k[..., 1, :], (cfg.conv_width, conv_dim),
+                          torch.tensor(0.1, **f32), dt),
         "conv_b": torch.zeros(lead + (conv_dim,), dtype=dt, device=device),
         "A_log": a_log.expand(lead + (H,)).clone(),
         "D": torch.ones(lead + (H,), **f32),
         "dt_bias": torch.zeros(lead + (H,), **f32),
         "norm": torch.zeros(lead + (d_inner,), dtype=dt, device=device),
-        "out_proj": _normal(gen, lead + (d_inner, d), 1.0 / math.sqrt(d_inner),
-                            dt, device),
+        "out_proj": _normal(k[..., 2, :], (d_inner, d),
+                            sqrt_f32(d_inner, device), dt, divide=True),
     }
 
 

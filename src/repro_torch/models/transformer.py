@@ -15,16 +15,17 @@ The other families (moe, hybrid, vlm, audio) raise
 """
 from __future__ import annotations
 
-import math
 from typing import Any, Dict
 
 import torch
 
+from .. import random as jr
 from ..device import resolve_device
 from ..registry import lookup
 from . import ssm as ssm_lib
 from .layers import (ModelConfig, _normal, attention_block, attention_decode,
-                     init_attention, init_mlp, init_rms, mlp_block, rms_norm)
+                     init_attention, init_mlp, init_rms, inv_sqrt, mlp_block,
+                     rms_norm)
 
 # the JAX package's other families: ROADMAP.md queue 1 item 12
 DEFERRED_FAMILIES = ("moe", "hybrid", "vlm", "audio")
@@ -83,41 +84,39 @@ def _layer(tree, i: int):
 
 def init_params(cfg: ModelConfig, key: torch.Tensor, device=None
                 ) -> Dict[str, Any]:
-    """Random parameters with the JAX package's tree, shapes, dtypes and
-    scales (normal draws times 1/sqrt(fan-in), norms at zero), on
-    ``device`` (default CUDA).
-
-    The draws come from a ``torch.Generator`` seeded from the key's two
-    words, so they are not JAX's bits: JAX's ``normal`` needs XLA's
-    ``erfinv`` spelled op for op (ROADMAP.md queue 1 item 8).  The parity
-    tests carry JAX's weights across with ``repro_torch.convert`` instead.
-    """
+    """Random parameters, bit for bit the JAX package's ``init_params``
+    from the same key: the same tree, shapes and dtypes, and the same
+    ``jax.random.normal`` draws down the same key tree (``split(key, 8)``:
+    embed, unembed, then ``split(keys[2], n_layers)``, one key per stacked
+    layer; each dense block splits its key in two, attention then MLP),
+    scaled in float32 before the cast; norms at zero.  On ``device``
+    (default CUDA); the key is moved there."""
     check_supported(cfg)
     device = resolve_device(device)
-    words = [int(w) & 0xFFFFFFFF for w in key.tolist()]
-    gen = torch.Generator(device=device)
-    gen.manual_seed((words[0] << 32) | words[1])
+    keys = jr.split(key.to(device), 8)
     dt = cfg.torch_dtype
-    emb_scale = 1.0 / math.sqrt(cfg.d_model)
+    emb_scale = inv_sqrt(cfg.d_model, device)
     params: Dict[str, Any] = {
-        "embed": _normal(gen, (cfg.vocab, cfg.d_model), emb_scale, dt, device),
+        "embed": _normal(keys[0], (cfg.vocab, cfg.d_model), emb_scale, dt),
         "ln_f": init_rms(cfg.d_model, dt, device),
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = _normal(gen, (cfg.d_model, cfg.vocab), emb_scale,
-                                    dt, device)
+        params["unembed"] = _normal(keys[1], (cfg.d_model, cfg.vocab),
+                                    emb_scale, dt)
     lead = (cfg.n_layers,)
+    layer_keys = jr.split(keys[2], cfg.n_layers)          # the vmapped axis
     if cfg.family == "ssm":
         params["blocks"] = {
             "ln": init_rms(cfg.d_model, dt, device, lead),
-            "mixer": ssm_lib.init_mamba2(gen, cfg, device, lead),
+            "mixer": ssm_lib.init_mamba2(layer_keys, cfg),
         }
         return params
+    block_keys = jr.split(layer_keys, 2)
     params["blocks"] = {
         "ln1": init_rms(cfg.d_model, dt, device, lead),
         "ln2": init_rms(cfg.d_model, dt, device, lead),
-        "attn": init_attention(gen, cfg, device, lead),
-        "mlp": init_mlp(gen, cfg, device, lead),
+        "attn": init_attention(block_keys[:, 0], cfg),
+        "mlp": init_mlp(block_keys[:, 1], cfg),
     }
     return params
 

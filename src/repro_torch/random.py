@@ -8,10 +8,15 @@ current JAX releases), draw for draw:
 
 * a key is a (2,) tensor of uint32 words (held in int64, see below);
 * ``bits(key, shape)``   = ``b1 ^ b2`` of ``threefry2x32(key, hi(i), lo(i))``
-  over the row-major flat index ``i`` of ``shape``;
+  over the row-major flat index ``i`` of ``shape``; ``start=s`` draws the
+  lanes ``[s, s + size)`` of a larger draw, so a large leaf can be drawn in
+  chunks with the same bits;
 * ``split(key, n)``      = ``stack([b1, b2], -1)`` over the same counters;
 * ``fold_in(key, d)``    = ``threefry2x32(key, 0, d)``;
-* ``uniform``            = ``((bits >> 9) | 0x3F800000).view(f32) - 1``;
+* ``uniform``            = ``((bits >> 9) | 0x3F800000).view(f32) - 1``,
+  then ``max(lo, u * (hi - lo) + lo)`` (one FMA) on ``[lo, hi)``;
+* ``normal``             = ``sqrt(2) * erf_inv(uniform(nextafter(-1, 0), 1))``
+  with XLA's float32 ``erf_inv`` (``xla_math``);
 * ``bernoulli(key, p)``  = ``uniform(key, p.shape) < p``;
 * ``randint``            = JAX's ``_randint``: two ``bits`` draws from
   ``split(key)`` folded into ``[minval, maxval)`` with uint32 span /
@@ -23,14 +28,16 @@ live on the device of the key tensor; nothing here synchronises.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence, Union
 
 import torch
 
+from . import xla_math
 from .device import resolve_device
 
-__all__ = ["PRNGKey", "bernoulli", "bits", "fold_in", "key_data", "randint",
-           "split", "threefry2x32", "uniform"]
+__all__ = ["PRNGKey", "bernoulli", "bits", "fold_in", "key_data", "normal",
+           "randint", "split", "threefry2x32", "uniform"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -64,8 +71,10 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
 
 def threefry2x32(key: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor):
     """The 20-round Threefry-2x32 block function on counter words (x0, x1),
-    as ``jax._src.prng._threefry2x32_lowering`` computes it."""
-    k0, k1 = key[0], key[1]
+    as ``jax._src.prng._threefry2x32_lowering`` computes it.  The key's
+    words (``key[..., 0]``, ``key[..., 1]``) broadcast against the
+    counters."""
+    k0, k1 = key[..., 0], key[..., 1]
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _M32
     x1 = (x1 + ks[1]) & _M32
@@ -78,25 +87,30 @@ def threefry2x32(key: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor):
     return x0, x1
 
 
-def _counters(key: torch.Tensor, shape: tuple):
+def _counters(key: torch.Tensor, shape: tuple, start: int = 0):
     n = 1
     for s in shape:
         n *= s
-    idx = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
+    idx = torch.arange(start, start + n, dtype=torch.int64,
+                       device=key.device).reshape(shape)
     return idx >> 32, idx & _M32
 
 
-def bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
-    """``jax.random.bits(key, shape)`` (uint32 words, in int64)."""
-    hi, lo = _counters(key, _shape(shape))
+def bits(key: torch.Tensor, shape: Shape, *, start: int = 0) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (uint32 words, in int64).  With
+    ``start``, the lanes ``[start, start + size)`` of a flat draw from the
+    same key (``start=0``: the draw itself)."""
+    hi, lo = _counters(key, _shape(shape), start)
     b1, b2 = threefry2x32(key, hi, lo)
     return b1 ^ b2
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split(key, num)``: a (num, 2) stack of keys."""
+    """``jax.random.split(key, num)``: a (num, 2) stack of keys.  A stack
+    of keys (..., 2) is split key by key (``vmap(split)``), giving
+    (..., num, 2)."""
     hi, lo = _counters(key, (int(num),))
-    b1, b2 = threefry2x32(key, hi, lo)
+    b1, b2 = threefry2x32(key.unsqueeze(-2), hi, lo)
     return torch.stack([b1, b2], dim=-1)
 
 
@@ -107,10 +121,32 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return torch.cat([b1, b2])
 
 
-def uniform(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` on [0, 1) in float32."""
-    fb = (bits(key, shape) >> 9) | _FLOAT_ONE_BITS
-    return fb.to(torch.int32).view(torch.float32) - 1.0
+def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0,
+            maxval: float = 1.0, *, start: int = 0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``.
+
+    On [0, 1) it is the mantissa trick alone.  Otherwise ``minval`` and
+    ``maxval`` are rounded to float32 and the [0, 1) draw is mapped as
+    XLA:CPU computes it: ``max(minval, fma(u, maxval - minval, minval))``."""
+    fb = (bits(key, shape, start=start) >> 9) | _FLOAT_ONE_BITS
+    u = fb.to(torch.int32).view(torch.float32) - 1.0
+    if (minval, maxval) == (0.0, 1.0):
+        return u
+    lo, hi = xla_math.f32(minval), xla_math.f32(maxval)
+    return torch.clamp_min(xla_math.fma(u, xla_math.f32(hi - lo), lo), lo)
+
+
+_NORMAL_LO = xla_math.f32(-1.0 + 2.0 ** -24)      # nextafter(-1, 0) in f32
+_SQRT2 = xla_math.f32(math.sqrt(2.0))
+
+
+def normal(key: torch.Tensor, shape: Shape = (), *,
+           start: int = 0) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in float32, bit for bit:
+    ``sqrt(2) * erf_inv(u)`` with u uniform on [nextafter(-1, 0), 1) and
+    XLA's ``erf_inv``.  ``start`` as in :func:`bits`."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0, start=start)
+    return xla_math.erf_inv(u) * _SQRT2
 
 
 def bernoulli(key: torch.Tensor, p, shape: Shape | None = None) -> torch.Tensor:

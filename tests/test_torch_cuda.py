@@ -28,15 +28,23 @@ def dev():
 MODES = ("unbiased", "unbiased_frozen", "uniform", "fedavg")
 
 
-@pytest.mark.parametrize("n,k,ties", [(100, 10, False), (4099, 37, True),
-                                      (70000, 5000, False), (64, 0, False)])
-def test_fed_select_kernel_bitwise(dev, n, k, ties):
+# the kernel's crossover (fed_select.cu's kSmallMax): at and below it the
+# one-block path, above it the cooperative one
+SMALL_MAX = 8192
+
+
+@pytest.mark.parametrize("n,k,ties,q", [
+    (100, 10, False, 0.5), (4099, 37, True, 0.5), (70000, 5000, False, 0.5),
+    (64, 0, False, 0.5), (SMALL_MAX - 1, 700, True, 0.5),
+    (SMALL_MAX, 1, False, 0.5), (SMALL_MAX + 1, 999, True, 0.5),
+    (5000, 5000, False, 1.0), (1 << 22, 50_000, False, 0.5)])
+def test_fed_select_kernel_bitwise(dev, n, k, ties, q):
     from repro_torch.kernels import ref
     from repro_torch.kernels.fed_select import fed_select, fed_select_mask
     rng = np.random.default_rng(n)
     scores = (rng.integers(0, 4, n) if ties else rng.normal(size=n)) \
         .astype(np.float32)
-    avail = rng.random(n) < 0.5
+    avail = rng.random(n) < q
     r = rng.random(n).astype(np.float32)
     p = rng.dirichlet(np.ones(n)).astype(np.float32)
     rw = (rng.random(n) * 0.9 + 0.05).astype(np.float32)
@@ -61,6 +69,54 @@ def test_fed_select_kernel_bitwise(dev, n, k, ties):
         else:
             assert got[2].cpu().numpy().tobytes() == \
                 want[2].numpy().tobytes()
+
+
+@pytest.mark.parametrize("n", (100, 4096, SMALL_MAX, 16_384))
+def test_fed_select_both_paths_bitwise(dev, n):
+    """Forced through either path, the cut is the plain version's."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fed_select import fed_select, fed_select_mask
+    rng = np.random.default_rng(n + 1)
+    scores = rng.integers(0, 8, n).astype(np.float32)
+    avail = rng.random(n) < 0.5
+    r = rng.random(n).astype(np.float32)
+    p = rng.dirichlet(np.ones(n)).astype(np.float32)
+    cpu = [torch.from_numpy(x) for x in (scores, avail, r, p)]
+    gpu = [x.to(dev) for x in cpu]
+    k = int(avail.sum()) // 3
+    kk = torch.tensor(k, dtype=torch.int32)
+    want = ref.fed_select_ref(cpu[0], cpu[1], kk, cpu[2], cpu[3], 1e-3,
+                              weight_mode="uniform")
+    for path in ("small", "large"):
+        mask = fed_select_mask(gpu[0], gpu[1], k, path=path)
+        assert torch.equal(mask.cpu(), want[0])
+        got = fed_select(gpu[0], gpu[1], kk.to(dev), gpu[2], gpu[3], 1e-3,
+                         weight_mode="uniform", path=path)
+        for g, w in zip(got, want):
+            assert g.cpu().numpy().tobytes() == w.numpy().tobytes()
+
+
+@pytest.mark.parametrize("n", (100, 1 << 20))
+def test_fed_select_cut_on_the_unavailable_value(dev, n):
+    """Available clients at -1e30 (the unavailable clients' value) and at
+    -inf, and k = N: the cut lands on -1e30, where available and
+    unavailable clients tie."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fed_select import fed_select
+    rng = np.random.default_rng(n + 2)
+    scores = rng.normal(size=n).astype(np.float32)
+    scores[rng.random(n) < 0.1] = np.float32(-1e30)
+    scores[rng.random(n) < 0.05] = -np.inf
+    avail = rng.random(n) < 0.5
+    r = rng.random(n).astype(np.float32)
+    p = rng.dirichlet(np.ones(n)).astype(np.float32)
+    cpu = [torch.from_numpy(x) for x in (scores, avail, r, p)]
+    gpu = [x.to(dev) for x in cpu]
+    kk = torch.tensor(n, dtype=torch.int32)
+    got = fed_select(gpu[0], gpu[1], kk.to(dev), gpu[2], gpu[3], 1e-3)
+    want = ref.fed_select_ref(cpu[0], cpu[1], kk, cpu[2], cpu[3], 1e-3)
+    for g, w in zip(got, want):
+        assert g.cpu().numpy().tobytes() == w.numpy().tobytes()
 
 
 @pytest.mark.parametrize("k,d,dtype,tol", [(10, 610, "float32", 2e-5),

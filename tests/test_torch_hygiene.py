@@ -70,7 +70,8 @@ def test_chip_scripts_import_no_jax_or_repro():
     scripts = sorted(ROOT.glob("chip_*.py"))
     assert {f.name for f in scripts} >= {"chip_smoke.py",
                                          "chip_flash_ablation.py",
-                                         "chip_ssd_ablation.py"}
+                                         "chip_ssd_ablation.py",
+                                         "chip_select_ablation.py"}
     hits = [(f.name, m.group(0).strip())
             for f in scripts for m in IMPORT_RE.finditer(f.read_text())]
     assert hits == []

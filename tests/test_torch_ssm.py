@@ -115,6 +115,18 @@ def _tokens(vocab, B, S, seed):
             torch.from_numpy(toks.astype(np.int32)))
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """Each test on one intra-op thread.  The parameter draws are ~1,000
+    small elementwise ops a chunk; with torch's default threads, test
+    workers that share the cores spend most of their time in those ops'
+    thread barriers (one draw test took minutes in a six-worker run)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def smoke_params():
     jp = jT.init_params(SMOKE_J, jax.random.PRNGKey(0))
@@ -304,38 +316,37 @@ def test_config_equals_jax_field_by_field():
 
 def test_full_config_counts_jax_parameters():
     """2,702,579,200, counted on shapes alone (fake tensors)."""
-    key = jr.PRNGKey(0, device="cpu")
     with FakeTensorMode():
+        key = jr.PRNGKey(0, device="cpu")
         p = tT.init_params(TSPEC.model, key, device="cpu")
     n = sum(t.numel() for t in jax.tree.leaves(p))
     assert n == count_params(JSPEC.model) == 2_702_579_200
 
 
+@pytest.mark.parametrize("seed", (0, 3))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_init_params_has_jax_tree_and_leaves(dtype):
+def test_init_params_has_jax_tree_and_leaves(dtype, seed):
+    """Every drawn leaf (in_proj, conv_w, out_proj, embed, unembed) is
+    JAX's byte for byte; A_log is within an ulp, the rest exact."""
     jcfg = SMOKE_J.replace(dtype=dtype)
     jp = jax.tree.map(np.asarray, jT.init_params(jcfg,
-                                                 jax.random.PRNGKey(0)))
+                                                 jax.random.PRNGKey(seed)))
     tp = params_to_numpy(tT.init_params(_tcfg(jcfg),
-                                        jr.PRNGKey(0, device="cpu"),
+                                        jr.PRNGKey(seed, device="cpu"),
                                         device="cpu"))
     jl = jax.tree_util.tree_leaves_with_path(jp)
     tl = jax.tree_util.tree_leaves_with_path(tp)
     assert [p for p, _ in jl] == [p for p, _ in tl]
-    exact = ("conv_b", "D", "dt_bias", "norm", "ln", "ln_f")
     for (path, a), (_, b) in zip(jl, tl):
         name = jax.tree_util.keystr(path[-1:])[2:-2]
         assert a.shape == b.shape and a.dtype == b.dtype, path
-        if name in exact:
-            assert a.tobytes() == b.tobytes(), path
-        elif name == "A_log":
+        if name == "A_log":
             # torch's and XLA's linspace and log round differently
             ulps = np.abs(a.view(np.int32).astype(np.int64)
                           - b.view(np.int32).astype(np.int64))
             assert ulps.max() <= 1, path
         else:
-            sa, sb = a.astype(np.float32).std(), b.astype(np.float32).std()
-            assert abs(sa - sb) <= 0.05 * sa, (path, sa, sb)
+            assert a.tobytes() == b.tobytes(), path
 
 
 def test_a_log_within_an_ulp_at_80_heads():
@@ -344,8 +355,8 @@ def test_a_log_within_an_ulp_at_80_heads():
     jcfg = JSPEC.model.replace(d_model=160, ssm_head_dim=4, ssm_state=8,
                                dtype="float32")
     want = np.asarray(jS.init_mamba2(jax.random.PRNGKey(0), jcfg)["A_log"])
-    gen = torch.Generator().manual_seed(0)
-    got = tS.init_mamba2(gen, _tcfg(jcfg), "cpu")["A_log"].numpy()
+    got = tS.init_mamba2(jr.PRNGKey(0, device="cpu"),
+                         _tcfg(jcfg))["A_log"].numpy()
     assert got.shape == want.shape == (80,)
     ulps = np.abs(want.view(np.int32).astype(np.int64)
                   - got.view(np.int32).astype(np.int64))

@@ -78,6 +78,18 @@ def _tokens(cfg, B, S, seed):
             torch.from_numpy(toks.astype(np.int32)))
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """Each test on one intra-op thread.  The parameter draws are ~1,000
+    small elementwise ops a chunk; with torch's default threads, test
+    workers that share the cores spend most of their time in those ops'
+    thread barriers (one draw test took minutes in a six-worker run)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def smoke_params():
     jp = jT.init_params(SMOKE_J, jax.random.PRNGKey(0))
@@ -185,21 +197,23 @@ def test_mlp_block_matches_jax(mlp):
 # ---------------------------------------------------------------------------
 
 
-def test_init_params_has_jax_shapes_dtypes_and_scales():
+@pytest.mark.parametrize("seed", (0, 3))
+def test_init_params_has_jax_shapes_dtypes_and_scales(seed):
+    """Every leaf, drawn or not, is JAX's byte for byte: the same key tree
+    and XLA's normal (float32, and bfloat16 with an untied unembed)."""
     for jcfg in (SMOKE_J, SMOKE_J.replace(dtype="bfloat16",
                                           tie_embeddings=False)):
         jp = jax.tree.map(np.asarray,
-                          jT.init_params(jcfg, jax.random.PRNGKey(0)))
+                          jT.init_params(jcfg, jax.random.PRNGKey(seed)))
         tp = params_to_numpy(tT.init_params(_tcfg(jcfg),
-                                            jr.PRNGKey(0, device="cpu"),
+                                            jr.PRNGKey(seed, device="cpu"),
                                             device="cpu"))
         jl = jax.tree_util.tree_leaves_with_path(jp)
         tl = jax.tree_util.tree_leaves_with_path(tp)
         assert [p for p, _ in jl] == [p for p, _ in tl]
         for (path, a), (_, b) in zip(jl, tl):
             assert a.shape == b.shape and a.dtype == b.dtype, path
-            sa, sb = a.astype(np.float32).std(), b.astype(np.float32).std()
-            assert abs(sa - sb) <= 0.05 * sa + 1e-12, (path, sa, sb)
+            assert a.tobytes() == b.tobytes(), path
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
