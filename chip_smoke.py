@@ -40,6 +40,19 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  round, and holds the run against the port's own CPU run of
                  the same spec: masks, K_t, |avail| and final r_k bitwise,
                  train loss and delta norm within 1e-4;
+5a. ``scenarios`` the paper's grid on the card: scenarios always, scarce,
+                 homedevices, smartphones and uneven × strategies f3ast,
+                 fedavg and fedadam at RunSpec()'s 300 rounds, every other
+                 scenario under f3ast and uniform, fedavg_weighted and
+                 fixed_f3ast (with an r_target) on homedevices and dropout
+                 at 60 rounds; each cell held to the port's CPU run of the
+                 same spec (run meanwhile in spawned worker processes) as
+                 main_path holds its run, and its launches counted:
+                 fed_select_mask once a round on dropout and straggler
+                 (their completion hook splits the cut from the EMA and
+                 weights), fed_select once a round elsewhere,
+                 fed_aggregate once a round everywhere; one line per cell
+                 with its steady round ms and wall, card and CPU;
 6. ``init``      the card's ``init_params`` of the llama and mamba2 smoke
                  configs (float32 and bfloat16, two seeds) is bitwise
                  the CPU's, which the CPU tests hold to JAX's (A_log within
@@ -470,11 +483,12 @@ def time_kernels(torch, dev, beta: float = 1e-3):
 def main_path(torch, dev):
     import numpy as np
     from repro_torch.kernels.fed_aggregate import fed_aggregate
-    from repro_torch.kernels.fed_select import fed_select, fed_select_mask
+    from repro_torch.kernels.fed_select import (fed_select, fed_select_mask,
+                                                reset_launches)
     from repro_torch.sim import RunSpec, run_spec
 
     spec = RunSpec()
-    fed_select.launches = fed_select_mask.launches = 0
+    reset_launches()
     fed_aggregate.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -483,7 +497,8 @@ def main_path(torch, dev):
     wall = time.perf_counter() - t0
     launches = dict(fed_select=fed_select.launches,
                     fed_select_mask=fed_select_mask.launches,
-                    fed_aggregate=fed_aggregate.launches)
+                    fed_aggregate=fed_aggregate.launches,
+                    fed_select_by_mode=dict(fed_select.launches_by_mode))
     rounds = res.sel_history.shape[0]
     if launches["fed_select"] != rounds or launches["fed_aggregate"] != rounds:
         raise AssertionError(f"launches {launches} over {rounds} rounds")
@@ -580,6 +595,153 @@ def profile_main_path(torch, dev, rounds: int = 20):
               top_host_ops=[dict(op=k, calls_per_round=c / rounds,
                                  self_ms_per_round=us / 1e3 / rounds)
                             for k, c, us in host_ops]))
+
+
+# ---------------------------------------------------------------------------
+# scenarios: the paper's grid and every other cell of the scenario engine
+# ---------------------------------------------------------------------------
+
+PAPER_SCENARIOS = ("always", "scarce", "homedevices", "smartphones",
+                   "uneven")
+PAPER_ALGORITHMS = ("f3ast", "fedavg", "fedadam")
+OTHER_SCENARIOS = ("bernoulli", "markov", "gilbert_elliott", "diurnal",
+                   "drift", "trace", "bandwidth", "stepk", "dropout",
+                   "straggler")
+BASELINE_SCENARIOS = ("homedevices", "dropout")
+BASELINE_ALGORITHMS = ("uniform", "fedavg_weighted", "fixed_f3ast")
+SHORT_ROUNDS = 60
+CPU_WORKERS = 4
+# completion processes that split the cut from the EMA and weights, so the
+# round takes fed_select_mask instead of the fused fed_select
+HOOKED_SCENARIOS = ("dropout", "straggler")
+
+
+def scenario_cells():
+    """(scenario, strategy, rounds, spec JSON) of the phase: the paper's
+    grid at RunSpec()'s 300 rounds, every other scenario under f3ast and
+    the other baselines at SHORT_ROUNDS."""
+    from repro_torch.sim import RunSpec
+
+    # fixed_f3ast's frozen target: the feasible rate K/N spread over the
+    # fleet (a ramp around 0.1), so it differs from the tracked r
+    r_target = [0.05 + 0.1 * k / 99 for k in range(100)]
+    cells = [(sc, algo, 300) for sc in PAPER_SCENARIOS
+             for algo in PAPER_ALGORITHMS]
+    cells += [(sc, "f3ast", SHORT_ROUNDS) for sc in OTHER_SCENARIOS]
+    cells += [(sc, algo, SHORT_ROUNDS) for sc in BASELINE_SCENARIOS
+              for algo in BASELINE_ALGORITHMS]
+    out = []
+    for sc, algo, rounds in cells:
+        kw = {"r_target": r_target} if algo == "fixed_f3ast" else {}
+        spec = RunSpec(scenario=sc, strategy=algo, rounds=rounds,
+                       strategy_kwargs=kw)
+        out.append((sc, algo, rounds, spec.to_json()))
+    return out
+
+
+def cpu_cell(src: str, spec_json: str) -> dict:
+    """One cell on the CPU, in a worker process (spawned: no CUDA)."""
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    import torch
+    from repro_torch.sim import RunSpec, run_spec
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    res = run_spec(RunSpec.from_json(spec_json), device="cpu",
+                   log_fn=lambda *a: None)
+    return dict(sel=res.sel_history, comp=res.comp_history, k_t=res.k_t,
+                n_available=res.n_available, rates=res.rates,
+                train_loss=res.train_loss, delta_norm=res.delta_norm,
+                final=res.final_metrics, wall_s=time.perf_counter() - t0)
+
+
+def scenarios(torch, dev):
+    """Every cell of :func:`scenario_cells` on the card, each held to the
+    port's CPU run of the same spec (run meanwhile in CPU_WORKERS spawned
+    processes): masks, K_t, |avail| and final r_k bitwise, losses and
+    delta norm within LOSS_TOL; and each kernel launched as the cell's
+    round says (fed_select or, under a completion hook, fed_select_mask
+    once a round; fed_aggregate once a round)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    cells = scenario_cells()
+    totals = dict(fed_select=0, fed_select_mask=0, fed_aggregate=0)
+    by_mode = {}
+    t_phase = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(CPU_WORKERS, mp_context=ctx) as pool:
+        cpu = [pool.submit(cpu_cell, str(ROOT / "src"), spec_json)
+               for _, _, _, spec_json in cells]
+        try:
+            rows = [scenario_cell(torch, dev, cell, fut, totals, by_mode)
+                    for cell, fut in zip(cells, cpu)]
+        finally:
+            for fut in cpu:            # a failed cell fails the phase now
+                fut.cancel()
+    emit(dict(phase="scenarios_summary", cells=len(rows),
+              wall_s=time.perf_counter() - t_phase, cpu_workers=CPU_WORKERS,
+              launches=totals, fed_select_launches_by_mode=by_mode))
+    return totals
+
+
+def scenario_cell(torch, dev, cell, fut, totals, by_mode):
+    """One cell of :func:`scenarios` on the card, held to its CPU run
+    (``fut``); adds its launches to ``totals`` and ``by_mode``."""
+    import numpy as np
+    from repro_torch.kernels.fed_aggregate import fed_aggregate
+    from repro_torch.kernels.fed_select import (fed_select, fed_select_mask,
+                                                reset_launches)
+    from repro_torch.sim import RunSpec, run_spec
+
+    sc, algo, rounds, spec_json = cell
+    spec = RunSpec.from_json(spec_json)
+    reset_launches()
+    fed_aggregate.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_spec(spec, device=dev, log_fn=lambda *a: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fed_select=fed_select.launches,
+                    fed_select_mask=fed_select_mask.launches,
+                    fed_aggregate=fed_aggregate.launches)
+    for k, v in launches.items():
+        totals[k] += v
+    for k, v in fed_select.launches_by_mode.items():
+        by_mode[k] = by_mode.get(k, 0) + v
+    ref = fut.result()
+    hooked = sc in HOOKED_SCENARIOS
+    want = dict(fed_select=0 if hooked else rounds,
+                fed_select_mask=rounds if hooked else 0,
+                fed_aggregate=rounds)
+    bitwise = {
+        "sel_mask": res.sel_history.tobytes() == ref["sel"].tobytes(),
+        "completed": res.comp_history.tobytes() == ref["comp"].tobytes(),
+        "k_t": res.k_t.tobytes() == ref["k_t"].tobytes(),
+        "n_available": (res.n_available.tobytes()
+                        == ref["n_available"].tobytes()),
+        "final_r": res.rates.tobytes() == ref["rates"].tobytes(),
+    }
+    loss_err = float(np.abs(res.train_loss - ref["train_loss"]).max())
+    dnorm_err = float(np.abs(res.delta_norm - ref["delta_norm"]).max())
+    fm, cfm = res.final_metrics, ref["final"]
+    row = dict(phase="scenarios", scenario=sc, strategy=algo, rounds=rounds,
+               launches=launches, bitwise_vs_cpu=bitwise,
+               train_loss_max_abs_err=loss_err,
+               delta_norm_max_abs_err=dnorm_err,
+               steady_round_ms=1e3 / fm["steady_rounds_per_s"], wall_s=wall,
+               cpu_steady_round_ms=1e3 / cfm["steady_rounds_per_s"],
+               cpu_wall_s=ref["wall_s"], k_t_mean=float(res.k_t.mean()),
+               test_acc=fm["test_acc"], cpu_test_acc=cfm["test_acc"])
+    emit(row)
+    if (not all(bitwise.values()) or launches != want
+            or max(loss_err, dnorm_err) > LOSS_TOL
+            or not np.isfinite(res.train_loss).all()):
+        raise AssertionError(f"scenario cell {sc}/{algo} fails "
+                             f"(launches wanted {want}): {row}")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1222,6 +1384,7 @@ def main(argv) -> int:
     agg_err = check_fed_aggregate(torch, dev)
     timing = time_kernels(torch, dev)
     launches = main_path(torch, dev)
+    grid_launches = scenarios(torch, dev)
     check_init(torch, dev)
     attn_err = check_flash_attention(torch, dev)
     t_attn = time_flash_attention(torch, dev)
@@ -1237,19 +1400,24 @@ def main(argv) -> int:
     kernels = [
         dict(name="fed_select", route="cuda", source=src + "fed_select.cu",
              replaces="src/repro/kernels/fed_select.py:168",
-             launches=launches["fed_select"], max_abs_err=sel_err,
+             launches=launches["fed_select"] + grid_launches["fed_select"],
+             max_abs_err=sel_err,
              shape=[1 << 20], **{k: t_sel[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
         dict(name="fed_select_mask", route="cuda",
              source=src + "fed_select.cu",
              replaces="src/repro/kernels/fed_select.py:152",
-             launches=launches["fed_select_mask"], max_abs_err=mask_err,
+             launches=(launches["fed_select_mask"]
+                       + grid_launches["fed_select_mask"]),
+             max_abs_err=mask_err,
              shape=[1 << 20], **{k: t_mask[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
         dict(name="fed_aggregate", route="cuda",
              source=src + "fed_aggregate.cu",
              replaces="src/repro/kernels/fed_aggregate.py:75",
-             launches=launches["fed_aggregate"], max_abs_err=agg_err,
+             launches=(launches["fed_aggregate"]
+                       + grid_launches["fed_aggregate"]),
+             max_abs_err=agg_err,
              shape=[10, 1 << 24], **{k: t_agg[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
         dict(name="flash_attention", route="cuda",

@@ -1,11 +1,12 @@
 """Server-side aggregation weights (port of ``repro.core.aggregation``).
 
 F3AST (unbiased, Lemma C.1):     Delta = sum_{k in S} (p_k / r_k) v_k
+FedAvg-style (biased baseline):  Delta = sum_{k in S} p_k v_k / sum_{k in S} p_k
+Unweighted mean (biased):        Delta = (1/|S|) sum_{k in S} v_k
 
 The Δ reduction itself — the JAX package's ``weighted_aggregate`` — is
 ``kernels.fed_aggregate_tree`` (a CUDA kernel on the card, its plain
-spelling on the CPU).  The biased baselines' weight rules (fedavg,
-uniform) come with their strategies (ROADMAP.md queue 1 item 3).
+spelling on the CPU).
 """
 from __future__ import annotations
 
@@ -20,3 +21,16 @@ def unbiased_weights(p_sel: torch.Tensor, r_sel: torch.Tensor,
     w = p_sel / torch.clamp_min(r_sel, R_MIN)
     return torch.where(valid, w, torch.zeros_like(w))
 
+
+
+def fedavg_weights(p_sel: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """p_k / Σ_S p over the cohort (the sum's order is not XLA's, so these
+    weights are held to the parameter tolerance, not bitwise)."""
+    w = torch.where(valid, p_sel, torch.zeros_like(p_sel))
+    return w / torch.clamp_min(w.sum(), 1e-12)
+
+
+def uniform_weights(valid: torch.Tensor) -> torch.Tensor:
+    """1/|S| over the cohort."""
+    v = valid.to(torch.float32)
+    return v / torch.clamp_min(v.sum(), 1.0)

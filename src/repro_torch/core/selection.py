@@ -8,7 +8,12 @@ bit-identical to the JAX package's for the same scores.
 """
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
+
+from .. import random as jr
+from .. import xla_math
 
 # Score sentinel for unavailable clients — low enough that no real score
 # reaches it, so unavailable clients rank last.  ``kernels.ref.SELECT_NEG``
@@ -31,6 +36,27 @@ def _topk_mask(scores: torch.Tensor, avail: torch.Tensor,
     k_eff = torch.minimum(torch.as_tensor(k, device=scores.device)
                           .to(torch.int32), avail.sum().to(torch.int32))
     return (ranks < k_eff) & avail
+
+
+def fedavg_select(key: torch.Tensor, avail: torch.Tensor, k, p: torch.Tensor,
+                  topk: Optional[Callable] = None) -> torch.Tensor:
+    """Sample min(k, |avail|) available clients without replacement, with
+    probability ∝ p_k (Gumbel top-k: top-k of log p + Gumbel noise).  The
+    paper's FedAvg baseline (§4).  Here p is an argument, so the log is
+    XLA's runtime ``log``, as a jitted ``fedavg_select`` computes it (the
+    ``fedavg`` strategy closes over p, whose log XLA folds).  ``topk``
+    swaps the cut (e.g. ``kernels.fed_select.fed_select_mask``)."""
+    g = jr.gumbel(key, tuple(p.shape))
+    scores = xla_math.log(torch.clamp_min(p, xla_math.f32(1e-12))) + g
+    return (topk or _topk_mask)(scores, avail, k)
+
+
+def uniform_select(key: torch.Tensor, avail: torch.Tensor,
+                   k) -> torch.Tensor:
+    """Uniform without replacement over the available set: i.i.d. uniform
+    scores + top-k is a uniformly random <= k subset of the available."""
+    scores = jr.uniform(key, tuple(avail.shape))
+    return _topk_mask(scores, avail, k)
 
 
 def cohort_ids_from_mask(mask: torch.Tensor, cohort_size: int):

@@ -1,7 +1,7 @@
 """Pluggable client-selection strategies: protocol + string registry.
 
-Port of ``repro.core.strategies`` for the F3AST main path.  A strategy is a
-pair of pure functions on tensors:
+Port of ``repro.core.strategies``.  A strategy is a pair of pure functions
+on tensors:
 
     init(n_clients, r0=None) -> state
     select(state, key, avail, k_t, ctx) -> (mask, weights, new_state)
@@ -20,18 +20,28 @@ Where the cut runs (``select_impl``):
   ``update_rates`` → weight rule) and ``"pallas"`` the fused plain version
   of the kernel.
 
-Only ``f3ast`` is ported so far; the JAX package's other strategies raise
-``NotImplementedError`` at resolve time (ROADMAP.md queue 1 item 3).
+Registry (the paper's policy and its baselines):
+
+  f3ast            greedy −∇H(r) top-K (Alg. 1)     weights p_k/r_k (unbiased)
+  fixed_f3ast      Alg. 2, frozen target rate        weights p_k/r_k(target)
+  fedavg           sample ∝ p_k over available       weights 1/|S|  (biased)
+  fedavg_weighted  sample ∝ p_k over available       weights ∝ p_k  (biased)
+  uniform          uniform over available            weights 1/|S|  (biased)
+
+and the alias ``fedadam`` (fedavg with a server Adam step).  ``poc`` needs
+the host loop and raises ``NotImplementedError`` at resolve time
+(ROADMAP.md queue 1 item 7), as does :func:`as_sharded` (item 11).
 """
 from __future__ import annotations
 
 import inspect
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from . import selection as sel
-from .aggregation import unbiased_weights
+from .aggregation import fedavg_weights, unbiased_weights, uniform_weights
 from .hfun import R_MIN, marginal_utility
 from .rates import RateState, init_rates, update_rates
 from .. import random as jr
@@ -39,17 +49,19 @@ from ..device import resolve_device
 from ..registry import lookup
 
 __all__ = [
-    "SELECT_IMPLS", "STRATEGY_REGISTRY", "RateTrackState", "SelectCtx",
-    "SelectionStrategy", "apply_completion", "get_strategy_entry",
+    "SELECT_IMPLS", "STRATEGY_ALIASES", "STRATEGY_REGISTRY",
+    "RateTrackState", "SelectCtx", "SelectionStrategy", "StrategyAlias",
+    "apply_completion", "as_sharded", "get_strategy_entry",
     "list_strategies", "make_strategy", "register_strategy",
     "resolve_strategy", "strategy_rates", "topk_strategy",
 ]
 
 SELECT_IMPLS = ("xla", "pallas")
 
-# The JAX package's strategies (and alias) that this port does not have yet.
-DEFERRED_STRATEGIES = ("fixed_f3ast", "fedavg", "fedavg_weighted", "uniform",
-                       "poc", "fedadam")
+# The JAX package's strategy that this port does not have yet: poc is
+# host-only (fresh per-client losses every round), so it waits for the host
+# loop, ROADMAP.md queue 1 item 7.
+DEFERRED_STRATEGIES = ("poc",)
 
 
 def _check_select_impl(select_impl: str) -> str:
@@ -70,8 +82,10 @@ def _topk_fn(select_impl: str, cuda: bool) -> Callable:
 class SelectCtx(NamedTuple):
     """Per-round side inputs a strategy may consume (all optional).
     ``complete`` is the engine's completion hook, ``(N,) selection mask ->
-    (N,) completed mask``; None means selected == completed."""
+    (N,) completed mask``; None means selected == completed.  ``losses``
+    (fresh per-client losses) is read by the host-only strategies."""
     t: Optional[Any] = None
+    losses: Optional[torch.Tensor] = None
     complete: Optional[Callable] = None
 
 
@@ -134,20 +148,32 @@ def topk_strategy(name: str, init: Callable, score: Callable,
                              n_clients=n_clients)
 
 
-def _fused_rate_select(p: torch.Tensor, beta: float,
-                       weight_mode: str) -> Callable:
+def _fused_rate_select(p: torch.Tensor, beta: float, weight_mode: str,
+                       r_weight_of: Optional[Callable] = None) -> Callable:
     """One ``kernels.fed_select`` call yields the mask, the Alg. 1 line-5
-    rate EMA and the line-9 weights — bit-identical to the unfused chain."""
+    rate EMA and the line-9 weights — bit-identical to the unfused chain.
+    ``r_weight_of(state)`` supplies the frozen rate of
+    ``weight_mode="unbiased_frozen"`` (Alg. 2)."""
     from ..kernels.fed_select import fed_select
 
     def fused(state, scores, avail, k_t):
+        rw = None if r_weight_of is None else r_weight_of(state)
         mask, new_r, w = fed_select(scores, avail, k_t, state.rates.r, p,
-                                    beta, weight_mode=weight_mode)
+                                    beta, weight_mode=weight_mode,
+                                    r_weight=rw)
         new_state = RateTrackState(
             rates=RateState(r=new_r, t=state.rates.t + 1))
         return mask, w, new_state
 
     return fused
+
+
+def as_sharded(strategy: SelectionStrategy, **kw):
+    """The client-sharded adapter (and the strategies' ``score_block``) of
+    the JAX package; not ported."""
+    raise NotImplementedError(
+        "as_sharded (the client-sharded selection) is not ported to "
+        "repro_torch yet (ROADMAP.md queue 1 item 11)")
 
 
 # ---------------------------------------------------------------------------
@@ -158,7 +184,19 @@ class StrategyEntry(NamedTuple):
     factory: Callable[..., SelectionStrategy]
 
 
+class StrategyAlias(NamedTuple):
+    """A convenience name = strategy + server-optimizer defaults."""
+    strategy: str
+    server_opt: Optional[str] = None
+    server_lr: Optional[float] = None
+
+
 STRATEGY_REGISTRY: Dict[str, StrategyEntry] = {}
+
+# FedAdam (Reddi et al. / paper §4) = FedAvg selection + Adam server step.
+STRATEGY_ALIASES: Dict[str, StrategyAlias] = {
+    "fedadam": StrategyAlias("fedavg", server_opt="adam", server_lr=1e-2),
+}
 
 
 def register_strategy(name: str, factory: Optional[Callable] = None, *,
@@ -184,15 +222,24 @@ def get_strategy_entry(name: str) -> StrategyEntry:
     """Registry lookup that fails fast with the registered names."""
     return STRATEGY_REGISTRY[lookup("selection strategy", name,
                                     STRATEGY_REGISTRY, DEFERRED_STRATEGIES,
-                                    3)]
+                                    7)]
 
 
 def resolve_strategy(name: str, server_opt: str = "sgd",
                      server_lr: Optional[float] = None):
-    """Resolve ``(strategy_name, server_opt, server_lr)`` in ONE place;
+    """Resolve aliases and server-optimizer defaults in ONE place, as the
+    JAX package does: returns ``(strategy_name, server_opt, server_lr)``;
+    ``fedadam`` rewrites to fedavg with an Adam server step, and
     ``server_lr=None`` fills with the optimizer's default (1e-2 for
-    adam/yogi, else 1.0), as the JAX package does."""
+    adam/yogi, else 1.0)."""
     key = str(name).lower()
+    if key in STRATEGY_ALIASES:
+        alias = STRATEGY_ALIASES[key]
+        key = alias.strategy
+        if alias.server_opt is not None:
+            server_opt = alias.server_opt
+        if server_lr is None and alias.server_lr is not None:
+            server_lr = alias.server_lr
     get_strategy_entry(key)
     if server_lr is None:
         server_lr = 1e-2 if server_opt in ("adam", "yogi") else 1.0
@@ -268,3 +315,109 @@ def _make_f3ast(n_clients, p, device, beta: float = 1e-3,
                          score, finalize, device=device, n_clients=n_clients,
                          select_impl=select_impl,
                          fused=_fused_rate_select(p, beta, "unbiased"))
+
+
+@register_strategy("fixed_f3ast")
+def _make_fixed_f3ast(n_clients, p, device, beta: float = 1e-3,
+                      positively_correlated: bool = False, r_target=None,
+                      clients_per_round: Optional[int] = None,
+                      select_impl: str = "xla") -> SelectionStrategy:
+    """Algorithm 2: greedy w.r.t. a *frozen* target rate (the tracked
+    r(t−1) when no target is given), weights p_k / r_k(target)."""
+    rt_fixed = (None if r_target is None else
+                torch.as_tensor(r_target, dtype=torch.float32, device=device))
+
+    def r_of(state):
+        return rt_fixed if rt_fixed is not None else state.rates.r
+
+    def score(state, key, avail, k_t, ctx=None):
+        util = marginal_utility(r_of(state), p, positively_correlated)
+        # the tie-break of f3ast: under a uniform target every utility ties
+        return util * (1.0 + 1e-6 * jr.uniform(key, tuple(util.shape)))
+
+    def finalize(state, mask, ctx=None):
+        w = unbiased_weights(p, torch.clamp_min(r_of(state), R_MIN), mask)
+        return w, RateTrackState(rates=update_rates(state.rates, mask, beta))
+
+    return topk_strategy("fixed_f3ast",
+                         _rate_init(n_clients, clients_per_round, device),
+                         score, finalize, device=device, n_clients=n_clients,
+                         select_impl=select_impl,
+                         fused=_fused_rate_select(p, beta, "unbiased_frozen",
+                                                  r_weight_of=r_of))
+
+
+def _ema_finalize(beta: float, weights_from_mask: Callable) -> Callable:
+    """finalize = rate-EMA step + a weights rule on the (completed) mask."""
+
+    def finalize(state, mask, ctx=None):
+        new_rates = update_rates(state.rates, mask, beta)
+        return weights_from_mask(mask), RateTrackState(rates=new_rates)
+
+    return finalize
+
+
+def _log_p(p: torch.Tensor) -> torch.Tensor:
+    """log(max(p, 1e-12)) as the JAX engine has it: p is a closed-over
+    constant there, so XLA folds the log at compile time, correctly
+    rounded (not its runtime ``log``).  Computed once, in float64 on the
+    host, rounded to float32."""
+    p64 = np.maximum(p.cpu().numpy(), np.float32(1e-12)).astype(np.float64)
+    return torch.from_numpy(np.log(p64).astype(np.float32)).to(p.device)
+
+
+def _gumbel_score(p: torch.Tensor) -> Callable:
+    """log p + Gumbel: top-k ⇔ sampling without replacement ∝ p_k."""
+    log_p = _log_p(p)
+
+    def score(state, key, avail, k_t, ctx=None):
+        return log_p + jr.gumbel(key, tuple(p.shape))
+
+    return score
+
+
+@register_strategy("fedavg")
+def _make_fedavg(n_clients, p, device, beta: float = 1e-3,
+                 clients_per_round: Optional[int] = None,
+                 select_impl: str = "xla") -> SelectionStrategy:
+    """Paper baseline: sample available clients ∝ p_k, plain-mean
+    aggregation — biased under intermittent availability."""
+    return topk_strategy("fedavg",
+                         _rate_init(n_clients, clients_per_round, device),
+                         _gumbel_score(p), _ema_finalize(beta,
+                                                         uniform_weights),
+                         device=device, n_clients=n_clients,
+                         select_impl=select_impl,
+                         fused=_fused_rate_select(p, beta, "uniform"))
+
+
+@register_strategy("fedavg_weighted")
+def _make_fedavg_weighted(n_clients, p, device, beta: float = 1e-3,
+                          clients_per_round: Optional[int] = None,
+                          select_impl: str = "xla") -> SelectionStrategy:
+    """fedavg's selection with weights ∝ p_k over the cohort."""
+    return topk_strategy("fedavg_weighted",
+                         _rate_init(n_clients, clients_per_round, device),
+                         _gumbel_score(p),
+                         _ema_finalize(beta,
+                                       lambda mask: fedavg_weights(p, mask)),
+                         device=device, n_clients=n_clients,
+                         select_impl=select_impl,
+                         fused=_fused_rate_select(p, beta, "fedavg"))
+
+
+@register_strategy("uniform")
+def _make_uniform(n_clients, p, device, beta: float = 1e-3,
+                  clients_per_round: Optional[int] = None,
+                  select_impl: str = "xla") -> SelectionStrategy:
+    """Uniform without replacement over the available set, weights 1/|S|."""
+
+    def score(state, key, avail, k_t, ctx=None):
+        return jr.uniform(key, tuple(avail.shape))
+
+    return topk_strategy("uniform",
+                         _rate_init(n_clients, clients_per_round, device),
+                         score, _ema_finalize(beta, uniform_weights),
+                         device=device, n_clients=n_clients,
+                         select_impl=select_impl,
+                         fused=_fused_rate_select(p, beta, "uniform"))

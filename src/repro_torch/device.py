@@ -1,6 +1,10 @@
 """Where the port runs: CUDA unless the caller asks for the CPU."""
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
+import numpy as np
 import torch
 
 
@@ -16,3 +20,21 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise RuntimeError(f"repro_torch runs on cuda or cpu, got {dev}")
     return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class OnDevice:
+    """Base of the frozen dataclasses that hold tensors (availability
+    processes, budget schedules, completion processes): a keyword-only
+    ``device`` (None: CUDA), resolved once."""
+
+    device: Optional[torch.device] = dataclasses.field(default=None,
+                                                       kw_only=True)
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    def _tensor(self, arr: np.ndarray) -> torch.Tensor:
+        """A numpy array (built as the JAX package builds it) on the
+        device."""
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)

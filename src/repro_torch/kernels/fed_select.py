@@ -17,7 +17,8 @@ Bit-parity contract, as in the JAX package: the mask, r_k and the
 unfused cut → ``update_rates`` → weight rule.  ``fedavg`` divides by a float
 sum whose order differs between backends, so it is held to allclose.
 
-Each wrapper counts its kernel launches in ``.launches``.
+Each wrapper counts its kernel launches in ``.launches`` (``fed_select``
+also by weight mode, in ``.launches_by_mode``).
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from . import _build
 from . import ref as _ref
 from .ref import SELECT_WEIGHT_MODES
 
-__all__ = ["fed_select", "fed_select_mask"]
+__all__ = ["fed_select", "fed_select_mask", "reset_launches"]
 
 _MODES = {"unbiased": 1, "unbiased_frozen": 2, "uniform": 3, "fedavg": 4}
 
@@ -166,7 +167,16 @@ def fed_select(scores: torch.Tensor, avail: torch.Tensor, k, r: torch.Tensor,
                   r_weight if weight_mode == "unbiased_frozen" else None,
                   beta, _MODES[weight_mode], path)
     fed_select.launches += 1
+    fed_select.launches_by_mode[weight_mode] += 1
     return out
 
 
 fed_select.launches = 0
+# the same launches by weight mode; reset with ``reset_launches``
+fed_select.launches_by_mode = dict.fromkeys(SELECT_WEIGHT_MODES, 0)
+
+
+def reset_launches() -> None:
+    """Set both wrappers' launch counts to 0."""
+    fed_select.launches = fed_select_mask.launches = 0
+    fed_select.launches_by_mode = dict.fromkeys(SELECT_WEIGHT_MODES, 0)

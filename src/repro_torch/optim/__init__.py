@@ -1,1 +1,2 @@
-from .optimizers import Optimizer, apply_updates, make_optimizer, sgd
+from .optimizers import (Optimizer, adam, adamw, apply_updates,
+                         make_optimizer, sgd, yogi)

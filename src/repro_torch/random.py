@@ -17,6 +17,8 @@ current JAX releases), draw for draw:
   then ``max(lo, u * (hi - lo) + lo)`` (one FMA) on ``[lo, hi)``;
 * ``normal``             = ``sqrt(2) * erf_inv(uniform(nextafter(-1, 0), 1))``
   with XLA's float32 ``erf_inv`` (``xla_math``);
+* ``gumbel``             = ``-log(-log(uniform(tiny, 1)))`` with XLA's float32
+  ``log`` (``xla_math``), JAX's default mode;
 * ``bernoulli(key, p)``  = ``uniform(key, p.shape) < p``;
 * ``randint``            = JAX's ``_randint``: two ``bits`` draws from
   ``split(key)`` folded into ``[minval, maxval)`` with uint32 span /
@@ -36,8 +38,8 @@ import torch
 from . import xla_math
 from .device import resolve_device
 
-__all__ = ["PRNGKey", "bernoulli", "bits", "fold_in", "key_data", "normal",
-           "randint", "split", "threefry2x32", "uniform"]
+__all__ = ["PRNGKey", "bernoulli", "bits", "fold_in", "gumbel", "key_data",
+           "normal", "randint", "split", "threefry2x32", "uniform"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -116,7 +118,8 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` for a Python int ``data``."""
-    d = torch.tensor([int(data) & _M32], dtype=torch.int64, device=key.device)
+    d = torch.full((1,), int(data) & _M32, dtype=torch.int64,
+                   device=key.device)
     b1, b2 = threefry2x32(key, torch.zeros_like(d), d)
     return torch.cat([b1, b2])
 
@@ -149,12 +152,23 @@ def normal(key: torch.Tensor, shape: Shape = (), *,
     return xla_math.erf_inv(u) * _SQRT2
 
 
+_TINY = xla_math.f32(1.1754943508222875e-38)       # finfo(float32).tiny
+
+
+def gumbel(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` in float32 (mode ``"low"``, the
+    default), bit for bit: ``-log(-log(u))``, u uniform on [tiny, 1), with
+    XLA's ``log``."""
+    u = uniform(key, shape, _TINY, 1.0)
+    return -xla_math.log(-xla_math.log(u))
+
+
 def bernoulli(key: torch.Tensor, p, shape: Shape | None = None) -> torch.Tensor:
     """``jax.random.bernoulli(key, p)``: ``uniform(key, shape) < p``, with
     ``shape`` defaulting to ``p``'s shape.  ``p`` is a float32 tensor or a
     Python float (cast to float32, as JAX does with a weak scalar)."""
     if not torch.is_tensor(p):
-        p = torch.tensor(p, dtype=torch.float32, device=key.device)
+        p = torch.full((), p, dtype=torch.float32, device=key.device)
     shape = tuple(p.shape) if shape is None else _shape(shape)
     return uniform(key, shape) < p
 

@@ -31,7 +31,8 @@ from .. import random as jr
 from ..core.fedstep import make_fed_round
 from ..core.keys import COMPLETION as KEY_FOLD
 from ..core.selection import cohort_ids_from_mask
-from ..core.strategies import SelectCtx, make_strategy, strategy_rates
+from ..core.strategies import (SelectCtx, make_strategy,
+                               resolve_strategy, strategy_rates)
 from ..data import CohortSampler
 from ..data.pipeline import staged_cohort_batch
 from ..optim import make_optimizer
@@ -154,7 +155,7 @@ class DeviceEngine:
 def build_engine(scenario, algo_name: str = "f3ast", *, device,
                  seed: int = 0, clients_per_round: Optional[int] = None,
                  beta: Optional[float] = None, server_opt: str = "sgd",
-                 server_lr: float = 1.0, prox_mu: float = 0.0,
+                 server_lr: Optional[float] = None, prox_mu: float = 0.0,
                  positively_correlated: bool = False,
                  fed_mode: str = "parallel", strategy_kwargs=None,
                  completion: Optional[str] = None, completion_kwargs=None,
@@ -169,6 +170,8 @@ def build_engine(scenario, algo_name: str = "f3ast", *, device,
     from .runner import build_task   # local import: runner ↔ engine
 
     sc = get_scenario(scenario)
+    algo_name, server_opt, server_lr = resolve_strategy(algo_name, server_opt,
+                                                        server_lr)
     task, fed, init, loss, acc = build_task(sc.task, seed, device=device,
                                             **dict(sc.task_kwargs))
     n = fed.n_clients
@@ -176,11 +179,12 @@ def build_engine(scenario, algo_name: str = "f3ast", *, device,
     m = clients_per_round or task.clients_per_round
     beta = beta if beta is not None else task.beta
 
-    avail_model = sc.build_availability(n, p=p, device=device)
+    avail_model = sc.build_availability(n, p=fed.p, device=device)
     budget = sc.build_budget(default_k=m, device=device)
     comp_model = sc.build_completion(n, avail_model=avail_model,
                                      override=completion,
-                                     override_kwargs=completion_kwargs)
+                                     override_kwargs=completion_kwargs,
+                                     device=device)
     hyper = dict(beta=beta, positively_correlated=positively_correlated,
                  clients_per_round=m, select_impl=select_impl)
     hyper.update(strategy_kwargs or {})
@@ -211,7 +215,8 @@ def _chunk_spans(rounds: int, chunk_size: int):
 
 def run_scenario_device(scenario, algo_name: str = "f3ast", *, device,
                         rounds: Optional[int] = None,
-                        server_opt: str = "sgd", server_lr: float = 1.0,
+                        server_opt: str = "sgd",
+                        server_lr: Optional[float] = None,
                         clients_per_round: Optional[int] = None,
                         beta: Optional[float] = None, seed: int = 0,
                         eval_every: int = 10,

@@ -10,9 +10,9 @@ Port of ``repro.sim.spec`` with every field and the same
 ``resolved()`` validates as the JAX package does, then rejects with
 ``NotImplementedError`` — before anything runs — what this port does not
 have yet: ``engine="host"``, ``mesh_shape``, ``aggregation="buffered"``,
-``fed_mode="sequential"``, ``ckpt_dir``, server optimizers other than
-``sgd``, and strategies, scenarios and completions other than the ported
-ones (ROADMAP.md queue 1 lists where each is).
+``fed_mode="sequential"``, ``ckpt_dir``, the host-only strategy ``poc``
+and the paper tasks other than ``synthetic11`` (ROADMAP.md queue 1 lists
+where each is).
 """
 from __future__ import annotations
 

@@ -1,0 +1,144 @@
+"""Scenario × strategy grid sweep with streaming JSONL metrics (port of
+``repro.sim.sweep``):
+
+    python -m repro_torch.sim.sweep --scenarios homedevices,dropout \\
+        --algorithms f3ast,fedavg,fedadam --rounds 3 --device cpu
+
+Each (scenario, strategy) cell is ``dataclasses.replace`` of one base
+:class:`RunSpec`, run through the port's ``run_spec``; it streams per-round
+records to ``<out>/<scenario>__<algorithm>.jsonl`` and writes its spec to
+``<out>/<scenario>__<algorithm>.spec.json`` (any cell reruns from that file
+alone, in either package).  ``summary.json`` holds every cell's final
+metrics, keyed ``"<scenario>|<algorithm>"`` — the JAX sweep's layout.
+``--scenarios all`` sweeps the whole registry; ``--list`` prints it.
+Every cell's spec is resolved before the first one runs, so a strategy the
+port lacks (``poc``, ROADMAP.md queue 1 item 7) fails before any work.
+Runs on CUDA unless ``--device cpu``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+from typing import Callable, Optional, Sequence
+
+from .completion import COMPLETION_REGISTRY
+from .runner import run_spec
+from .scenario import SCENARIO_REGISTRY, get_scenario, list_scenarios
+from .spec import RunSpec
+
+# the JAX sweep's universe for --algorithms all (fixed_f3ast needs an
+# r_target to differ from f3ast; fedavg_weighted is a variant of fedavg)
+ALGORITHMS = ("f3ast", "fedavg", "fedadam", "poc", "uniform")
+# the part of it the port runs; poc needs the host loop (item 7)
+UNPORTED_ALGORITHMS = ("poc",)
+
+
+def run_sweep(scenarios: Sequence[str],
+              algorithms: Optional[Sequence[str]] = None, *,
+              completions: Optional[Sequence[str]] = None,
+              rounds: Optional[int] = None, out_dir: str = "experiments/sweep",
+              seed: Optional[int] = None, server_opt: Optional[str] = None,
+              eval_every: Optional[int] = None, device=None,
+              base_spec: Optional[RunSpec] = None,
+              log_fn: Callable = print) -> dict:
+    """Run the grid on ``device`` (default CUDA); returns {(scenario,
+    algorithm[, completion]): final_metrics}.  ``algorithms=None`` takes
+    each scenario's own grid; ``completions`` adds a completion-process
+    axis; ``rounds``, ``seed`` and ``server_opt`` override ``base_spec``
+    where given; ``eval_every`` defaults to a fifth of the rounds."""
+    overrides = {k: v for k, v in dict(rounds=rounds, seed=seed,
+                                       server_opt=server_opt).items()
+                 if v is not None}
+    base = dataclasses.replace(base_spec or RunSpec(), **overrides)
+    cells = []
+    for sc_key in scenarios:
+        sc = get_scenario(sc_key)
+        algos = tuple(algorithms) if algorithms else sc.algorithms
+        for algo in algos:
+            for comp in (tuple(completions) if completions else (None,)):
+                cell = f"{sc.name}__{algo}"
+                cell_key = (sc.name, algo)
+                if completions:
+                    cell, cell_key = f"{cell}__{comp}", cell_key + (comp,)
+                path = os.path.join(out_dir, f"{cell}.jsonl")
+                ev = eval_every or max(1, (base.rounds or sc.rounds or 150)
+                                       // 5)
+                spec = dataclasses.replace(base, scenario=sc, strategy=algo,
+                                           eval_every=ev, metrics_path=path)
+                if comp is not None:
+                    spec = dataclasses.replace(spec, completion=comp)
+                spec.resolved()            # fail before any cell runs
+                cells.append((cell, cell_key, spec, path))
+    os.makedirs(out_dir, exist_ok=True)
+    results = {}
+    for cell, cell_key, spec, path in cells:
+        spec.save(os.path.join(out_dir, f"{cell}.spec.json"))
+        res = run_spec(spec, device=device, log_fn=lambda *_: None)
+        results[cell_key] = fm = res.final_metrics
+        log_fn(f"sweep,{','.join(cell_key)},"
+               f"acc={fm.get('test_acc', float('nan')):.4f},"
+               f"loss={fm.get('test_loss', float('nan')):.4f},"
+               f"wall_s={fm['wall_s']:.1f} -> {path}")
+    with open(os.path.join(out_dir, "summary.json"), "w") as f:
+        json.dump({"|".join(k): m for k, m in results.items()}, f, indent=1)
+    return results
+
+
+def _parse_list(arg: str, universe: Sequence[str]) -> list:
+    if arg == "all":
+        return list(universe)
+    return [x.strip() for x in arg.split(",") if x.strip()]
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(
+        description="Scenario × strategy sweep on the PyTorch port "
+                    "(see repro_torch/sim/scenario.py)")
+    ap.add_argument("--scenarios", default="bernoulli,markov,diurnal",
+                    help="comma-separated scenario keys, or 'all'")
+    ap.add_argument("--algorithms", default=None,
+                    help="comma-separated strategy names, or 'all' (the "
+                         "ported ones of " f"{','.join(ALGORITHMS)}); "
+                         "default: each scenario's own grid")
+    ap.add_argument("--completions", default=None,
+                    help="comma-separated completion-process keys, or "
+                         "'all' (default: each scenario's own)")
+    ap.add_argument("--rounds", type=int, default=None)
+    ap.add_argument("--out", default="experiments/sweep")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--server-opt", default="sgd")
+    ap.add_argument("--eval-every", type=int, default=None)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' for the CPU)")
+    ap.add_argument("--list", action="store_true",
+                    help="list registered scenarios and exit")
+    args = ap.parse_args(argv)
+
+    if args.list:
+        for name in list_scenarios():
+            sc = SCENARIO_REGISTRY[name]
+            print(f"{name:<16} avail={sc.availability:<16} "
+                  f"budget={sc.budget:<9} task={sc.task:<12} "
+                  f"{sc.description}")
+        return
+
+    scenarios = _parse_list(args.scenarios, list_scenarios())
+    algorithms = None
+    if args.algorithms == "all":
+        algorithms = [a for a in ALGORITHMS if a not in UNPORTED_ALGORITHMS]
+        print(f"sweep: --algorithms all runs {','.join(algorithms)}; left "
+              f"out (not ported): {','.join(UNPORTED_ALGORITHMS)}")
+    elif args.algorithms:
+        algorithms = _parse_list(args.algorithms, ALGORITHMS)
+    completions = (_parse_list(args.completions, sorted(COMPLETION_REGISTRY))
+                   if args.completions else None)
+    run_sweep(scenarios, algorithms, completions=completions,
+              rounds=args.rounds, out_dir=args.out, seed=args.seed,
+              server_opt=args.server_opt, eval_every=args.eval_every,
+              device=args.device)
+
+
+if __name__ == "__main__":
+    main()

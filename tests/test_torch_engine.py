@@ -1,4 +1,4 @@
-"""The slice end to end: one RunSpec JSON, written by the JAX package,
+"""The main path end to end: one RunSpec JSON, written by the JAX package,
 drives both packages.  For the default F3AST cell (300 rounds) the port's
 CPU path gives bitwise the JAX device engine's selection and completion
 masks, K_t, |avail| and final r_k, and train loss and delta norm within
@@ -112,18 +112,45 @@ def test_history_and_final_metrics(runs):
 
 @pytest.mark.parametrize("override", [
     dict(engine="host"), dict(mesh_shape=(2,)), dict(aggregation="buffered"),
-    dict(strategy="fedavg"), dict(strategy="fixed_f3ast"),
-    dict(strategy="fedadam"), dict(scenario="markov"),
-    dict(scenario="stepk"), dict(fed_mode="sequential"),
-    dict(server_opt="adam"), dict(completion="bernoulli"),
-    dict(ckpt_dir="ckpt")])
+    dict(fed_mode="sequential"), dict(ckpt_dir="ckpt")])
 def test_resolve_rejects_unported(override):
-    """What the slice lacks fails at resolve time, before anything runs —
+    """What the port lacks fails at resolve time, before anything runs —
     and the same spec is valid in the JAX package."""
     jsim.RunSpec(**override).resolved()
     spec = tsim.RunSpec.from_json(jsim.RunSpec(**override).to_json())
     with pytest.raises(NotImplementedError):
         spec.resolved()
+
+
+@pytest.mark.parametrize("override", [
+    dict(strategy="fedavg"), dict(strategy="fixed_f3ast"),
+    dict(strategy="fedadam"), dict(scenario="markov"),
+    dict(scenario="stepk"), dict(server_opt="adam"),
+    dict(completion="bernoulli")])
+def test_resolve_runs_what_was_unported(override, tmp_path):
+    """These specs raised NotImplementedError until the scenario axes and
+    the baselines were ported: each resolves as in the JAX package and
+    runs a few rounds with its masks, K_t and |avail| bitwise JAX's."""
+    rounds = 4
+    jspec = jsim.RunSpec(rounds=rounds, eval_every=2, **override)
+    jr = jspec.resolved()
+    spec = tsim.RunSpec.from_json(jspec.to_json())
+    tr_ = spec.resolved()
+    for field in ("strategy", "server_opt", "server_lr", "completion"):
+        assert getattr(tr_, field) == getattr(jr, field), field
+    jres = jsim.run_spec(jspec.replace(metrics_path=str(tmp_path / "j")),
+                         log_fn=_quiet)
+    tres = tsim.run_spec(spec.replace(metrics_path=str(tmp_path / "t")),
+                         device="cpu", log_fn=_quiet)
+    assert tres.sel_history.tobytes() == jres.sel_history.tobytes()
+    assert tres.comp_history.tobytes() == jres.comp_history.tobytes()
+    assert tres.rates.tobytes() == jres.rates.tobytes()
+    jl, tl = _jsonl(tmp_path / "j"), _jsonl(tmp_path / "t")
+    for key in ("k_t", "n_available", "n_completed"):
+        assert [r[key] for r in tl] == [r[key] for r in jl], key
+    np.testing.assert_allclose([r["train_loss"] for r in tl],
+                               [r["train_loss"] for r in jl], rtol=0,
+                               atol=TOL)
 
 
 @pytest.mark.parametrize("override,exc", [
