@@ -7,7 +7,8 @@ from __future__ import annotations
 from ..registry import lookup
 from . import llama3_2_1b, mamba2_2_7b
 from .common import INPUT_SHAPES, ArchSpec
-from .paper_tasks import PAPER_TASKS, SYNTHETIC, PaperTask
+from .paper_tasks import (CIFAR, PAPER_TASKS, SHAKESPEARE, SYNTHETIC,
+                          PaperTask)
 
 ARCHS = {m.SPEC.arch_id: m.SPEC for m in (llama3_2_1b, mamba2_2_7b)}
 
@@ -22,4 +23,5 @@ def get_arch(arch_id: str) -> ArchSpec:
 
 
 __all__ = ["ARCHS", "DEFERRED_ARCHS", "get_arch", "ArchSpec",
-           "INPUT_SHAPES", "PAPER_TASKS", "PaperTask", "SYNTHETIC"]
+           "INPUT_SHAPES", "PAPER_TASKS", "PaperTask", "SYNTHETIC",
+           "SHAKESPEARE", "CIFAR"]

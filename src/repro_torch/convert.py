@@ -1,10 +1,11 @@
 """Carry parameters across from the JAX package, and back.
 
-The JAX package's parameters are a pytree of arrays; as nested dicts of
-numpy arrays (``jax.tree.map(np.asarray, params)``) they become the port's
-nested dicts of tensors on a given device, byte for byte, and back.  The
-tree is kept as it is, the stacked layer axis of the transformer's blocks
-included.  The parity tests start both packages from the same weights
+The JAX package's parameters are a pytree of arrays; as nested dicts and
+lists of numpy arrays (``jax.tree.map(np.asarray, params)``) they become
+the port's nested dicts and lists of tensors on a given device, byte for
+byte, and back.  The tree is kept as it is: the stacked layer axis of the
+transformer's blocks, the LSTM's list of layers and the ResNet's list of
+blocks included.  The parity tests start both packages from the same weights
 this way.
 
 bfloat16: ``np.asarray`` of a JAX bf16 array has the ``ml_dtypes``
@@ -13,12 +14,11 @@ uint16 (viewed as int16, then as ``torch.bfloat16``), which is exact.
 """
 from __future__ import annotations
 
-from typing import Mapping
-
 import numpy as np
 import torch
 
 from .device import resolve_device
+from .tree import tree_map
 
 
 def _leaf_from_numpy(a, device) -> torch.Tensor:
@@ -39,21 +39,14 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def params_from_numpy(params: Mapping, device=None) -> dict:
-    """Nested {name: numpy array | dict} -> the same tree of tensors on
-    ``device`` (default CUDA), same bytes."""
+def params_from_numpy(params, device=None):
+    """Nested dicts and lists of numpy arrays -> the same tree of tensors
+    on ``device`` (default CUDA), same bytes."""
     device = resolve_device(device)
-
-    def go(tree):
-        if isinstance(tree, Mapping):
-            return {k: go(v) for k, v in tree.items()}
-        return _leaf_from_numpy(tree, device)
-    return go(params)
+    return tree_map(lambda a: _leaf_from_numpy(a, device), params)
 
 
-def params_to_numpy(params: Mapping) -> dict:
-    """Nested {name: tensor | dict} -> the same tree of numpy arrays (for
-    comparisons), same bytes."""
-    if isinstance(params, Mapping):
-        return {k: params_to_numpy(v) for k, v in params.items()}
-    return _leaf_to_numpy(params)
+def params_to_numpy(params):
+    """Nested dicts and lists of tensors -> the same tree of numpy arrays
+    (for comparisons), same bytes."""
+    return tree_map(_leaf_to_numpy, params)

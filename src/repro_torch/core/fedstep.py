@@ -1,16 +1,25 @@
-"""The federated round (port of ``repro.core.fedstep``, ``parallel`` mode).
+"""The federated round (port of ``repro.core.fedstep``).
 
 A round (paper Algorithm 1 lines 6-10) takes the global model w̄^t, runs E
 local SGD steps for every client of the cohort, aggregates the weighted
-deltas Δ^{t+1} = Σ_k w_k v_k, and applies SERVEROPT.  The cohort axis is
-batched with ``torch.func.vmap`` over ``torch.func.grad_and_value`` of the
-loss; the Δ reduction is ``kernels.fed_aggregate`` over the whole parameter
-dict flattened into one (K, D) buffer (the CUDA kernel on the card, its
-plain version on the CPU).  The weights are computed outside, so one round
-function serves every strategy.
+deltas Δ^{t+1} = Σ_k w_k v_k, and applies SERVEROPT.  The weights are
+computed outside, so one round function serves every strategy.  The
+parameters are a tree of nested dicts and lists (``repro_torch.tree``).
+
+Two cohort execution modes, as in the JAX package:
+
+* ``parallel``   — the cohort axis is batched with ``torch.func.vmap`` over
+                   ``torch.func.grad_and_value`` of the loss; the Δ
+                   reduction is ONE ``kernels.fed_aggregate`` call over the
+                   whole tree flattened into a (K, D) buffer (the CUDA
+                   kernel on the card, its plain version on the CPU).
+                   Memory ≈ K local model copies.
+* ``sequential`` — a loop over the cohort; each client's weighted delta is
+                   added to a float32 accumulator (``streaming_aggregate_add``)
+                   and no ``fed_aggregate`` runs.  Memory ≈ 3 model copies,
+                   whatever the cohort size.
 
 Batch layout: every leaf of ``cohort_batch`` has shape (K, E, B, ...).
-``sequential`` mode is ROADMAP.md queue 1 item 5.
 """
 from __future__ import annotations
 
@@ -21,6 +30,8 @@ from torch.func import grad_and_value, vmap
 
 from ..kernels.fed_aggregate import fed_aggregate_tree
 from ..optim.optimizers import Optimizer, apply_updates
+from ..tree import tree_leaves, tree_map
+from .aggregation import streaming_aggregate_add, streaming_aggregate_init
 
 
 class RoundMetrics(NamedTuple):
@@ -29,13 +40,12 @@ class RoundMetrics(NamedTuple):
     grad_norm: torch.Tensor     # mean per-step grad norm
 
 
-def _sq_norm(tree: dict) -> torch.Tensor:
-    """Σ over leaves of Σ x², leaves in sorted-key order (jax.tree order)."""
-    return sum(torch.sum(tree[k] * tree[k]).to(torch.float32)
-               for k in sorted(tree))
+def _sq_norm(tree) -> torch.Tensor:
+    """Σ over leaves of Σ x², leaves in JAX's order."""
+    return sum(torch.sum(x * x).to(torch.float32) for x in tree_leaves(tree))
 
 
-def _local_sgd(loss_fn: Callable, params: dict, client_batch: dict,
+def _local_sgd(loss_fn: Callable, params, client_batch: dict,
                lr: float, prox_mu: float = 0.0):
     """E local SGD steps for one client; returns (v_k, mean_loss,
     mean_gnorm).  ``client_batch`` leaves have shape (E, B, ...).
@@ -51,11 +61,12 @@ def _local_sgd(loss_fn: Callable, params: dict, client_batch: dict,
     for e in range(n_steps):
         g, loss = vg(w, {k: v[e] for k, v in client_batch.items()})
         if prox_mu > 0.0:
-            g = {k: g[k] + prox_mu * (w[k] - params[k]) for k in g}
+            g = tree_map(lambda g_, w_, w0: g_ + prox_mu * (w_ - w0),
+                         g, w, params)
         gnorms.append(torch.sqrt(_sq_norm(g)))
         losses.append(loss)
-        w = {k: torch.add(w[k], g[k], alpha=-lr) for k in w}
-    v_k = {k: w[k] - params[k] for k in w}
+        w = tree_map(lambda w_, g_: torch.add(w_, g_, alpha=-lr), w, g)
+    v_k = tree_map(torch.sub, w, params)
     return v_k, torch.stack(losses).mean(), torch.stack(gnorms).mean()
 
 
@@ -68,16 +79,35 @@ def make_fed_round(loss_fn: Callable, server_opt: Optimizer, *,
 
     ``client_lr`` is a Python float (folded into the step as float32).
     """
-    if mode != "parallel":
-        raise NotImplementedError(
-            f"fed_mode={mode!r} is not ported to repro_torch yet (ROADMAP.md "
-            f"queue 1 item 5); ported: 'parallel'")
+    if mode not in ("parallel", "sequential"):
+        raise ValueError(f"mode must be 'parallel' or 'sequential', "
+                         f"got {mode!r}")
+
+    def cohort_parallel(params, cohort_batch, weights, lr):
+        deltas, losses, gnorms = vmap(
+            lambda b: _local_sgd(loss_fn, params, b, lr, prox_mu))(
+                cohort_batch)
+        return fed_aggregate_tree(deltas, weights), losses, gnorms
+
+    def cohort_sequential(params, cohort_batch, weights, lr):
+        acc = streaming_aggregate_init(params)
+        losses, gnorms = [], []
+        for k in range(weights.shape[0]):
+            v_k, loss_k, gnorm_k = _local_sgd(
+                loss_fn, params, {n: b[k] for n, b in cohort_batch.items()},
+                lr, prox_mu)
+            acc = streaming_aggregate_add(acc, v_k, weights[k])
+            losses.append(loss_k)
+            gnorms.append(gnorm_k)
+        delta = tree_map(lambda a, p: a.to(p.dtype), acc, params)
+        return delta, torch.stack(losses), torch.stack(gnorms)
+
+    cohort = cohort_parallel if mode == "parallel" else cohort_sequential
 
     def fed_round(params, opt_state, cohort_batch, weights, client_lr):
-        deltas, losses, gnorms = vmap(
-            lambda b: _local_sgd(loss_fn, params, b, float(client_lr),
-                                 prox_mu))(cohort_batch)
-        delta = fed_aggregate_tree(deltas, weights.to(torch.float32))
+        delta, losses, gnorms = cohort(params, cohort_batch,
+                                       weights.to(torch.float32),
+                                       float(client_lr))
         dnorm = torch.sqrt(_sq_norm(delta))
         updates, opt_state = server_opt.update(delta, opt_state, params)
         params = apply_updates(params, updates)

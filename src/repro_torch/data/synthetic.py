@@ -1,10 +1,15 @@
-"""Synthetic federated data (port of ``repro.data.synthetic``'s
-``make_synthetic_federated``).
+"""Synthetic federated data (port of ``repro.data.synthetic``'s numpy
+makers).
+
+* ``make_synthetic_federated`` — the paper's Synthetic(alpha, beta);
+* ``make_char_lm_federated`` — the Shakespeare stand-in: per-client (per
+  role) Markov character streams;
+* ``make_vision_federated`` — the CIFAR100 stand-in: class-conditional
+  Gaussian images, LDA-partitioned (``partition.dirichlet_partition``).
 
 Pure numpy (``np.random.default_rng``), copied op for op, so the same seed
-gives the same bytes as the JAX package's generator.  The Shakespeare and
-CIFAR stand-ins and the on-demand ``SynthTask`` are ROADMAP.md queue 1
-items 10 and 11.
+and kwargs give the same bytes as the JAX package's makers.  The on-demand
+``SynthTask`` is ROADMAP.md queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -12,6 +17,8 @@ import dataclasses
 from typing import List
 
 import numpy as np
+
+from .partition import dirichlet_partition
 
 
 @dataclasses.dataclass
@@ -58,3 +65,43 @@ def make_synthetic_federated(n_clients=100, dim=60, n_classes=10,
         clients.append(_split({"x": x.astype(np.float32), "y": y},
                               seed=seed + k))
     return clients
+
+
+def make_char_lm_federated(n_clients=100, vocab=90, seq_len=80,
+                           sentences_per_client=64, seed=0) -> List[SyntheticDataset]:
+    """Shakespeare stand-in: role-specific Markov char streams.
+
+    Each client (speaking role) has its own sparse character-transition
+    matrix interpolated with a shared global one — mimicking stylistic
+    heterogeneity across roles while staying learnable.
+    """
+    rng = np.random.default_rng(seed)
+    base = rng.dirichlet(np.full(vocab, 0.3), size=vocab)          # shared LM
+    clients = []
+    for k in range(n_clients):
+        mix = rng.uniform(0.5, 0.95)
+        role = rng.dirichlet(np.full(vocab, 0.05), size=vocab)
+        P = mix * base + (1 - mix) * role
+        P /= P.sum(-1, keepdims=True)
+        n_sent = int(rng.integers(8, sentences_per_client + 1))
+        toks = np.empty((n_sent, seq_len), np.int32)
+        for s in range(n_sent):
+            t = rng.integers(vocab)
+            for i in range(seq_len):
+                toks[s, i] = t
+                t = rng.choice(vocab, p=P[t])
+        clients.append(_split({"tokens": toks}, seed=seed + k))
+    return clients
+
+
+def make_vision_federated(n_clients=50, n_classes=20, img=16, per_class=100,
+                          lda_alpha=0.1, seed=0) -> List[SyntheticDataset]:
+    """CIFAR100 stand-in: class-conditional Gaussian images + LDA partition."""
+    rng = np.random.default_rng(seed)
+    n = n_classes * per_class
+    labels = np.repeat(np.arange(n_classes), per_class).astype(np.int32)
+    protos = rng.normal(0, 1, size=(n_classes, img, img, 3)).astype(np.float32)
+    x = protos[labels] + rng.normal(0, 1.2, size=(n, img, img, 3)).astype(np.float32)
+    parts = dirichlet_partition(labels, n_clients, lda_alpha, seed=seed)
+    return [_split({"x": x[ci], "y": labels[ci]}, seed=seed + i)
+            for i, ci in enumerate(parts)]

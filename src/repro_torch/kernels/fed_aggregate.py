@@ -8,10 +8,9 @@ raises; nothing falls back.  ``fed_aggregate.launches`` counts launches.
 """
 from __future__ import annotations
 
-from typing import Dict
-
 import torch
 
+from ..tree import tree_leaves, tree_map
 from . import _build
 from . import ref as _ref
 
@@ -55,19 +54,14 @@ def fed_aggregate(deltas: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
 fed_aggregate.launches = 0
 
 
-def fed_aggregate_tree(deltas: Dict[str, torch.Tensor],
-                       weights: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Alg. 1 line 9 over a parameter dict of (K, ...) leaves: the leaves
-    are flattened into one (K, D) buffer (in sorted key order), reduced by
-    ONE :func:`fed_aggregate` call, and split back to the leaf shapes."""
-    names = sorted(deltas)
-    k_rows = deltas[names[0]].shape[0]
-    flat = torch.cat([deltas[n].reshape(k_rows, -1) for n in names], dim=1)
-    out = fed_aggregate(flat, weights)
-    result, off = {}, 0
-    for n in names:
-        shape = deltas[n].shape[1:]
-        size = deltas[n][0].numel()
-        result[n] = out[off:off + size].reshape(shape)
-        off += size
-    return result
+def fed_aggregate_tree(deltas, weights: torch.Tensor):
+    """Alg. 1 line 9 over a parameter tree (nested dicts and lists) of
+    (K, ...) leaves: the leaves are flattened into one (K, D) buffer in
+    JAX's leaf order, reduced by ONE :func:`fed_aggregate` call, and split
+    back to the leaf shapes."""
+    leaves = tree_leaves(deltas)
+    k_rows = leaves[0].shape[0]
+    flat = torch.cat([x.reshape(k_rows, -1) for x in leaves], dim=1)
+    pieces = iter(torch.split(fed_aggregate(flat, weights),
+                              [x[0].numel() for x in leaves]))
+    return tree_map(lambda x: next(pieces).reshape(x.shape[1:]), deltas)

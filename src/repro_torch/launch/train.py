@@ -1,0 +1,163 @@
+"""Federated training CLI (port of ``repro.launch.train``).
+
+Parses the CLI straight into one frozen :class:`repro_torch.sim.RunSpec`
+and runs it through :func:`repro_torch.sim.run_spec`, on CUDA unless
+``--device cpu`` is given:
+
+  python -m repro_torch.launch.train --task cifar --algo f3ast --rounds 20
+  python -m repro_torch.launch.train --task shakespeare --algo fedavg \\
+      --availability homedevices --server-opt adam
+  python -m repro_torch.launch.train --scenario diurnal --rounds 200
+  python -m repro_torch.launch.train --spec experiments/run.spec.json
+
+``--save-spec``/``--spec`` write and read the same RunSpec JSON as the JAX
+package's CLI.  What the port lacks fails before anything runs, with
+``NotImplementedError`` naming its ROADMAP.md queue 1 item: ``--arch``
+(the model zoo's federated round, item 12), ``--engine host`` and
+``--ckpt-dir`` (item 7), ``--mesh-shape`` (item 11) and ``--aggregation
+buffered`` (item 9).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+from typing import Callable, Optional
+
+from ..configs import PAPER_TASKS
+from ..core.strategies import (DEFERRED_STRATEGIES, STRATEGY_ALIASES,
+                               list_strategies)
+from ..sim.completion import COMPLETION_REGISTRY
+from ..sim.runner import TrainResult, run_spec
+from ..sim.scenario import Scenario, list_scenarios
+from ..sim.spec import RunSpec
+
+__all__ = ["TrainResult", "run_federated", "main"]
+
+
+def _legacy_server_lr(algo_name: str, server_lr) -> Optional[float]:
+    """The JAX CLI's ``server_lr`` default: 1.0, which only an alias
+    (fedadam) reads as unset (-> its own 1e-2)."""
+    if server_lr is None:
+        server_lr = 1.0
+    if server_lr == 1.0 and str(algo_name).lower() in STRATEGY_ALIASES:
+        return None
+    return server_lr
+
+
+def run_federated(task_id: str = "synthetic11", algo_name: str = "f3ast",
+                  availability: str = "homedevices",
+                  rounds: Optional[int] = None, server_opt: str = "sgd",
+                  server_lr: Optional[float] = None,
+                  clients_per_round: Optional[int] = None,
+                  k_jitter: int = 0, beta: Optional[float] = None,
+                  seed: int = 0, eval_every: int = 10,
+                  ckpt_dir: Optional[str] = None, prox_mu: float = 0.0,
+                  log_fn: Callable = print,
+                  positively_correlated: bool = False,
+                  metrics_path: Optional[str] = None,
+                  engine: str = "device", mesh_shape=None,
+                  clients_axis: str = "clients", model_axis: str = "model",
+                  device=None) -> TrainResult:
+    """Availability-string front end: wraps the arguments into an ad-hoc
+    :class:`Scenario` + :class:`RunSpec` and runs it on ``device``
+    (default CUDA)."""
+    sc = Scenario(name=availability, availability=availability,
+                  budget="jittered" if k_jitter else "constant",
+                  budget_kwargs={"jitter": k_jitter} if k_jitter else {},
+                  task=task_id)
+    spec = RunSpec(scenario=sc, strategy=algo_name, rounds=rounds,
+                   server_opt=server_opt,
+                   server_lr=_legacy_server_lr(algo_name, server_lr),
+                   clients_per_round=clients_per_round, beta=beta, seed=seed,
+                   eval_every=eval_every, ckpt_dir=ckpt_dir, prox_mu=prox_mu,
+                   positively_correlated=positively_correlated,
+                   metrics_path=metrics_path, engine=engine,
+                   mesh_shape=mesh_shape, clients_axis=clients_axis,
+                   model_axis=model_axis)
+    return run_spec(spec, device=device, log_fn=log_fn)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--task", default=None, choices=list(PAPER_TASKS))
+    ap.add_argument("--arch", default=None,
+                    help="not ported: the model zoo's federated round is "
+                         "ROADMAP.md queue 1 item 12")
+    ap.add_argument("--scenario", default=None, choices=list_scenarios(),
+                    help="registered scenario key (overrides "
+                         "--availability)")
+    ap.add_argument("--algo", default="f3ast",
+                    choices=sorted(list_strategies() + list(STRATEGY_ALIASES)
+                                   + list(DEFERRED_STRATEGIES)),
+                    help="registered selection strategy (or alias)")
+    ap.add_argument("--availability", default="homedevices")
+    ap.add_argument("--completion", default=None,
+                    choices=sorted(COMPLETION_REGISTRY))
+    ap.add_argument("--completion-kwargs", default=None, metavar="JSON")
+    ap.add_argument("--aggregation", default="sync",
+                    choices=["sync", "buffered"])
+    ap.add_argument("--buffer-size", type=int, default=None)
+    ap.add_argument("--staleness-power", type=float, default=0.5)
+    ap.add_argument("--staleness-discount", default="polynomial")
+    ap.add_argument("--rounds", type=int, default=None)
+    ap.add_argument("--server-opt", default=None)
+    ap.add_argument("--clients-per-round", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--metrics-jsonl", default=None,
+                    help="stream per-round metrics to this JSONL file")
+    ap.add_argument("--prox-mu", type=float, default=0.0)
+    ap.add_argument("--engine", default="device", choices=["device", "host"])
+    ap.add_argument("--select-impl", default="xla", choices=["xla", "pallas"])
+    ap.add_argument("--mesh-shape", default=None, metavar="C[,M]")
+    ap.add_argument("--clients-axis", default="clients")
+    ap.add_argument("--model-axis", default="model")
+    ap.add_argument("--spec", default=None, metavar="PATH",
+                    help="load a RunSpec JSON and run it (the other run "
+                         "flags are ignored)")
+    ap.add_argument("--save-spec", default=None, metavar="PATH",
+                    help="write the assembled RunSpec JSON before running")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    if args.arch:
+        raise NotImplementedError(
+            f"--arch {args.arch}: the model zoo's federated round is not "
+            f"ported to repro_torch yet (ROADMAP.md queue 1 item 12)")
+    if args.spec:
+        spec = RunSpec.load(args.spec)
+    else:
+        scenario = args.scenario if args.scenario else Scenario(
+            name=args.availability, availability=args.availability,
+            task=args.task or "synthetic11")
+        spec = RunSpec(scenario=scenario, strategy=args.algo,
+                       rounds=args.rounds,
+                       completion=args.completion,
+                       completion_kwargs=(json.loads(args.completion_kwargs)
+                                          if args.completion_kwargs else {}),
+                       server_opt=args.server_opt or "sgd",
+                       clients_per_round=args.clients_per_round,
+                       seed=args.seed, ckpt_dir=args.ckpt_dir,
+                       prox_mu=args.prox_mu, engine=args.engine,
+                       select_impl=args.select_impl,
+                       mesh_shape=(tuple(int(x) for x in
+                                         args.mesh_shape.split(","))
+                                   if args.mesh_shape else None),
+                       clients_axis=args.clients_axis,
+                       model_axis=args.model_axis,
+                       aggregation=args.aggregation,
+                       buffer_size=args.buffer_size,
+                       staleness_power=args.staleness_power,
+                       staleness_discount=args.staleness_discount,
+                       metrics_path=args.metrics_jsonl)
+    spec.resolved()             # what the port lacks fails here
+    if args.save_spec:
+        spec.save(args.save_spec)
+        print(f"wrote {args.save_spec}")
+    res = run_spec(spec, device=args.device)
+    print(json.dumps(res.final_metrics, indent=1))
+
+
+if __name__ == "__main__":
+    main()

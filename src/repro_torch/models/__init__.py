@@ -1,4 +1,5 @@
-"""Model zoo of the port: the paper's softmax regression and, of the
+"""Model zoo of the port: the paper's task models (softmax regression, the
+Shakespeare LSTM ``rnn``, ResNet-18 with GroupNorm ``resnet``) and, of the
 assigned architectures, the dense and ssm (Mamba-2) decoder families
 (``transformer``, ``ssm``).
 
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import types
 
-from . import softmax_reg, ssm, transformer
+from . import resnet, rnn, softmax_reg, ssm, transformer
 from .layers import ModelConfig
 
 
@@ -29,5 +30,5 @@ def get_model_api(cfg: ModelConfig):
     )
 
 
-__all__ = ["ModelConfig", "get_model_api", "softmax_reg", "ssm",
-           "transformer"]
+__all__ = ["ModelConfig", "get_model_api", "resnet", "rnn", "softmax_reg",
+           "ssm", "transformer"]

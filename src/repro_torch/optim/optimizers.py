@@ -2,7 +2,8 @@
 and yogi, the FEDOPT family the paper composes with (FedAvg = server SGD
 with lr = 1, FedAdam = server Adam).
 
-An :class:`Optimizer` is an (init, update) pair over parameter dicts:
+An :class:`Optimizer` is an (init, update) pair over parameter trees
+(nested dicts and lists, ``repro_torch.tree``):
 ``update(direction, state, params) -> (updates, state)`` returns updates to
 be *added* to the params (pass the aggregated pseudo-gradient Δ; with
 lr = 1, SERVEROPT(w, Δ) = w + Δ).  The Adam family computes what the JAX
@@ -16,6 +17,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from ..registry import lookup
+from ..tree import tree_map
 
 
 class Optimizer(NamedTuple):
@@ -35,16 +37,15 @@ def sgd(lr: float = 1.0) -> Optimizer:
         return SgdState(0)
 
     def update(direction, state, params=None):
-        return ({k: lr * d for k, d in direction.items()},
-                SgdState(state.t + 1))
+        return tree_map(lambda d: lr * d, direction), SgdState(state.t + 1)
 
     return Optimizer(init, update)
 
 
 class AdamState(NamedTuple):
     t: int                     # steps taken
-    m: dict                    # first moments, float32
-    v: dict                    # second moments, float32
+    m: Any                     # first moments, float32 (a parameter tree)
+    v: Any                     # second moments, float32
 
 
 def _adam_family(lr: float, b1: float, b2: float, eps: float,
@@ -52,29 +53,32 @@ def _adam_family(lr: float, b1: float, b2: float, eps: float,
     f32 = torch.float32
 
     def init(params):
-        zeros = {k: torch.zeros_like(p, dtype=f32) for k, p in params.items()}
-        return AdamState(0, zeros, {k: z.clone() for k, z in zeros.items()})
+        return AdamState(0, tree_map(lambda p: torch.zeros_like(p, dtype=f32),
+                                     params),
+                         tree_map(lambda p: torch.zeros_like(p, dtype=f32),
+                                  params))
 
     def update(direction, state, params=None):
         t = state.t + 1
-        d = {k: x.to(f32) for k, x in direction.items()}
-        m = {k: b1 * state.m[k] + (1 - b1) * d[k] for k in d}
+        d = tree_map(lambda x: x.to(f32), direction)
+        m = tree_map(lambda m_, d_: b1 * m_ + (1 - b1) * d_, state.m, d)
         if yogi_update:
             # v -= (1 - b2) sign(v - d²) d²: additive, sign-controlled
-            v = {k: state.v[k] - (1 - b2) * torch.sign(state.v[k] - d[k] * d[k])
-                 * (d[k] * d[k]) for k in d}
+            v = tree_map(lambda v_, d_: v_ - (1 - b2)
+                         * torch.sign(v_ - d_ * d_) * (d_ * d_), state.v, d)
         else:
-            v = {k: b2 * state.v[k] + (1 - b2) * (d[k] * d[k]) for k in d}
+            v = tree_map(lambda v_, d_: b2 * v_ + (1 - b2) * (d_ * d_),
+                         state.v, d)
         # the bias corrections 1 - b^t in float32, held as Python floats
         tf = torch.tensor(float(t), dtype=f32)
         c1 = float(1 - torch.tensor(b1, dtype=f32) ** tf)
         c2 = float(1 - torch.tensor(b2, dtype=f32) ** tf)
-        upd = {k: lr * (m[k] / c1) / (torch.sqrt(v[k] / c2) + eps)
-               for k in d}
+        upd = tree_map(lambda m_, v_: lr * (m_ / c1)
+                       / (torch.sqrt(v_ / c2) + eps), m, v)
         if weight_decay and params is not None:
-            upd = {k: u - lr * weight_decay * params[k].to(f32)
-                   for k, u in upd.items()}
-        upd = {k: u.to(direction[k].dtype) for k, u in upd.items()}
+            upd = tree_map(lambda u, p: u - lr * weight_decay * p.to(f32),
+                           upd, params)
+        upd = tree_map(lambda u, x: u.to(x.dtype), upd, direction)
         return upd, AdamState(t, m, v)
 
     return Optimizer(init, update)
@@ -100,6 +104,6 @@ def make_optimizer(name: str, **kw) -> Optimizer:
     return _REGISTRY[lookup("optimizer", name, _REGISTRY, (), 5)](**kw)
 
 
-def apply_updates(params: dict, updates: dict) -> dict:
+def apply_updates(params, updates):
     """params + updates (FEDOPT server step: w <- w + Δ-derived update)."""
-    return {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
+    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)

@@ -19,9 +19,10 @@ import torch
 
 from ..configs import PAPER_TASKS
 from ..configs.paper_tasks import DEFERRED_TASKS
-from ..data import FederatedData, make_synthetic_federated
+from ..data import (FederatedData, make_char_lm_federated,
+                    make_synthetic_federated, make_vision_federated)
 from ..device import resolve_device
-from ..models import softmax_reg
+from ..models import resnet, rnn, softmax_reg
 from ..registry import lookup
 from .scenario import get_scenario
 from .spec import RunSpec
@@ -44,19 +45,42 @@ class TrainResult:
 
 def build_task(task_id: str, seed: int, device=None, **task_kwargs):
     """Resolve a PAPER_TASKS key into (task, data, init, loss, acc); the
-    model is initialised on ``device`` (default CUDA)."""
+    model is initialised on ``device`` (default CUDA).
+
+    ``task_kwargs`` are forwarded to the federated data maker — e.g.
+    ``alpha``/``beta`` select the Synthetic(α, β) heterogeneity level.
+    """
     device = resolve_device(device)
-    task = PAPER_TASKS[lookup("task", task_id, PAPER_TASKS, DEFERRED_TASKS,
-                              10)]
-    # §D.1: "The samples are split evenly among 100 clients."
-    kw = dict(samples_per_client=100)
-    kw.update(task_kwargs)
-    clients = make_synthetic_federated(n_clients=task.n_clients, seed=seed,
-                                       **kw)
+    task_id = lookup("task", task_id, PAPER_TASKS, DEFERRED_TASKS, 10)
+    task = PAPER_TASKS[task_id]
     cfg = task.model_cfg
-    init = functools.partial(softmax_reg.init_params, cfg, device=device)
-    loss = functools.partial(softmax_reg.loss_fn, cfg)
-    acc = functools.partial(softmax_reg.accuracy, cfg)
+    if task_id == "synthetic11":
+        # §D.1: "The samples are split evenly among 100 clients."
+        kw = dict(samples_per_client=100)
+        kw.update(task_kwargs)
+        clients = make_synthetic_federated(n_clients=task.n_clients,
+                                           seed=seed, **kw)
+        init = functools.partial(softmax_reg.init_params, cfg, device=device)
+        loss = functools.partial(softmax_reg.loss_fn, cfg)
+        acc = functools.partial(softmax_reg.accuracy, cfg)
+    elif task_id == "shakespeare":
+        clients = make_char_lm_federated(n_clients=task.n_clients, seed=seed,
+                                         **task_kwargs)
+        init = functools.partial(rnn.init_params, cfg, device=device)
+        loss = functools.partial(rnn.loss_fn, cfg)
+        acc = functools.partial(rnn.accuracy, cfg)
+    else:   # cifar
+        clients = make_vision_federated(n_clients=task.n_clients, seed=seed,
+                                        **task_kwargs)
+        strides = resnet.block_strides(cfg)
+
+        def init(key):
+            return resnet.init_params(cfg, key, device)[0]
+
+        def acc(p, b):
+            return resnet.accuracy(cfg, p, strides, b)
+
+        loss = resnet.make_loss_fn(cfg, strides)
     return task, FederatedData(clients), init, loss, acc
 
 

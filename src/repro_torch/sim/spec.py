@@ -10,8 +10,7 @@ Port of ``repro.sim.spec`` with every field and the same
 ``resolved()`` validates as the JAX package does, then rejects with
 ``NotImplementedError`` — before anything runs — what this port does not
 have yet: ``engine="host"``, ``mesh_shape``, ``aggregation="buffered"``,
-``fed_mode="sequential"``, ``ckpt_dir``, the host-only strategy ``poc``
-and the paper tasks other than ``synthetic11`` (ROADMAP.md queue 1 lists
+``ckpt_dir`` and the host-only strategy ``poc`` (ROADMAP.md queue 1 lists
 where each is).
 """
 from __future__ import annotations
@@ -264,8 +263,6 @@ def _reject_unported(spec: "RunSpec", sc: Scenario, mesh_shape,
         raise todo("mesh_shape (the client-sharded engine)", 11)
     if spec.aggregation == "buffered":
         raise todo("aggregation='buffered' (the buffered async engine)", 9)
-    if spec.fed_mode == "sequential":
-        raise todo("fed_mode='sequential'", 5)
     if spec.ckpt_dir is not None:
         raise todo("ckpt_dir (checkpointing)", 7)
     make_optimizer(server_opt)

@@ -129,8 +129,9 @@ def _entry_points():
     from repro_torch.sim.processes import make_process
     from repro_torch.sim.runner import build_task
     from repro_torch.configs import get_arch
+    from repro_torch.launch import train
     from repro_torch.launch.serve import serve
-    from repro_torch.models import transformer
+    from repro_torch.models import resnet, rnn, transformer
     llama = get_arch("llama3.2-1b").smoke_model
     mamba = get_arch("mamba2-2.7b").smoke_model
     return {
@@ -154,6 +155,15 @@ def _entry_points():
             softmax_reg.SoftmaxRegConfig(), None),
         "params_from_numpy": lambda: params_from_numpy(
             {"w": np.zeros(2, np.float32)}),
+        "rnn.init_params": lambda: rnn.init_params(
+            rnn.LstmConfig(), jr.PRNGKey(0, device="cpu")),
+        "resnet.init_params": lambda: resnet.init_params(
+            resnet.ResNetConfig(), jr.PRNGKey(0, device="cpu")),
+        "build_task(cifar)": lambda: build_task("cifar", 0),
+        "run_federated": lambda: train.run_federated("shakespeare",
+                                                     rounds=1),
+        "train.main": lambda: train.main(["--task", "cifar", "--rounds",
+                                          "1"]),
     }
 
 
@@ -163,7 +173,10 @@ def _entry_points():
                                   "serve", "transformer.init_params",
                                   "init_decode_state", "serve(mamba2)",
                                   "transformer.init_params(mamba2)",
-                                  "init_decode_state(mamba2)"])
+                                  "init_decode_state(mamba2)",
+                                  "rnn.init_params", "resnet.init_params",
+                                  "build_task(cifar)", "run_federated",
+                                  "train.main"])
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device is usable")

@@ -1,0 +1,70 @@
+"""The port's training CLI, ``python -m repro_torch.launch.train``: a paper
+task runs on the CPU from ``--task`` and from a ``--spec`` file, the spec it
+saves is the one the JAX package's CLI builds from the same flags, and the
+flags the port lacks raise ``NotImplementedError`` naming their ROADMAP.md
+queue 1 item before anything runs."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro.sim as jsim
+from repro_torch.launch import train
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_task_runs_on_the_cpu_and_saves_the_jax_spec(tmp_path):
+    """``--task cifar --device cpu --rounds 2`` (the task's own data: 50
+    clients of 16×16 images) in a fresh process, one intra-op thread."""
+    spec_path = tmp_path / "run.spec.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--task", "cifar",
+         "--device", "cpu", "--rounds", "2", "--save-spec", str(spec_path)],
+        capture_output=True, text=True, env=env, timeout=300, check=True)
+    final = json.loads(out.stdout[out.stdout.index("{"):])
+    assert final["device"] == "cpu" and final["round"] == 1
+    assert final["n_selected"] == 10 and 0.0 <= final["test_acc"] <= 1.0
+    want = jsim.RunSpec(scenario=jsim.Scenario(
+        name="homedevices", availability="homedevices", task="cifar"),
+        rounds=2)
+    assert spec_path.read_text().strip() == want.to_json()
+
+
+def test_spec_file_runs(tmp_path, capsys):
+    """A RunSpec JSON written by the JAX package (shakespeare, 8 sentences
+    a client, a cohort of 2) through ``--spec``, with its metrics stream."""
+    sc = jsim.Scenario(name="homedevices", availability="homedevices",
+                       task="shakespeare",
+                       task_kwargs={"sentences_per_client": 8})
+    metrics = tmp_path / "m.jsonl"
+    spec = jsim.RunSpec(scenario=sc, rounds=2, clients_per_round=2,
+                        metrics_path=str(metrics))
+    spec.save(str(tmp_path / "s.json"))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        train.main(["--spec", str(tmp_path / "s.json"), "--device", "cpu"])
+    finally:
+        torch.set_num_threads(n)
+    records = [json.loads(line) for line in metrics.read_text().splitlines()]
+    assert [r["round"] for r in records] == [0, 1]
+    assert all(r["k_t"] == 2 and r["n_selected"] == 2 for r in records)
+    assert '"engine": "device"' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--arch", "llama3.2-1b"], 12), (["--engine", "host"], 7),
+    (["--ckpt-dir", "ckpt"], 7), (["--mesh-shape", "2"], 11),
+    (["--aggregation", "buffered"], 9), (["--algo", "poc"], 7)])
+def test_unported_flags_raise_naming_their_item(flags, item, tmp_path):
+    with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
+        train.main(["--task", "cifar", "--device", "cpu",
+                    "--save-spec", str(tmp_path / "s.json")] + flags)
+    assert not (tmp_path / "s.json").exists()
