@@ -22,7 +22,8 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  must show exactly one device kernel a call;
 3. ``fed_aggregate`` holds the aggregation kernel against its plain
                  version at the paths' D in float32 (10, 610), (10,
-                 820,522) and (10, 310,116), at (10, 2^24) float32 and
+                 820,522) and (10, 310,116), the buffered server's (5, 610)
+                 and (5, 820,522), at (10, 2^24) float32 and
                  (10, 2^24 + 3) bfloat16: every lane within
                  ``ref.fed_aggregate_err_bound`` (float32 accumulation in
                  any order plus one step of the output dtype, which a
@@ -74,6 +75,33 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  (10, 11,220,132) and timed beside ``w @ v``; ``python -m
                  repro_torch.launch.train --task cifar --rounds 3`` on the
                  card; and a profiled round of each task;
+5c. ``host_async`` the ninth slice's paths on the card, each cell's
+                 launches counted alone and held to its round's, each
+                 cell held to the port's CPU run of the same spec
+                 (spawned workers, started first): the host loop
+                 (``RunSpec(engine="host")``) under f3ast, 300 rounds,
+                 bitwise the CPU and the main_path device run (masks, K_t,
+                 |avail|, r_k), with checkpoints every 100 rounds whose
+                 last one, restored onto the CPU, is bitwise the run's
+                 final r_k and parameters; under poc, 300 rounds
+                 (fed_select_mask twice a round), the fresh losses within
+                 1e-5 relative and the masks bitwise in every round whose
+                 cut margin clears the card-vs-CPU loss gap (the rounds
+                 compared and any round under its margin reported; one
+                 pass of fresh losses timed); on dropout, 60 rounds,
+                 bitwise the card's device run too; the buffered server
+                 on straggler, device and host executors, 300 rounds,
+                 masks, every async_history field and r_k bitwise the CPU
+                 and each other; the Shakespeare (820,522) and CIFAR
+                 (310,116) task cells on the host loop and Shakespeare on
+                 the buffered server with deadline latencies, 10 rounds
+                 each (losses at the paper_tasks tolerances);
+                 ``run_cells_vmapped`` over seeds 0-3 with caps 3, 5, 10,
+                 10, 60 rounds, bitwise the CPU and each cell's single run
+                 on the card; and ``python -m repro_torch.launch.train
+                 --scenario straggler --aggregation buffered --engine host
+                 --ckpt-dir D --rounds 3`` (exit 0, 3 records); one line a
+                 cell with the steady ms a round on the card and the CPU;
 6. ``init``      the card's ``init_params`` of the llama and mamba2 smoke
                  configs (float32 and bfloat16, two seeds) is bitwise
                  the CPU's, which the CPU tests hold to JAX's (A_log within
@@ -159,6 +187,7 @@ TF32 is off for matmuls and cuDNN throughout.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -415,9 +444,11 @@ def check_fed_aggregate(torch, dev):
 
     # the paths' D: softmax regression, the Shakespeare LSTM (820,522, not
     # a multiple of 4: the masked scalar path over the whole buffer), the
-    # CIFAR task's ResNet (310,116); then the timed shape, and bf16
+    # CIFAR task's ResNet (310,116); the buffered server's K = 5 at the
+    # first two; then the timed shape, and bf16
     shapes = [(10, 610, torch.float32), (10, 820_522, torch.float32),
-              (10, 310_116, torch.float32), (10, 1 << 24, torch.float32),
+              (10, 310_116, torch.float32), (5, 610, torch.float32),
+              (5, 820_522, torch.float32), (10, 1 << 24, torch.float32),
               (10, (1 << 24) + 3, torch.bfloat16)]
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, err_at = [], {}
@@ -557,7 +588,7 @@ def main_path(torch, dev):
     emit(row)
     if not all(bitwise.values()) or max(loss_err, dnorm_err) > LOSS_TOL:
         raise AssertionError(f"main path departs from the CPU run: {row}")
-    return launches
+    return launches, res
 
 
 def profile_main_path(torch, dev, rounds: int = 20):
@@ -1103,6 +1134,479 @@ def paper_tasks(torch, dev):
               cpu_workers=len(cells), cpu_threads=PAPER_TASK_CPU_THREADS,
               launches=totals, fed_select_launches_by_mode=by_mode))
     return totals, agg
+
+
+# ---------------------------------------------------------------------------
+# host_async: the host loop, Power-of-Choice, checkpoints, the buffered
+# server and the batched cells
+# ---------------------------------------------------------------------------
+
+HOST_ROUNDS = 300
+HOST_SHORT_ROUNDS = 60
+HOST_TASK_ROUNDS = 10
+HOST_CELLS_SEEDS, HOST_CELLS_CAPS = [0, 1, 2, 3], [3, 5, 10, 10]
+# PoC's fresh losses, card vs CPU, each round (relative)
+POC_LOSS_RTOL = 1e-5
+POC_D = 30          # the poc strategy's candidate count
+
+
+def host_async_cells():
+    """(name, spec JSON, CPU threads, wanted launches a round) of the
+    phase's run_spec cells."""
+    from repro_torch.sim import RunSpec, Scenario
+
+    shakespeare = Scenario(name="homedevices", availability="homedevices",
+                           task="shakespeare")
+    cifar = Scenario(name="homedevices", availability="homedevices",
+                     task="cifar")
+    sync = dict(fed_select=1, fed_select_mask=0, fed_aggregate=1)
+    cells = [
+        ("host/shakespeare", RunSpec(scenario=shakespeare, engine="host",
+                                     rounds=HOST_TASK_ROUNDS, eval_every=5),
+         2, sync),
+        ("buffered/shakespeare", RunSpec(
+            scenario=shakespeare, aggregation="buffered",
+            completion="deadline", rounds=HOST_TASK_ROUNDS, eval_every=5),
+         2, sync),
+        ("host/cifar", RunSpec(scenario=cifar, engine="host",
+                               rounds=HOST_TASK_ROUNDS, eval_every=5), 2,
+         sync),
+        ("host/poc", RunSpec(strategy="poc", engine="host",
+                             rounds=HOST_ROUNDS), 1,
+         dict(fed_select=0, fed_select_mask=2, fed_aggregate=1)),
+        ("host/f3ast", RunSpec(engine="host", rounds=HOST_ROUNDS), 1, sync),
+        ("host/dropout", RunSpec(scenario="dropout", engine="host",
+                                 rounds=HOST_SHORT_ROUNDS), 1,
+         dict(fed_select=0, fed_select_mask=1, fed_aggregate=1)),
+        ("buffered/device", RunSpec(scenario="straggler",
+                                    aggregation="buffered",
+                                    rounds=HOST_ROUNDS), 1, sync),
+        ("buffered/host", RunSpec(scenario="straggler",
+                                  aggregation="buffered", engine="host",
+                                  rounds=HOST_ROUNDS), 1, sync),
+    ]
+    return [(name, spec.to_json(), threads, want)
+            for name, spec, threads, want in cells]
+
+
+@contextlib.contextmanager
+def recording_select(log):
+    """While active, each strategy ``repro_torch.sim.runner`` builds logs
+    what the loop passes its ``select``: (key, avail, K_t, losses) as
+    numpy.  A wrapper of ``make_strategy``, not a result field."""
+    import numpy as np
+    import torch
+    from repro_torch.sim import runner
+
+    real = runner.make_strategy
+
+    def make(*args, **kwargs):
+        s = real(*args, **kwargs)
+
+        def select(state, key, avail, k_t, ctx=None):
+            log.append(tuple(np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                             for x in (key, avail, k_t, ctx.losses)))
+            return s.select(state, key, avail, k_t, ctx)
+        return s._replace(select=select)
+    runner.make_strategy = make
+    try:
+        yield
+    finally:
+        runner.make_strategy = real
+
+
+@contextlib.contextmanager
+def recording_params(box):
+    """While active, the last parameters a round of the host loop returned
+    are in ``box[0]`` (a wrapper of ``make_fed_round``)."""
+    from repro_torch.sim import runner
+
+    real = runner.make_fed_round
+
+    def make(*args, **kwargs):
+        fed_round = real(*args, **kwargs)
+
+        def wrapped(*a, **k):
+            out = fed_round(*a, **k)
+            box[:] = [out[0]]
+            return out
+        return wrapped
+    runner.make_fed_round = make
+    try:
+        yield
+    finally:
+        runner.make_fed_round = real
+
+
+def run_fields(res) -> dict:
+    """What the phase compares of a run (numpy, picklable)."""
+    return dict(sel=res.sel_history, comp=res.comp_history, k_t=res.k_t,
+                n_available=res.n_available, rates=res.rates,
+                train_loss=res.train_loss, delta_norm=res.delta_norm,
+                async_history=res.async_history, final=res.final_metrics)
+
+
+def cpu_host_async(src: str, spec_json: str, threads: int) -> dict:
+    """One host_async cell on the CPU, in a worker process (spawned: no
+    CUDA); poc's select inputs recorded."""
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    import warnings
+    import torch
+    from repro_torch.sim import RunSpec, run_spec
+
+    torch.set_num_threads(threads)
+    log = []
+    t0 = time.perf_counter()
+    with recording_select(log), warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        res = run_spec(RunSpec.from_json(spec_json), device="cpu",
+                       log_fn=lambda *a: None)
+    return dict(run_fields(res), poc_inputs=log,
+                wall_s=time.perf_counter() - t0)
+
+
+def cpu_cells(src: str) -> dict:
+    """The phase's batch of cells on the CPU, in a worker process."""
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    import torch
+    from repro_torch.sim import run_cells_vmapped
+
+    torch.set_num_threads(1)
+    return run_cells_vmapped("scarce", "f3ast", seeds=HOST_CELLS_SEEDS,
+                             k_caps=HOST_CELLS_CAPS,
+                             rounds=HOST_SHORT_ROUNDS, device="cpu")
+
+
+def counted(torch, fn):
+    """``fn()`` with the three simulation kernels' launch counts set to 0
+    just before and read just after; returns (result, launches, wall)."""
+    from repro_torch.kernels.fed_aggregate import fed_aggregate
+    from repro_torch.kernels.fed_select import (fed_select, fed_select_mask,
+                                                reset_launches)
+
+    reset_launches()
+    fed_aggregate.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, dict(fed_select=fed_select.launches,
+                     fed_select_mask=fed_select_mask.launches,
+                     fed_aggregate=fed_aggregate.launches), wall
+
+
+def same_bits(a, b, fields) -> dict:
+    """{field: bitwise equal} over run_fields dicts (async_history's
+    fields too, where both have them)."""
+    out = {f: a[f].tobytes() == b[f].tobytes() for f in fields}
+    if a["async_history"] is not None:
+        for f, v in a["async_history"].items():
+            out[f] = v.tobytes() == b["async_history"][f].tobytes()
+    return out
+
+
+SELECTION = ("sel", "comp", "k_t", "n_available", "rates")
+
+
+def poc_margin_rule(card_log, cpu_log, card, cpu, p):
+    """Trouble spot 3's rule, card against CPU: each round's fresh losses
+    within POC_LOSS_RTOL relative, and the masks bitwise in every round
+    whose cut margin (the K_t-th minus the (K_t+1)-th candidate loss)
+    exceeds the two runs' largest candidate-loss difference, or where both
+    rank the same candidates above the K_t-th loss and tie the same ones
+    with it.  Comparison stops at the first round under its margin.
+    Returns (rounds compared, [round, margin, gap] or None, max rel
+    diff)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.selection import fedavg_select
+
+    def cut_sets(losses, ids, k):
+        kth = np.sort(losses[ids])[::-1][min(k, len(ids)) - 1]
+        return (set(ids[losses[ids] > kth].tolist()),
+                set(ids[losses[ids] == kth].tolist()))
+
+    compared, under, worst = 0, None, 0.0
+    for t, (c, r) in enumerate(zip(card_log, cpu_log)):
+        if c[0].tolist() != r[0].tolist() or c[1].tobytes() != \
+                r[1].tobytes() or int(c[2]) != int(r[2]):
+            raise AssertionError(f"host/poc round {t}: select inputs part")
+        rel = float(np.max(np.abs(c[3] - r[3]) / np.abs(r[3])))
+        worst = max(worst, rel)
+        if rel > POC_LOSS_RTOL:
+            raise AssertionError(f"host/poc round {t}: fresh losses part "
+                                 f"by {rel} relative")
+        cand = np.flatnonzero(fedavg_select(
+            torch.from_numpy(r[0]), torch.from_numpy(r[1]), POC_D,
+            p).numpy())
+        k = int(r[2])
+        cl = np.sort(r[3][cand])[::-1]
+        margin = float(cl[k - 1] - cl[k]) if len(cl) > k else float("inf")
+        gap = float(np.max(np.abs(c[3][cand] - r[3][cand])))
+        if margin <= gap and cut_sets(c[3], cand, k) != cut_sets(r[3], cand,
+                                                                 k):
+            under = [t, margin, gap]
+            break
+        if card["sel"][t].tobytes() != cpu["sel"][t].tobytes():
+            raise AssertionError(f"host/poc round {t}: masks part with "
+                                 f"margin {margin} > gap {gap}")
+        compared += 1
+    return compared, under, worst
+
+
+def fresh_losses_ms(torch, dev, reps: int = 5) -> float:
+    """One pass of the host loop's fresh losses (100 evaluations of the
+    synthetic task's loss on 64 samples, a host sync each) on ``dev``,
+    the median of ``reps`` passes."""
+    from repro_torch import random as jr
+    from repro_torch.sim import build_task
+
+    _, fed, init, loss, _ = build_task("synthetic11", 0, device=dev)
+    params = init(jr.PRNGKey(0, device=dev))
+    sets = [{k: torch.from_numpy(v[:64]).to(dev)
+             for k, v in c.train.items()} for c in fed.clients]
+    times = []
+    with torch.no_grad():
+        for _ in range(reps + 1):
+            t0 = time.perf_counter()
+            for s in sets:
+                float(loss(params, s))
+            times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times[1:])[reps // 2]
+
+
+def host_async_cli(dev, ckpt_dir):
+    """``python -m repro_torch.launch.train --scenario straggler
+    --aggregation buffered --engine host --ckpt-dir D --rounds 3`` on
+    ``dev``, in its own process: exit 0, 3 JSONL records."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    metrics = Path(ckpt_dir) / "cli.jsonl"
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          "--scenario", "straggler", "--aggregation",
+                          "buffered", "--engine", "host", "--ckpt-dir",
+                          str(ckpt_dir), "--rounds", "3", "--metrics-jsonl",
+                          str(metrics), "--device", str(dev)],
+                         capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"train CLI exit {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    final = json.loads(out.stdout[out.stdout.index("{"):])
+    records = metrics.read_text().splitlines()
+    row = dict(phase="host_async", cell="cli", rc=out.returncode,
+               records=len(records), wall_s=wall, device=final["device"],
+               engine=final["engine"], aggregation=final["aggregation"])
+    emit(row)
+    if (len(records) != 3 or final["device"] != str(dev)
+            or final["engine"] != "host"):
+        raise AssertionError(f"train CLI: {row}")
+
+
+def host_async(torch, dev, main_run):
+    """The ninth slice's paths on the card, each held to the port's CPU
+    run of the same spec (spawned workers, started first): the host loop
+    under f3ast (against the card's main_path device run too), poc (the
+    margin rule) and dropout (against the card's device run too); the
+    buffered server on both executors (against each other too); the
+    Shakespeare and CIFAR task cells on the host loop and Shakespeare on
+    the buffered server; ``run_cells_vmapped`` (against each cell's
+    single run on the card); the host/f3ast run's checkpoints; the CLI.
+    Each cell's launches are counted alone and must be its round's."""
+    import multiprocessing
+    import tempfile
+    import warnings
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    from repro_torch import random as jr
+    from repro_torch.sim import RunSpec, build_task, run_cells_vmapped, \
+        run_spec
+    from repro_torch.sim.engine import build_engine
+
+    cells = host_async_cells()
+    totals = dict(fed_select=0, fed_select_mask=0, fed_aggregate=0)
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="host_async_"))
+    ctx = multiprocessing.get_context("spawn")
+    src = str(ROOT / "src")
+    with ProcessPoolExecutor(CPU_WORKERS, mp_context=ctx) as pool:
+        cpu = {name: pool.submit(cpu_host_async, src, spec_json, threads)
+               for name, spec_json, threads, _ in cells}
+        cpu_batch = pool.submit(cpu_cells, src)
+        try:
+            card, logs, params_box = {}, {}, []
+            for name, spec_json, _, want in cells:
+                spec = RunSpec.from_json(spec_json)
+                if name == "host/f3ast":
+                    spec = spec.replace(ckpt_dir=str(tmp / "ckpt"))
+                logs[name] = []
+                with recording_select(logs[name]), \
+                        recording_params(params_box), \
+                        warnings.catch_warnings():
+                    warnings.simplefilter("ignore", UserWarning)
+                    res, launches, wall = counted(torch, lambda: run_spec(
+                        spec, device=dev, log_fn=lambda *a: None))
+                rounds = spec.rounds
+                wanted = {k: v * rounds for k, v in want.items()}
+                if launches != wanted:
+                    raise AssertionError(f"host_async {name}: launches "
+                                         f"{launches}, wanted {wanted}")
+                for k, v in launches.items():
+                    totals[k] += v
+                card[name] = (run_fields(res), launches, wall)
+                if name == "host/f3ast":
+                    final_params = params_box[0]
+            # the card's device-engine runs the host loop is held to
+            dropout_dev = run_fields(run_spec(
+                RunSpec(scenario="dropout", rounds=HOST_SHORT_ROUNDS),
+                device=dev, log_fn=lambda *a: None))
+            batch, batch_launches, batch_wall = counted(
+                torch, lambda: run_cells_vmapped(
+                    "scarce", "f3ast", seeds=HOST_CELLS_SEEDS,
+                    k_caps=HOST_CELLS_CAPS, rounds=HOST_SHORT_ROUNDS,
+                    device=dev))
+            n_batch = len(HOST_CELLS_SEEDS) * HOST_SHORT_ROUNDS
+            if batch_launches != dict(fed_select=n_batch, fed_select_mask=0,
+                                      fed_aggregate=n_batch):
+                raise AssertionError(f"cells launches {batch_launches}")
+            for k, v in batch_launches.items():
+                totals[k] += v
+            singles = []
+            for seed, cap in zip(HOST_CELLS_SEEDS, HOST_CELLS_CAPS):
+                engine, _ = build_engine("scarce", "f3ast", device=dev,
+                                         seed=HOST_CELLS_SEEDS[0])
+                carry = engine.init_carry(jr.PRNGKey(seed, device=dev))
+                carry, out = engine.chunk(carry, range(HOST_SHORT_ROUNDS),
+                                          k_cap=cap)
+                singles.append((out.sel_mask.cpu().numpy(),
+                                carry.algo_state.rates.r.cpu().numpy()))
+            poc_ms = fresh_losses_ms(torch, dev)
+            host_async_cli(dev, tmp / "cli")
+
+            refs = {name: fut.result() for name, fut in cpu.items()}
+            ref_batch = cpu_batch.result()
+        finally:
+            for fut in list(cpu.values()) + [cpu_batch]:
+                fut.cancel()
+
+    main_fields = run_fields(main_run)
+    rows = []
+    for name, _, _, _ in cells:
+        got, launches, wall = card[name]
+        ref = refs[name]
+        tol = (PAPER_TASK_LOSS_TOL["cifar"] if name == "host/cifar"
+               else LOSS_TOL)
+        dtol = (PAPER_TASK_DNORM_TOL["cifar"] if name == "host/cifar"
+                else LOSS_TOL)
+        row = dict(phase="host_async", cell=name, rounds=len(got["k_t"]),
+                   launches=launches,
+                   steady_round_ms=steady_ms(got["final"]),
+                   cpu_steady_round_ms=steady_ms(ref["final"]),
+                   wall_s=wall, cpu_wall_s=ref["wall_s"],
+                   engine=got["final"]["engine"],
+                   test_acc=got["final"]["test_acc"],
+                   cpu_test_acc=ref["final"]["test_acc"])
+        loss_err = float(np.abs(got["train_loss"] - ref["train_loss"]).max())
+        dnorm_err = float(np.abs(got["delta_norm"]
+                                 - ref["delta_norm"]).max())
+        row.update(train_loss_max_abs_err=loss_err, loss_tol=tol,
+                   delta_norm_max_abs_err=dnorm_err, delta_norm_tol=dtol)
+        ok = (loss_err <= tol and dnorm_err <= dtol
+              and np.isfinite(got["train_loss"]).all())
+        if name == "host/poc":
+            p = torch.from_numpy(build_task("synthetic11", 0,
+                                            device="cpu")[1].p)
+            compared, under, worst = poc_margin_rule(
+                logs[name], ref["poc_inputs"], got, ref, p)
+            row.update(rounds_compared=compared, under_margin=under,
+                       fresh_loss_max_rel_diff=worst,
+                       fresh_losses_ms=poc_ms)
+            ok = ok and compared + (under is not None) >= 1
+        else:
+            row["bitwise_vs_cpu"] = same_bits(got, ref, SELECTION)
+            ok = ok and all(row["bitwise_vs_cpu"].values())
+        if name == "host/f3ast":
+            row["bitwise_vs_device_main_path"] = same_bits(
+                dict(got, async_history=None), main_fields, SELECTION)
+            ok = ok and all(row["bitwise_vs_device_main_path"].values())
+            row["ckpt"] = ckpt = check_ckpt(tmp / "ckpt", got, final_params)
+            ok = ok and ckpt["ok"]
+        if name == "host/dropout":
+            row["bitwise_vs_device"] = same_bits(
+                dict(got, async_history=None), dropout_dev, SELECTION)
+            ok = ok and all(row["bitwise_vs_device"].values())
+        if name == "buffered/host":
+            row["bitwise_vs_device_executor"] = same_bits(
+                got, card["buffered/device"][0], SELECTION)
+            ok = ok and all(row["bitwise_vs_device_executor"].values())
+        emit(row)
+        rows.append(row)
+        if not ok:
+            raise AssertionError(f"host_async cell {name} fails: {row}")
+    row = dict(phase="host_async", cell="cells", rounds=HOST_SHORT_ROUNDS,
+               seeds=HOST_CELLS_SEEDS, k_caps=HOST_CELLS_CAPS,
+               launches=batch_launches, wall_s=batch_wall,
+               steady_cell_round_ms=steady_ms(batch),
+               cpu_steady_cell_round_ms=steady_ms(ref_batch),
+               cpu_wall_s=ref_batch["wall_s"],
+               bitwise_vs_cpu={f: batch[f].tobytes() == ref_batch[f].tobytes()
+                               for f in ("sel_history", "comp_history",
+                                         "rates")},
+               bitwise_vs_single=[
+                   s.tobytes() == batch["sel_history"][i].tobytes()
+                   and r.tobytes() == batch["rates"][i].tobytes()
+                   for i, (s, r) in enumerate(singles)],
+               train_loss_max_abs_err=float(np.abs(
+                   batch["train_loss"] - ref_batch["train_loss"]).max()))
+    emit(row)
+    if (not all(row["bitwise_vs_cpu"].values())
+            or not all(row["bitwise_vs_single"])
+            or row["train_loss_max_abs_err"] > LOSS_TOL):
+        raise AssertionError(f"host_async cells fail: {row}")
+    emit(dict(phase="host_async_summary", cells=len(rows) + 2,
+              wall_s=time.perf_counter() - t_phase, cpu_workers=CPU_WORKERS,
+              launches=totals))
+    return totals
+
+
+def steady_ms(final: dict):
+    """ms a steady round (step) of a run's final metrics (None where the
+    run had no steady rounds)."""
+    rate = final.get("steady_rounds_per_s")
+    return 1e3 / rate if rate else None
+
+
+def check_ckpt(ckpt_dir, got, final_params) -> dict:
+    """host/f3ast's checkpoints: state_00000100, 200 and 300 written; the
+    last one, restored onto the CPU, bitwise the run's final r_k and
+    parameters."""
+    import numpy as np
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.tree import tree_leaves, tree_map
+
+    files = sorted(p.name for p in Path(ckpt_dir).iterdir())
+    like = {"params": tree_map(lambda x: x.detach().cpu(), final_params),
+            "rates": np.zeros_like(got["rates"])}
+    back = restore_checkpoint(str(Path(ckpt_dir) / "state_00000300.npz"),
+                              like)
+    params_ok = all(a.device.type == "cpu" and a.numpy().tobytes()
+                    == b.numpy().tobytes()
+                    for a, b in zip(tree_leaves(back["params"]),
+                                    tree_leaves(like["params"])))
+    out = dict(files=files, latest_step=latest_step(str(ckpt_dir)),
+               rates_bitwise=back["rates"].tobytes()
+               == got["rates"].tobytes(), params_bitwise=params_ok)
+    out["ok"] = (files == ["state_00000100.npz", "state_00000200.npz",
+                           "state_00000300.npz"]
+                 and out["latest_step"] == 300 and out["rates_bitwise"]
+                 and params_ok)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1715,9 +2219,10 @@ def main(argv) -> int:
     sel_err, mask_err = check_fed_select(torch, dev)
     agg_err = check_fed_aggregate(torch, dev)
     timing = time_kernels(torch, dev)
-    launches = main_path(torch, dev)
+    launches, main_run = main_path(torch, dev)
     grid_launches = scenarios(torch, dev)
     task_launches, agg_resnet18 = paper_tasks(torch, dev)
+    host_launches = host_async(torch, dev, main_run)
     check_init(torch, dev)
     attn_err = check_flash_attention(torch, dev)
     t_attn = time_flash_attention(torch, dev)
@@ -1734,7 +2239,8 @@ def main(argv) -> int:
         dict(name="fed_select", route="cuda", source=src + "fed_select.cu",
              replaces="src/repro/kernels/fed_select.py:168",
              launches=(launches["fed_select"] + grid_launches["fed_select"]
-                       + task_launches["fed_select"]),
+                       + task_launches["fed_select"]
+                       + host_launches["fed_select"]),
              max_abs_err=sel_err,
              shape=[1 << 20], **{k: t_sel[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
@@ -1742,7 +2248,8 @@ def main(argv) -> int:
              source=src + "fed_select.cu",
              replaces="src/repro/kernels/fed_select.py:152",
              launches=(launches["fed_select_mask"]
-                       + grid_launches["fed_select_mask"]),
+                       + grid_launches["fed_select_mask"]
+                       + host_launches["fed_select_mask"]),
              max_abs_err=mask_err,
              shape=[1 << 20], **{k: t_mask[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
@@ -1751,7 +2258,8 @@ def main(argv) -> int:
              replaces="src/repro/kernels/fed_aggregate.py:75",
              launches=(launches["fed_aggregate"]
                        + grid_launches["fed_aggregate"]
-                       + task_launches["fed_aggregate"]),
+                       + task_launches["fed_aggregate"]
+                       + host_launches["fed_aggregate"]),
              max_abs_err=agg_err,
              shape=[10, 1 << 24], **{k: t_agg[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

@@ -59,6 +59,18 @@ def uniform_select(key: torch.Tensor, avail: torch.Tensor,
     return _topk_mask(scores, avail, k)
 
 
+def poc_select(key: torch.Tensor, avail: torch.Tensor, m, p: torch.Tensor,
+               losses: torch.Tensor, d: int,
+               topk: Optional[Callable] = None) -> torch.Tensor:
+    """Power-of-Choice (Cho et al., the paper's loss-based baseline): d
+    candidates sampled ∝ p_k from the available pool
+    (:func:`fedavg_select`), then the top-m candidates by current loss.
+    ``topk`` routes both cuts, the candidate draw and the loss cut."""
+    cut = topk or _topk_mask
+    cand = fedavg_select(key, avail, int(d), p, topk=cut)
+    return cut(losses, cand, m)
+
+
 def cohort_ids_from_mask(mask: torch.Tensor, cohort_size: int):
     """Selection mask (N,) bool → padded cohort (ids (K,) int64, valid (K,)).
 

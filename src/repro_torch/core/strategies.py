@@ -28,9 +28,12 @@ Registry (the paper's policy and its baselines):
   fedavg_weighted  sample ∝ p_k over available       weights ∝ p_k  (biased)
   uniform          uniform over available            weights 1/|S|  (biased)
 
-and the alias ``fedadam`` (fedavg with a server Adam step).  ``poc`` needs
-the host loop and raises ``NotImplementedError`` at resolve time
-(ROADMAP.md queue 1 item 7), as does :func:`as_sharded` (item 11).
+  poc              Power-of-Choice (host-only: needs fresh per-client losses)
+
+and the alias ``fedadam`` (fedavg with a server Adam step).  The registry
+flags ``needs_losses``/``host_only`` route a strategy to the host loop, as
+in the JAX package.  :func:`as_sharded` raises ``NotImplementedError``
+(ROADMAP.md queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -46,7 +49,6 @@ from .hfun import R_MIN, marginal_utility
 from .rates import RateState, init_rates, update_rates
 from .. import random as jr
 from ..device import resolve_device
-from ..registry import lookup
 
 __all__ = [
     "SELECT_IMPLS", "STRATEGY_ALIASES", "STRATEGY_REGISTRY",
@@ -57,11 +59,6 @@ __all__ = [
 ]
 
 SELECT_IMPLS = ("xla", "pallas")
-
-# The JAX package's strategy that this port does not have yet: poc is
-# host-only (fresh per-client losses every round), so it waits for the host
-# loop, ROADMAP.md queue 1 item 7.
-DEFERRED_STRATEGIES = ("poc",)
 
 
 def _check_select_impl(select_impl: str) -> str:
@@ -103,13 +100,17 @@ class RateTrackState(NamedTuple):
 
 
 class SelectionStrategy(NamedTuple):
-    """A selection policy as pure functions."""
+    """A selection policy as pure functions; ``needs_losses``/``host_only``
+    route it to the host loop (``needs_losses``: fresh per-client losses
+    in ``ctx.losses`` each round)."""
     name: str
     init: Callable[..., Any]
     select: Callable[..., Any]
     score: Optional[Callable[..., Any]] = None
     finalize: Optional[Callable[..., Any]] = None
     n_clients: Optional[int] = None
+    needs_losses: bool = False
+    host_only: bool = False
 
 
 def strategy_rates(strategy: SelectionStrategy, state):
@@ -182,6 +183,8 @@ def as_sharded(strategy: SelectionStrategy, **kw):
 
 class StrategyEntry(NamedTuple):
     factory: Callable[..., SelectionStrategy]
+    host_only: bool = False
+    needs_losses: bool = False
 
 
 class StrategyAlias(NamedTuple):
@@ -200,15 +203,21 @@ STRATEGY_ALIASES: Dict[str, StrategyAlias] = {
 
 
 def register_strategy(name: str, factory: Optional[Callable] = None, *,
+                      host_only: bool = False, needs_losses: bool = False,
                       overwrite: bool = False):
     """Register ``factory(n_clients, p, **hyper) -> SelectionStrategy``;
-    usable as a decorator."""
+    usable as a decorator.  ``host_only`` keeps the strategy off the device
+    engines (``run_spec`` falls back to the host loop with a warning);
+    ``needs_losses`` asks the host loop for fresh per-client losses in
+    ``ctx.losses`` each round (and implies host-only)."""
 
     def deco(f):
         key = name.lower()
         if not overwrite and key in STRATEGY_REGISTRY:
             raise KeyError(f"strategy {key!r} already registered")
-        STRATEGY_REGISTRY[key] = StrategyEntry(factory=f)
+        STRATEGY_REGISTRY[key] = StrategyEntry(
+            factory=f, host_only=host_only or needs_losses,
+            needs_losses=needs_losses)
         return f
 
     return deco(factory) if factory is not None else deco
@@ -220,9 +229,12 @@ def list_strategies() -> list:
 
 def get_strategy_entry(name: str) -> StrategyEntry:
     """Registry lookup that fails fast with the registered names."""
-    return STRATEGY_REGISTRY[lookup("selection strategy", name,
-                                    STRATEGY_REGISTRY, DEFERRED_STRATEGIES,
-                                    7)]
+    key = str(name).lower()
+    if key not in STRATEGY_REGISTRY:
+        raise KeyError(
+            f"unknown selection strategy {name!r}; registered: "
+            f"{list_strategies()} (aliases: {sorted(STRATEGY_ALIASES)})")
+    return STRATEGY_REGISTRY[key]
 
 
 def resolve_strategy(name: str, server_opt: str = "sgd",
@@ -266,7 +278,13 @@ def make_strategy(name: str, n_clients: int, p, *, device=None,
     hyper = {k: v for k, v in hyper.items() if k in params}
     p = torch.as_tensor(p, dtype=torch.float32,
                         device=resolve_device(device))
-    return entry.factory(n_clients=n_clients, p=p, device=p.device, **hyper)
+    strategy = entry.factory(n_clients=n_clients, p=p, device=p.device,
+                             **hyper)
+    # the registry's routing flags hold even where the factory left them
+    # unset on the instance: the host loop reads the instance's
+    return strategy._replace(
+        needs_losses=strategy.needs_losses or entry.needs_losses,
+        host_only=strategy.host_only or entry.host_only)
 
 
 # ---------------------------------------------------------------------------
@@ -421,3 +439,32 @@ def _make_uniform(n_clients, p, device, beta: float = 1e-3,
                          device=device, n_clients=n_clients,
                          select_impl=select_impl,
                          fused=_fused_rate_select(p, beta, "uniform"))
+
+
+@register_strategy("poc", needs_losses=True)
+def _make_poc(n_clients, p, device, beta: float = 1e-3, d: int = 30,
+              clients_per_round: Optional[int] = None,
+              select_impl: str = "xla") -> SelectionStrategy:
+    """Power-of-Choice (Cho et al.): d candidates ∝ p_k, keep the top K_t
+    by current local loss, weights 1/|S|.  Host-only: the two-stage draw
+    reads fresh per-client losses the device engine does not have.  On
+    CUDA both cuts run ``fed_select_mask``: two launches a round."""
+    topk = _topk_fn(_check_select_impl(select_impl),
+                    torch.device(device).type == "cuda")
+
+    def select(state, key, avail, k_t, ctx: Optional[SelectCtx] = None):
+        losses = None if ctx is None else ctx.losses
+        if losses is None:
+            raise ValueError("'poc' needs ctx.losses (fresh per-client "
+                             "losses of the current global model)")
+        mask = sel.poc_select(key, avail, k_t, p, losses, d, topk=topk)
+        completed = apply_completion(ctx, mask)
+        new_rates = update_rates(state.rates, completed, beta)
+        return (mask, uniform_weights(completed),
+                RateTrackState(rates=new_rates))
+
+    return SelectionStrategy(name="poc",
+                             init=_rate_init(n_clients, clients_per_round,
+                                             device),
+                             select=select, n_clients=n_clients,
+                             needs_losses=True, host_only=True)

@@ -10,12 +10,17 @@ and runs it through :func:`repro_torch.sim.run_spec`, on CUDA unless
   python -m repro_torch.launch.train --scenario diurnal --rounds 200
   python -m repro_torch.launch.train --spec experiments/run.spec.json
 
+  python -m repro_torch.launch.train --scenario straggler \
+      --aggregation buffered --engine host --ckpt-dir /tmp/ckpt
+
 ``--save-spec``/``--spec`` write and read the same RunSpec JSON as the JAX
-package's CLI.  What the port lacks fails before anything runs, with
+package's CLI.  ``--engine host`` runs the reference host loop,
+``--aggregation buffered`` the FedBuff-style server (with
+``--buffer-size``, ``--staleness-power``, ``--staleness-discount``),
+``--ckpt-dir`` writes checkpoints and ``--algo poc`` runs Power-of-Choice
+(on the host loop).  What the port lacks fails before anything runs, with
 ``NotImplementedError`` naming its ROADMAP.md queue 1 item: ``--arch``
-(the model zoo's federated round, item 12), ``--engine host`` and
-``--ckpt-dir`` (item 7), ``--mesh-shape`` (item 11) and ``--aggregation
-buffered`` (item 9).
+(the model zoo's federated round, item 12) and ``--mesh-shape`` (item 11).
 """
 from __future__ import annotations
 
@@ -24,24 +29,13 @@ import json
 from typing import Callable, Optional
 
 from ..configs import PAPER_TASKS
-from ..core.strategies import (DEFERRED_STRATEGIES, STRATEGY_ALIASES,
-                               list_strategies)
+from ..core.strategies import STRATEGY_ALIASES, list_strategies
 from ..sim.completion import COMPLETION_REGISTRY
-from ..sim.runner import TrainResult, run_spec
+from ..sim.runner import TrainResult, _legacy_server_lr, run_spec
 from ..sim.scenario import Scenario, list_scenarios
 from ..sim.spec import RunSpec
 
 __all__ = ["TrainResult", "run_federated", "main"]
-
-
-def _legacy_server_lr(algo_name: str, server_lr) -> Optional[float]:
-    """The JAX CLI's ``server_lr`` default: 1.0, which only an alias
-    (fedadam) reads as unset (-> its own 1e-2)."""
-    if server_lr is None:
-        server_lr = 1.0
-    if server_lr == 1.0 and str(algo_name).lower() in STRATEGY_ALIASES:
-        return None
-    return server_lr
 
 
 def run_federated(task_id: str = "synthetic11", algo_name: str = "f3ast",
@@ -87,8 +81,8 @@ def main(argv=None) -> None:
                     help="registered scenario key (overrides "
                          "--availability)")
     ap.add_argument("--algo", default="f3ast",
-                    choices=sorted(list_strategies() + list(STRATEGY_ALIASES)
-                                   + list(DEFERRED_STRATEGIES)),
+                    choices=sorted(list_strategies()
+                                   + list(STRATEGY_ALIASES)),
                     help="registered selection strategy (or alias)")
     ap.add_argument("--availability", default="homedevices")
     ap.add_argument("--completion", default=None,

@@ -15,31 +15,39 @@ batch, the completion key ``fold_in(k_sel, KEY_FOLD)``), and every draw
 comes from the port's bit-identical threefry, so the same seed and the same
 RunSpec give bitwise the same availability masks, K_t, selection and
 completion masks and r_k trajectory.
+
+``run_cells_vmapped`` runs a batch of cells (seed × budget cap) over one
+data realisation, as the JAX function of that name does.  There one
+vmapped program steps every cell; here each cell's round is the eager
+round of :class:`DeviceEngine`, the cells stepped round by round in turn,
+so a round of C cells launches each simulation kernel C times.
 """
 from __future__ import annotations
 
 import json
 import os
 import time
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from .. import random as jr
+from ..checkpoint import save_checkpoint
 from ..core.fedstep import make_fed_round
 from ..core.keys import COMPLETION as KEY_FOLD
 from ..core.selection import cohort_ids_from_mask
-from ..core.strategies import (SelectCtx, make_strategy,
-                               resolve_strategy, strategy_rates)
+from ..core.strategies import (SelectCtx, get_strategy_entry,
+                               make_strategy, resolve_strategy)
 from ..data import CohortSampler
 from ..data.pipeline import staged_cohort_batch
+from ..device import resolve_device
 from ..optim import make_optimizer
 from .scenario import Scenario, get_scenario
 
 __all__ = ["DeviceEngine", "RoundStream", "build_engine",
-           "run_scenario_device"]
+           "run_cells_vmapped", "run_scenario_device"]
 
 
 class EngineCarry(NamedTuple):
@@ -68,9 +76,11 @@ class RoundStream(NamedTuple):
 class DeviceEngine:
     """One (scenario × strategy × task) cell on one device.
 
-    ``chunk(carry, ts)`` advances ``len(ts)`` rounds and returns the
-    stacked :class:`RoundStream` (still on the device);
+    ``chunk(carry, ts, k_cap)`` advances ``len(ts)`` rounds and returns
+    the stacked :class:`RoundStream` (still on the device);
     ``init_carry(key)`` builds the round-0 state for a cell seed.
+    ``k_cap`` bounds K_t (the budget-cap axis of
+    :func:`run_cells_vmapped`); None leaves every draw as it is.
     """
 
     def __init__(self, *, avail_model, budget, strategy, staged, fed_round,
@@ -95,6 +105,7 @@ class DeviceEngine:
         self._local_steps = local_steps
         self._local_batch = local_batch
         self._trivial = completion is None or completion.trivial
+        self._caps = {}             # k_cap -> its int32 scalar on the device
 
     def init_carry(self, key: torch.Tensor) -> EngineCarry:
         params = self._init_params(key)
@@ -103,7 +114,15 @@ class DeviceEngine:
                            algo_state=self.strategy.init(self.n_clients),
                            avail_state=self.avail_model.init())
 
-    def round_step(self, carry: EngineCarry, t: int):
+    def _cap(self, k_cap: int) -> torch.Tensor:
+        """``k_cap`` staged on the device once."""
+        if k_cap not in self._caps:
+            self._caps[k_cap] = torch.tensor(int(k_cap), dtype=torch.int32,
+                                             device=self.device)
+        return self._caps[k_cap]
+
+    def round_step(self, carry: EngineCarry, t: int,
+                   k_cap: Optional[int] = None):
         """One round; returns (carry', per-round outputs), all on the
         device, with no host sync.  Its stages are profiler spans
         (``round/availability``, ``round/select``, ``round/cohort_batch``,
@@ -116,6 +135,8 @@ class DeviceEngine:
             avail_state, avail = self.avail_model.step(k_av,
                                                        carry.avail_state, t)
             k_t = self.budget.sample(k_bud, t)
+            if k_cap is not None:
+                k_t = torch.minimum(k_t, self._cap(k_cap))
         if self._trivial:
             complete_fn = None
         else:
@@ -143,13 +164,18 @@ class DeviceEngine:
         return EngineCarry(key, params, opt_state, algo_state,
                            avail_state), out
 
-    def chunk(self, carry: EngineCarry, ts):
+    def chunk(self, carry: EngineCarry, ts, k_cap: Optional[int] = None):
         """Advance one chunk of rounds; returns (carry', RoundStream)."""
         outs = []
         for t in ts:
-            carry, out = self.round_step(carry, int(t))
+            carry, out = self.round_step(carry, int(t), k_cap)
             outs.append(out)
-        return carry, RoundStream(*(torch.stack(col) for col in zip(*outs)))
+        return carry, _stack(outs)
+
+
+def _stack(outs) -> RoundStream:
+    """Per-round outputs -> the chunk's RoundStream (still on the device)."""
+    return RoundStream(*(torch.stack(col) for col in zip(*outs)))
 
 
 def build_engine(scenario, algo_name: str = "f3ast", *, device,
@@ -172,6 +198,10 @@ def build_engine(scenario, algo_name: str = "f3ast", *, device,
     sc = get_scenario(scenario)
     algo_name, server_opt, server_lr = resolve_strategy(algo_name, server_opt,
                                                         server_lr)
+    if get_strategy_entry(algo_name).host_only:
+        raise ValueError(
+            f"strategy {algo_name!r} is host-only (needs per-round host "
+            f"state); use run_spec with engine='host'")
     task, fed, init, loss, acc = build_task(sc.task, seed, device=device,
                                             **dict(sc.task_kwargs))
     n = fed.n_clients
@@ -221,6 +251,7 @@ def run_scenario_device(scenario, algo_name: str = "f3ast", *, device,
                         beta: Optional[float] = None, seed: int = 0,
                         eval_every: int = 10,
                         chunk_size: Optional[int] = None,
+                        ckpt_dir: Optional[str] = None,
                         prox_mu: float = 0.0,
                         positively_correlated: bool = False,
                         metrics_path: Optional[str] = None,
@@ -231,7 +262,8 @@ def run_scenario_device(scenario, algo_name: str = "f3ast", *, device,
     """Run one cell on ``device``; same semantics, cadence and outputs as
     the JAX ``run_scenario_device`` (evaluation at the end of any chunk
     holding an ``eval_every`` round and after the final round; the
-    ``chunk_size`` default is ``eval_every``)."""
+    ``chunk_size`` default is ``eval_every``; checkpoints, if
+    ``ckpt_dir``, at chunk boundaries)."""
     engine, ctx = build_engine(
         scenario, algo_name, device=device, seed=seed,
         clients_per_round=clients_per_round, beta=beta,
@@ -244,6 +276,8 @@ def run_scenario_device(scenario, algo_name: str = "f3ast", *, device,
     rounds = rounds or ctx["rounds_default"]
     chunk_size = max(1, min(chunk_size or eval_every, eval_every, rounds))
     algo_label = algo_label or algo_name
+
+    from .runner import TrainResult, _rates_np  # local: runner ↔ engine
 
     carry = engine.init_carry(jr.PRNGKey(seed, device=device))
     metrics_file = None
@@ -297,11 +331,16 @@ def run_scenario_device(scenario, algo_name: str = "f3ast", *, device,
                         record["test_acc"] = test_acc
                     metrics_file.write(json.dumps(record) + "\n")
                 metrics_file.flush()
+            if ckpt_dir:
+                save_checkpoint(ckpt_dir, t1,
+                                {"params": carry.params,
+                                 "rates": _rates_np(engine.strategy,
+                                                    carry.algo_state,
+                                                    n_real)})
     finally:
         if metrics_file:
             metrics_file.close()
 
-    from .runner import TrainResult   # local import: runner ↔ engine
     sel_history = np.concatenate([s.sel_mask for s in streams], axis=0)
     comp_history = np.concatenate([s.completed for s in streams], axis=0)
     t_end = time.time()
@@ -315,9 +354,7 @@ def run_scenario_device(scenario, algo_name: str = "f3ast", *, device,
     steady_rounds = rounds - min(chunk_size, rounds)
     if steady_rounds > 0 and t_end > t_first_chunk:
         final["steady_rounds_per_s"] = steady_rounds / (t_end - t_first_chunk)
-    r = strategy_rates(engine.strategy, carry.algo_state)
-    rates = (np.full(n_real, np.nan, np.float32) if r is None
-             else r.cpu().numpy())
+    rates = _rates_np(engine.strategy, carry.algo_state, n_real)
     return TrainResult(history=history, final_metrics=final, rates=rates,
                        empirical_rates=sel_history.mean(0),
                        sel_history=sel_history, comp_history=comp_history,
@@ -328,3 +365,78 @@ def run_scenario_device(scenario, algo_name: str = "f3ast", *, device,
                            [s.train_loss for s in streams]),
                        delta_norm=np.concatenate(
                            [s.delta_norm for s in streams]))
+
+
+def run_cells_vmapped(scenario, algo_name: str = "f3ast", *,
+                      seeds: Sequence[int] = (0,),
+                      k_caps: Optional[Sequence[int]] = None,
+                      rounds: Optional[int] = None, chunk_size: int = 32,
+                      data_seed: Optional[int] = None, device=None,
+                      **build_kwargs) -> dict:
+    """Run a batch of cells on ``device`` (default CUDA): cell ``i`` runs
+    with model/PRNG seed ``seeds[i]`` under K_t capped at ``k_caps[i]``
+    (default: no cap).  All cells share one data realisation
+    (``data_seed``, default ``seeds[0]``) and one scenario and task — the
+    sweep column of a (scenario-param × seed) grid.  Returns the JAX
+    function's dict of stacked per-cell results; the host syncs once a
+    chunk for all cells."""
+    from .runner import _rates_np   # local import: runner ↔ engine
+
+    device = resolve_device(device)
+    seeds = list(seeds)
+    n_cells = len(seeds)
+    if k_caps is not None:
+        assert len(k_caps) == n_cells, (len(k_caps), n_cells)
+    engine, ctx = build_engine(scenario, algo_name, device=device,
+                               seed=seeds[0] if data_seed is None
+                               else data_seed, **build_kwargs)
+    caps = ([engine.k_max] * n_cells if k_caps is None
+            else [int(c) for c in k_caps])
+    rounds = rounds or ctx["rounds_default"]
+    carries = [engine.init_carry(jr.PRNGKey(s, device=device))
+               for s in seeds]
+
+    streams = [[] for _ in seeds]
+    t_start = time.time()
+    t_first_chunk = None
+    for (t0, t1) in _chunk_spans(rounds, chunk_size):
+        outs = [[] for _ in seeds]
+        for t in range(t0, t1):
+            for c in range(n_cells):
+                carries[c], out = engine.round_step(carries[c], t, caps[c])
+                outs[c].append(out)
+        for c in range(n_cells):
+            streams[c].append(RoundStream(*(x.cpu().numpy()
+                                            for x in _stack(outs[c]))))
+        if t_first_chunk is None:
+            t_first_chunk = time.time()
+    t_end = time.time()
+
+    with torch.no_grad():
+        test_loss = np.asarray([float(ctx["eval_loss"](c.params,
+                                                       ctx["test_batch"]))
+                                for c in carries], np.float32)
+        test_acc = np.asarray([float(ctx["eval_acc"](c.params,
+                                                     ctx["test_batch"]))
+                               for c in carries], np.float32)
+
+    def cat(name):
+        return np.stack([np.concatenate([getattr(s, name) for s in cell])
+                         for cell in streams])
+
+    sel_history = cat("sel_mask")
+    result = dict(seeds=seeds, k_caps=caps, rounds=rounds,
+                  test_loss=test_loss, test_acc=test_acc,
+                  train_loss=cat("train_loss"),      # (cells, T)
+                  sel_history=sel_history,           # (cells, T, N)
+                  comp_history=cat("completed"),     # (cells, T, N)
+                  rates=np.stack([_rates_np(engine.strategy, c.algo_state,
+                                            engine.n_clients)
+                                  for c in carries]),
+                  empirical_rates=sel_history.mean(axis=1),
+                  wall_s=t_end - t_start)
+    steady_rounds = rounds - min(chunk_size, rounds)
+    if steady_rounds > 0 and t_end > t_first_chunk:
+        result["steady_rounds_per_s"] = (
+            steady_rounds * n_cells / (t_end - t_first_chunk))
+    return result

@@ -9,9 +9,8 @@ Port of ``repro.sim.spec`` with every field and the same
 
 ``resolved()`` validates as the JAX package does, then rejects with
 ``NotImplementedError`` — before anything runs — what this port does not
-have yet: ``engine="host"``, ``mesh_shape``, ``aggregation="buffered"``,
-``ckpt_dir`` and the host-only strategy ``poc`` (ROADMAP.md queue 1 lists
-where each is).
+have yet: ``mesh_shape`` (the client-sharded engine, ROADMAP.md queue 1
+item 11).
 """
 from __future__ import annotations
 
@@ -162,6 +161,22 @@ class RunSpec:
         if self.aggregation not in ("sync", "buffered"):
             raise ValueError(f"aggregation must be 'sync' or 'buffered', "
                              f"got {self.aggregation!r}")
+        if self.aggregation == "buffered":
+            if mesh_shape is not None:
+                raise ValueError(
+                    "aggregation='buffered' has no client-sharded engine "
+                    "yet; drop mesh_shape= or use aggregation='sync'")
+            from .engine_async import STALENESS_DISCOUNTS  # lazy: spec↔engine
+            if self.staleness_discount not in STALENESS_DISCOUNTS:
+                raise KeyError(
+                    f"unknown staleness discount "
+                    f"{self.staleness_discount!r}; "
+                    f"known: {sorted(STALENESS_DISCOUNTS)}")
+            if not (isinstance(self.staleness_power, (int, float))
+                    and not isinstance(self.staleness_power, bool)
+                    and self.staleness_power >= 0):
+                raise ValueError(f"RunSpec.staleness_power must be a "
+                                 f"float >= 0, got {self.staleness_power!r}")
         _check_positive_int(self.buffer_size, "buffer_size", optional=True)
         _check_positive_int(self.rounds, "rounds", optional=True)
         _check_positive_int(self.eval_every, "eval_every")
@@ -253,18 +268,10 @@ def _reject_unported(spec: "RunSpec", sc: Scenario, mesh_shape,
     """Fail fast on what the port does not run yet (after the JAX
     package's own validation, so an invalid spec still raises what it
     raises there)."""
-    def todo(what: str, item: int) -> NotImplementedError:
-        return NotImplementedError(
-            f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1 "
-            f"item {item})")
-    if spec.engine == "host":
-        raise todo("engine='host' (the host reference loop)", 7)
     if mesh_shape is not None:
-        raise todo("mesh_shape (the client-sharded engine)", 11)
-    if spec.aggregation == "buffered":
-        raise todo("aggregation='buffered' (the buffered async engine)", 9)
-    if spec.ckpt_dir is not None:
-        raise todo("ckpt_dir (checkpointing)", 7)
+        raise NotImplementedError(
+            "mesh_shape (the client-sharded engine) is not ported to "
+            "repro_torch yet (ROADMAP.md queue 1 item 11)")
     make_optimizer(server_opt)
     check_budget(sc.budget)
     check_process(sc.availability)

@@ -11,18 +11,23 @@ records to ``<out>/<scenario>__<algorithm>.jsonl`` and writes its spec to
 alone, in either package).  ``summary.json`` holds every cell's final
 metrics, keyed ``"<scenario>|<algorithm>"`` — the JAX sweep's layout.
 ``--scenarios all`` sweeps the whole registry; ``--list`` prints it.
-Every cell's spec is resolved before the first one runs, so a strategy the
-port lacks (``poc``, ROADMAP.md queue 1 item 7) fails before any work.
-Runs on CUDA unless ``--device cpu``.
+``--engine host`` runs every cell on the reference host loop;
+``--aggregations sync,buffered`` adds a server-aggregation axis (the
+FedBuff-style buffered server).  Every cell's spec is resolved before the
+first one runs, so an invalid cell fails before any work.  Runs on CUDA
+unless ``--device cpu``; the JAX sweep's ``--mesh-shape`` (the
+client-sharded engine) is not ported (ROADMAP.md queue 1 item 11).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 from typing import Callable, Optional, Sequence
 
+from ..device import resolve_device
 from .completion import COMPLETION_REGISTRY
 from .runner import run_spec
 from .scenario import SCENARIO_REGISTRY, get_scenario, list_scenarios
@@ -31,46 +36,56 @@ from .spec import RunSpec
 # the JAX sweep's universe for --algorithms all (fixed_f3ast needs an
 # r_target to differ from f3ast; fedavg_weighted is a variant of fedavg)
 ALGORITHMS = ("f3ast", "fedavg", "fedadam", "poc", "uniform")
-# the part of it the port runs; poc needs the host loop (item 7)
-UNPORTED_ALGORITHMS = ("poc",)
 
 
 def run_sweep(scenarios: Sequence[str],
               algorithms: Optional[Sequence[str]] = None, *,
               completions: Optional[Sequence[str]] = None,
+              aggregations: Optional[Sequence[str]] = None,
               rounds: Optional[int] = None, out_dir: str = "experiments/sweep",
               seed: Optional[int] = None, server_opt: Optional[str] = None,
-              eval_every: Optional[int] = None, device=None,
+              eval_every: Optional[int] = None,
+              engine: Optional[str] = None, device=None,
               base_spec: Optional[RunSpec] = None,
               log_fn: Callable = print) -> dict:
     """Run the grid on ``device`` (default CUDA); returns {(scenario,
-    algorithm[, completion]): final_metrics}.  ``algorithms=None`` takes
-    each scenario's own grid; ``completions`` adds a completion-process
-    axis; ``rounds``, ``seed`` and ``server_opt`` override ``base_spec``
-    where given; ``eval_every`` defaults to a fifth of the rounds."""
+    algorithm[, completion][, aggregation]): final_metrics}.
+    ``algorithms=None`` takes each scenario's own grid; ``completions``
+    adds a completion-process axis and ``aggregations`` a sync/buffered
+    one; ``rounds``, ``seed``, ``server_opt`` and ``engine`` override
+    ``base_spec`` where given; ``eval_every`` defaults to a fifth of the
+    rounds."""
+    device = resolve_device(device)    # no card: fail before any file
     overrides = {k: v for k, v in dict(rounds=rounds, seed=seed,
-                                       server_opt=server_opt).items()
+                                       server_opt=server_opt,
+                                       engine=engine).items()
                  if v is not None}
     base = dataclasses.replace(base_spec or RunSpec(), **overrides)
     cells = []
     for sc_key in scenarios:
         sc = get_scenario(sc_key)
         algos = tuple(algorithms) if algorithms else sc.algorithms
-        for algo in algos:
-            for comp in (tuple(completions) if completions else (None,)):
-                cell = f"{sc.name}__{algo}"
-                cell_key = (sc.name, algo)
-                if completions:
-                    cell, cell_key = f"{cell}__{comp}", cell_key + (comp,)
-                path = os.path.join(out_dir, f"{cell}.jsonl")
-                ev = eval_every or max(1, (base.rounds or sc.rounds or 150)
-                                       // 5)
-                spec = dataclasses.replace(base, scenario=sc, strategy=algo,
-                                           eval_every=ev, metrics_path=path)
-                if comp is not None:
-                    spec = dataclasses.replace(spec, completion=comp)
-                spec.resolved()            # fail before any cell runs
-                cells.append((cell, cell_key, spec, path))
+        grid = itertools.product(
+            algos, tuple(completions) if completions else (None,),
+            tuple(aggregations) if aggregations else (None,))
+        for algo, comp, agg in grid:
+            cell = f"{sc.name}__{algo}"
+            cell_key = (sc.name, algo)
+            if completions:
+                cell, cell_key = f"{cell}__{comp}", cell_key + (comp,)
+            if aggregations:
+                cell, cell_key = f"{cell}__{agg}", cell_key + (agg,)
+            path = os.path.join(out_dir, f"{cell}.jsonl")
+            ev = eval_every or max(1, (base.rounds or sc.rounds or 150)
+                                   // 5)
+            spec = dataclasses.replace(base, scenario=sc, strategy=algo,
+                                       eval_every=ev, metrics_path=path)
+            if comp is not None:
+                spec = dataclasses.replace(spec, completion=comp)
+            if agg is not None:
+                spec = dataclasses.replace(spec, aggregation=agg)
+            spec.resolved()            # fail before any cell runs
+            cells.append((cell, cell_key, spec, path))
     os.makedirs(out_dir, exist_ok=True)
     results = {}
     for cell, cell_key, spec, path in cells:
@@ -99,17 +114,23 @@ def main(argv=None) -> None:
     ap.add_argument("--scenarios", default="bernoulli,markov,diurnal",
                     help="comma-separated scenario keys, or 'all'")
     ap.add_argument("--algorithms", default=None,
-                    help="comma-separated strategy names, or 'all' (the "
-                         "ported ones of " f"{','.join(ALGORITHMS)}); "
-                         "default: each scenario's own grid")
+                    help="comma-separated strategy names, or 'all' "
+                         f"({','.join(ALGORITHMS)}); default: each "
+                         "scenario's own grid")
     ap.add_argument("--completions", default=None,
                     help="comma-separated completion-process keys, or "
                          "'all' (default: each scenario's own)")
+    ap.add_argument("--aggregations", default=None,
+                    help="comma-separated server-aggregation modes from "
+                         "{sync,buffered}, or 'all' (default: sync only)")
     ap.add_argument("--rounds", type=int, default=None)
     ap.add_argument("--out", default="experiments/sweep")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--server-opt", default="sgd")
     ap.add_argument("--eval-every", type=int, default=None)
+    ap.add_argument("--engine", default="device", choices=["device", "host"],
+                    help="the device engine (default) or the reference "
+                         "host loop")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' for the CPU)")
     ap.add_argument("--list", action="store_true",
@@ -125,18 +146,16 @@ def main(argv=None) -> None:
         return
 
     scenarios = _parse_list(args.scenarios, list_scenarios())
-    algorithms = None
-    if args.algorithms == "all":
-        algorithms = [a for a in ALGORITHMS if a not in UNPORTED_ALGORITHMS]
-        print(f"sweep: --algorithms all runs {','.join(algorithms)}; left "
-              f"out (not ported): {','.join(UNPORTED_ALGORITHMS)}")
-    elif args.algorithms:
-        algorithms = _parse_list(args.algorithms, ALGORITHMS)
+    algorithms = (_parse_list(args.algorithms, ALGORITHMS) if args.algorithms
+                  else None)
     completions = (_parse_list(args.completions, sorted(COMPLETION_REGISTRY))
                    if args.completions else None)
+    aggregations = (_parse_list(args.aggregations, ("sync", "buffered"))
+                    if args.aggregations else None)
     run_sweep(scenarios, algorithms, completions=completions,
-              rounds=args.rounds, out_dir=args.out, seed=args.seed,
-              server_opt=args.server_opt, eval_every=args.eval_every,
+              aggregations=aggregations, rounds=args.rounds,
+              out_dir=args.out, seed=args.seed, server_opt=args.server_opt,
+              eval_every=args.eval_every, engine=args.engine,
               device=args.device)
 
 

@@ -106,13 +106,20 @@ def test_resolve_strategy_alias_and_lr_defaults():
 
 
 def test_poc_and_as_sharded_name_their_items():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tsim.RunSpec(strategy="poc").resolved()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tstrat.make_strategy("poc", 10, np.full(10, 0.1, np.float32),
+    """``poc`` raised naming item 7 until the host loop was ported: now it
+    is registered with JAX's routing flags and builds; ``as_sharded`` still
+    raises naming item 11."""
+    jentry = jstrat.get_strategy_entry("poc")
+    tentry = tstrat.get_strategy_entry("poc")
+    assert (tentry.host_only, tentry.needs_losses) == \
+        (jentry.host_only, jentry.needs_losses) == (True, True)
+    tsim.RunSpec(strategy="poc").resolved()
+    s = tstrat.make_strategy("poc", 10, np.full(10, 0.1, np.float32),
                              device="cpu")
+    assert s.needs_losses and s.host_only
     s = tstrat.make_strategy("f3ast", 10, np.full(10, 0.1, np.float32),
                              device="cpu")
+    assert not (s.needs_losses or s.host_only)
     with pytest.raises(NotImplementedError, match="item 11"):
         tstrat.as_sharded(s, axis="clients", k_max=4, n_pad=16)
 
@@ -213,11 +220,26 @@ def test_sweep_writes_the_jax_layout(tmp_path):
 
 
 def test_sweep_rejects_poc_before_running_and_lists(tmp_path, capsys):
-    out = tmp_path / "poc"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tsweep.main(["--scenarios", "scarce", "--algorithms", "f3ast,poc",
-                     "--rounds", "2", "--out", str(out), "--device", "cpu"])
-    assert not out.exists() or not any(out.glob("*.jsonl"))
+    """The sweep rejected ``poc`` (item 7) until the host loop was ported:
+    now it runs it for 2 rounds (on the host loop, as the JAX sweep does),
+    masks and K_t as JAX's; ``--list`` prints the JAX registry."""
+    args = ["--scenarios", "scarce", "--algorithms", "f3ast,poc",
+            "--rounds", "2"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # poc's fallback
+        jsweep.main(args + ["--out", str(tmp_path / "jax")])
+        tsweep.main(args + ["--out", str(tmp_path / "torch"), "--device",
+                            "cpu"])
+    assert _tree(tmp_path / "jax") == _tree(tmp_path / "torch")
+    ts = json.loads((tmp_path / "torch" / "summary.json").read_text())
+    assert ts["scarce|poc"]["engine"] == "host"
+    assert ts["scarce|f3ast"]["engine"] == "device"
+    for name in ("scarce__f3ast.jsonl", "scarce__poc.jsonl"):
+        jl, tl = ([json.loads(x) for x in (tmp_path / side / name)
+                   .read_text().splitlines()] for side in ("jax", "torch"))
+        for key in ("k_t", "n_available", "n_selected", "n_completed"):
+            assert [r[key] for r in jl] == [r[key] for r in tl], name
+    capsys.readouterr()
     tsweep.main(["--list"])
     listed = capsys.readouterr().out.split("\n")
     assert [ln.split()[0] for ln in listed if ln.strip()] == \

@@ -6,6 +6,7 @@ masks, K_t, |avail| and final r_k, and train loss and delta norm within
 JSONL records carry the same keys.
 """
 import json
+import warnings
 
 import pytest
 
@@ -110,9 +111,7 @@ def test_history_and_final_metrics(runs):
     np.testing.assert_array_equal(tr.empirical_rates, jr.empirical_rates)
 
 
-@pytest.mark.parametrize("override", [
-    dict(engine="host"), dict(mesh_shape=(2,)), dict(aggregation="buffered"),
-    dict(strategy="poc"), dict(ckpt_dir="ckpt")])
+@pytest.mark.parametrize("override", [dict(mesh_shape=(2,))])
 def test_resolve_rejects_unported(override):
     """What the port lacks fails at resolve time, before anything runs —
     and the same spec is valid in the JAX package."""
@@ -126,29 +125,43 @@ def test_resolve_rejects_unported(override):
     dict(strategy="fedavg"), dict(strategy="fixed_f3ast"),
     dict(strategy="fedadam"), dict(scenario="markov"),
     dict(scenario="stepk"), dict(server_opt="adam"),
-    dict(completion="bernoulli"), dict(fed_mode="sequential")])
+    dict(completion="bernoulli"), dict(fed_mode="sequential"),
+    dict(engine="host"), dict(aggregation="buffered"),
+    dict(strategy="poc"), dict(ckpt_dir="ckpt")])
 def test_resolve_runs_what_was_unported(override, tmp_path):
     """These specs raised NotImplementedError until the scenario axes, the
-    baselines and the sequential cohort mode were ported: each resolves
-    as in the JAX package and runs a few rounds with its masks, K_t and
-    |avail| bitwise JAX's."""
+    baselines, the sequential cohort mode, the host loop, Power-of-Choice,
+    the buffered server and checkpoints were ported: each resolves as in
+    the JAX package and runs a few rounds with its masks, K_t and |avail|
+    bitwise JAX's; r_k bitwise, or within 1e-6 on the host loop (JAX's
+    runs its EMA op by op, the port JAX's compiled arithmetic)."""
     rounds = 4
+    if "ckpt_dir" in override:
+        override = dict(ckpt_dir=str(tmp_path / "ckpt"))
     jspec = jsim.RunSpec(rounds=rounds, eval_every=2, **override)
     jr = jspec.resolved()
     spec = tsim.RunSpec.from_json(jspec.to_json())
     tr_ = spec.resolved()
-    for field in ("strategy", "server_opt", "server_lr", "completion"):
+    for field in ("strategy", "server_opt", "server_lr", "completion",
+                  "engine", "aggregation", "ckpt_dir"):
         assert getattr(tr_, field) == getattr(jr, field), field
-    jres = jsim.run_spec(jspec.replace(metrics_path=str(tmp_path / "j")),
-                         log_fn=_quiet)
-    tres = tsim.run_spec(spec.replace(metrics_path=str(tmp_path / "t")),
-                         device="cpu", log_fn=_quiet)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # poc's fallback
+        jres = jsim.run_spec(jspec.replace(metrics_path=str(tmp_path / "j")),
+                             log_fn=_quiet)
+        tres = tsim.run_spec(spec.replace(metrics_path=str(tmp_path / "t")),
+                             device="cpu", log_fn=_quiet)
+    assert tres.final_metrics["engine"] == jres.final_metrics["engine"]
     assert tres.sel_history.tobytes() == jres.sel_history.tobytes()
     assert tres.comp_history.tobytes() == jres.comp_history.tobytes()
-    assert tres.rates.tobytes() == jres.rates.tobytes()
+    if jres.final_metrics["engine"] == "host":
+        np.testing.assert_allclose(tres.rates, jres.rates, rtol=0, atol=1e-6)
+    else:
+        assert tres.rates.tobytes() == jres.rates.tobytes()
     jl, tl = _jsonl(tmp_path / "j"), _jsonl(tmp_path / "t")
-    for key in ("k_t", "n_available", "n_completed"):
-        assert [r[key] for r in tl] == [r[key] for r in jl], key
+    assert [sorted(r) for r in tl] == [sorted(r) for r in jl]
+    for key in ("k_t", "n_available", "n_completed", "n_buffered"):
+        assert [r.get(key) for r in tl] == [r.get(key) for r in jl], key
     np.testing.assert_allclose([r["train_loss"] for r in tl],
                                [r["train_loss"] for r in jl], rtol=0,
                                atol=TOL)

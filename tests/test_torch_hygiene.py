@@ -26,6 +26,9 @@ SLICE_MODULES = [
     "repro_torch.sim.budgets", "repro_torch.sim.completion",
     "repro_torch.sim.scenario", "repro_torch.sim.spec",
     "repro_torch.sim.engine", "repro_torch.sim.runner",
+    "repro_torch.sim.engine_async", "repro_torch.sim.sweep",
+    "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+    "repro_torch.launch.train",
     "repro_torch.data", "repro_torch.models.softmax_reg",
     "repro_torch.optim", "repro_torch.configs",
     "repro_torch.configs.common", "repro_torch.configs.llama3_2_1b",
@@ -132,6 +135,8 @@ def _entry_points():
     from repro_torch.launch import train
     from repro_torch.launch.serve import serve
     from repro_torch.models import resnet, rnn, transformer
+    from repro_torch.sim import (RunSpec, run_cells_vmapped, run_scenario,
+                                 run_scenario_buffered, run_spec, sweep)
     llama = get_arch("llama3.2-1b").smoke_model
     mamba = get_arch("mamba2-2.7b").smoke_model
     return {
@@ -164,6 +169,24 @@ def _entry_points():
                                                      rounds=1),
         "train.main": lambda: train.main(["--task", "cifar", "--rounds",
                                           "1"]),
+        "run_spec(host)": lambda: run_spec(RunSpec(rounds=1,
+                                                   engine="host")),
+        "run_spec(buffered)": lambda: run_spec(RunSpec(
+            rounds=1, aggregation="buffered", engine="host")),
+        "run_spec(poc)": lambda: run_spec(RunSpec(rounds=1,
+                                                  strategy="poc")),
+        "run_scenario": lambda: run_scenario(RunSpec(rounds=1)),
+        "run_cells_vmapped": lambda: run_cells_vmapped("scarce", rounds=1),
+        "run_scenario_buffered": lambda: run_scenario_buffered("scarce",
+                                                               rounds=1),
+        "train.main(host, buffered, ckpt)": lambda: train.main(
+            ["--engine", "host", "--aggregation", "buffered",
+             "--ckpt-dir", "unused", "--rounds", "1"]),
+        "train.main(poc)": lambda: train.main(["--algo", "poc",
+                                               "--rounds", "1"]),
+        "sweep.main(host)": lambda: sweep.main(
+            ["--scenarios", "scarce", "--engine", "host", "--rounds", "1",
+             "--out", "unused"]),
     }
 
 
@@ -176,7 +199,12 @@ def _entry_points():
                                   "init_decode_state(mamba2)",
                                   "rnn.init_params", "resnet.init_params",
                                   "build_task(cifar)", "run_federated",
-                                  "train.main"])
+                                  "train.main", "run_spec(host)",
+                                  "run_spec(buffered)", "run_spec(poc)",
+                                  "run_scenario", "run_cells_vmapped",
+                                  "run_scenario_buffered",
+                                  "train.main(host, buffered, ckpt)",
+                                  "train.main(poc)", "sweep.main(host)"])
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device is usable")

@@ -1,12 +1,14 @@
 """The port's training CLI, ``python -m repro_torch.launch.train``: a paper
 task runs on the CPU from ``--task`` and from a ``--spec`` file, the spec it
-saves is the one the JAX package's CLI builds from the same flags, and the
-flags the port lacks raise ``NotImplementedError`` naming their ROADMAP.md
-queue 1 item before anything runs."""
+saves is the one the JAX package's CLI builds from the same flags, the
+host loop, buffered, checkpoint and poc flags run, and the flags the port
+lacks raise ``NotImplementedError`` naming their ROADMAP.md queue 1 item
+before anything runs."""
 import json
 import os
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import pytest
@@ -60,11 +62,43 @@ def test_spec_file_runs(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--arch", "llama3.2-1b"], 12), (["--engine", "host"], 7),
-    (["--ckpt-dir", "ckpt"], 7), (["--mesh-shape", "2"], 11),
-    (["--aggregation", "buffered"], 9), (["--algo", "poc"], 7)])
+    (["--arch", "llama3.2-1b"], 12), (["--mesh-shape", "2"], 11)])
 def test_unported_flags_raise_naming_their_item(flags, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
         train.main(["--task", "cifar", "--device", "cpu",
                     "--save-spec", str(tmp_path / "s.json")] + flags)
     assert not (tmp_path / "s.json").exists()
+
+
+@pytest.mark.parametrize("flags,engine", [
+    (["--engine", "host"], "host"), (["--ckpt-dir", "CKPT"], "device"),
+    (["--aggregation", "buffered", "--buffer-size", "3",
+      "--staleness-power", "1.0", "--staleness-discount", "exponential"],
+     "device"),
+    (["--algo", "poc"], "host")])
+def test_ported_flags_run_two_rounds(flags, engine, tmp_path, capsys):
+    """The flags that raised NotImplementedError until the host loop, the
+    buffered server, checkpoints and Power-of-Choice were ported: each
+    runs 2 rounds of the default cell on the CPU, streams 2 JSONL records
+    and reports the engine that ran (``--algo poc`` falls back to the host
+    loop, as in the JAX package)."""
+    flags = [str(tmp_path / "ckpt") if f == "CKPT" else f for f in flags]
+    metrics = tmp_path / "m.jsonl"
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        train.main(["--device", "cpu", "--rounds", "2", "--metrics-jsonl",
+                    str(metrics)] + flags)
+    out = capsys.readouterr().out
+    final = json.loads(out[out.index("{"):])
+    assert final["engine"] == engine and final["device"] == "cpu"
+    records = [json.loads(line) for line in metrics.read_text().splitlines()]
+    assert [r["round"] for r in records] == [0, 1]
+    if "buffered" in flags:
+        assert final["aggregation"] == "buffered"
+        assert all(r["n_buffered"] <= 3 for r in records)
+    if "poc" in flags:
+        assert any("falling back to engine='host'" in str(w.message)
+                   for w in caught)
+        assert final["engine_fallback"]
+    if "--ckpt-dir" in flags:
+        assert os.listdir(tmp_path / "ckpt") == ["state_00000002.npz"]
