@@ -102,6 +102,21 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  --scenario straggler --aggregation buffered --engine host
                  --ckpt-dir D --rounds 3`` (exit 0, 3 records); one line a
                  cell with the steady ms a round on the card and the CPU;
+5d. ``clients``  the million-client path (the JAX package's N-scaling
+                 cell: SynthTask dim 32, bernoulli q = 0.3, K = 10, f3ast,
+                 E = 5, B = 20; clients synthesized on demand, masks
+                 streamed packed): the device engine at N = 10^6, 100
+                 rounds (``fed_select`` on its cooperative path and
+                 ``fed_aggregate`` once a round; its first 20 rounds
+                 bitwise the CPU's: masks, K_t, |avail|, r_k; peak
+                 memory), a profiled window of 3 of its rounds, N = 10^7
+                 for 5 rounds (|S_t| = min(K_t, |avail_t|), its first 2
+                 rounds against the CPU where that takes under 60 s), the
+                 client-sharded engine over 2 gloo ranks on the one card
+                 at N = 10^6 under both ``topk_impl``s (30 rounds, bitwise
+                 the device run; NCCL too with 2 cards), and
+                 ``run_spec(RunSpec(mesh_shape=(2,)))`` in the same group,
+                 bitwise main_path's device run; one line a cell;
 6. ``init``      the card's ``init_params`` of the llama and mamba2 smoke
                  configs (float32 and bfloat16, two seeds) is bitwise
                  the CPU's, which the CPU tests hold to JAX's (A_log within
@@ -444,11 +459,14 @@ def check_fed_aggregate(torch, dev):
 
     # the paths' D: softmax regression, the Shakespeare LSTM (820,522, not
     # a multiple of 4: the masked scalar path over the whole buffer), the
-    # CIFAR task's ResNet (310,116); the buffered server's K = 5 at the
-    # first two; then the timed shape, and bf16
+    # CIFAR task's ResNet (310,116), the million-client cell's softmax
+    # regression (330); the buffered server's K = 5 at the first two, and
+    # a shard's kb = 5 slots of the sharded engine at 330; then the timed
+    # shape, and bf16
     shapes = [(10, 610, torch.float32), (10, 820_522, torch.float32),
-              (10, 310_116, torch.float32), (5, 610, torch.float32),
-              (5, 820_522, torch.float32), (10, 1 << 24, torch.float32),
+              (10, 310_116, torch.float32), (10, 330, torch.float32),
+              (5, 610, torch.float32), (5, 820_522, torch.float32),
+              (5, 330, torch.float32), (10, 1 << 24, torch.float32),
               (10, (1 << 24) + 3, torch.bfloat16)]
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, err_at = [], {}
@@ -1427,7 +1445,7 @@ def host_async(torch, dev, main_run):
     from repro_torch import random as jr
     from repro_torch.sim import RunSpec, build_task, run_cells_vmapped, \
         run_spec
-    from repro_torch.sim.engine import build_engine
+    from repro_torch.sim.engine import _to_host, build_engine
 
     cells = host_async_cells()
     totals = dict(fed_select=0, fed_select_mask=0, fed_aggregate=0)
@@ -1484,7 +1502,7 @@ def host_async(torch, dev, main_run):
                 carry = engine.init_carry(jr.PRNGKey(seed, device=dev))
                 carry, out = engine.chunk(carry, range(HOST_SHORT_ROUNDS),
                                           k_cap=cap)
-                singles.append((out.sel_mask.cpu().numpy(),
+                singles.append((_to_host(out, engine.n_clients).sel_mask,
                                 carry.algo_state.rates.r.cpu().numpy()))
             poc_ms = fresh_losses_ms(torch, dev)
             host_async_cli(dev, tmp / "cli")
@@ -1728,6 +1746,393 @@ def time_flash_attention(torch, dev):
     row["bound_share"] = b / row["ms"]
     emit(dict(phase="flash_timing", kernel=row))
     return row
+
+
+# ---------------------------------------------------------------------------
+# clients: the million-client path and the client-sharded engine
+# ---------------------------------------------------------------------------
+
+CLIENTS_N = 1_000_000
+CLIENTS_N_BIG = 10_000_000
+# chunks of at most 25 rounds (as the JAX benchmark's _time_engine drives
+# engine.chunk), with boundaries at the comparison points, rounds 20 and 30
+CLIENTS_SPANS = ((0, 20), (20, 30), (30, 50), (50, 75), (75, 100))
+CLIENTS_CPU_ROUNDS = 20
+CLIENTS_BIG_SPANS = ((0, 2), (2, 5))
+CLIENTS_BIG_CPU_S = 60.0
+CLIENTS_SHARDED_ROUNDS = 30
+CLIENTS_CPU_THREADS = 3
+STREAM_FIELDS = ("sel_mask", "completed", "k_t", "n_available",
+                 "train_loss", "delta_norm")
+
+
+def nscale_engine(n: int, dev, mesh=None, topk_impl: str = "stream"):
+    """The JAX package's N-scaling cell
+    (``benchmarks/bench_engine.py::_build_nscale_engine``) on the port,
+    clients synthesized on demand: SynthTask dim 32, 10 classes, 64
+    samples a client; bernoulli q = 0.3; constant K = 10; f3ast (p = 1/N);
+    server sgd lr 1.0, client lr 0.05, E = 5, B = 20.  With a client
+    ``mesh``, this process's shard of the sharded engine."""
+    import functools
+
+    import numpy as np
+    from repro_torch.core.fedstep import make_fed_round
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.data import SynthTask
+    from repro_torch.models import softmax_reg
+    from repro_torch.optim import make_optimizer
+    from repro_torch.sim import DeviceEngine, ShardedEngine
+    from repro_torch.sim.budgets import make_budget
+    from repro_torch.sim.processes import make_process
+
+    k = 10
+    cfg = softmax_reg.SoftmaxRegConfig(dim=32, n_classes=10)
+    loss = functools.partial(softmax_reg.loss_fn, cfg)
+    opt = make_optimizer("sgd", lr=1.0)
+    common = dict(
+        avail_model=make_process("bernoulli", n, q=0.3, device=dev),
+        budget=make_budget("constant", k=k, device=dev),
+        strategy=make_strategy("f3ast", n, np.full(n, 1.0 / n, np.float32),
+                               clients_per_round=k, device=dev),
+        init_params=functools.partial(softmax_reg.init_params, cfg,
+                                      device=dev),
+        opt=opt, client_lr=0.05, local_steps=5, local_batch=20, device=dev)
+    task = SynthTask(n_clients=n, dim=32, n_classes=10,
+                     samples_per_client=64, seed=0)
+    if mesh is None:
+        return DeviceEngine(staged=task, fed_round=make_fed_round(loss, opt),
+                            **common)
+    return ShardedEngine(mesh=mesh, staged=task, n_clients=n,
+                         topk_impl=topk_impl,
+                         fed_round=make_fed_round(loss, opt, cohort_axis=mesh,
+                                                  cohort_slots=k), **common)
+
+
+def drive_engine(engine, dev, spans, keep=()):
+    """``engine.chunk`` over ``spans`` with one host sync a chunk (the
+    stream pulled and unpacked); returns (the streams concatenated, r_k
+    after each round in ``keep``, (rounds, wall s) a chunk, the carry)."""
+    import numpy as np
+    from repro_torch import random as jr
+    from repro_torch.sim.engine import _to_host
+
+    carry = engine.init_carry(jr.PRNGKey(0, device=dev))
+    outs, rates, walls = [], {}, []
+    for t0, t1 in spans:
+        w0 = time.perf_counter()
+        carry, out = engine.chunk(carry, range(t0, t1))
+        outs.append(_to_host(out, engine.n_clients))
+        walls.append((t1 - t0, time.perf_counter() - w0))
+        if t1 in keep:
+            rates[t1] = carry.algo_state.rates.r.cpu().numpy()
+    streams = {f: np.concatenate([getattr(o, f) for o in outs])
+               for f in STREAM_FIELDS}
+    return streams, rates, walls, carry
+
+
+def steady_chunk_ms(walls):
+    """ms a round over every chunk but the first."""
+    rounds = sum(r for r, _ in walls[1:])
+    return 1e3 * sum(w for _, w in walls[1:]) / rounds if rounds else None
+
+
+def clients_cpu(src: str, n: int, spans, threads: int, results) -> None:
+    """The cell on the CPU, in a spawned worker (no CUDA): its streams, r_k
+    after the last span and the wall a round."""
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(threads)
+    engine = nscale_engine(n, torch.device("cpu"))
+    t0 = time.perf_counter()
+    streams, rates, walls, _ = drive_engine(engine, "cpu", spans,
+                                            keep=(spans[-1][1],))
+    results.put(dict(streams=streams, rates=rates,
+                     wall_s=time.perf_counter() - t0,
+                     ms=1e3 * sum(w for _, w in walls)
+                     / sum(r for r, _ in walls)))
+
+
+def start_cpu(ctx, *args):
+    """A spawned :func:`clients_cpu` worker and its result queue."""
+    results = ctx.Queue()
+    proc = ctx.Process(target=clients_cpu, args=(str(ROOT / "src"),) + args
+                       + (results,), daemon=True)
+    proc.start()
+    return proc, results
+
+
+def finish_cpu(proc, results, timeout):
+    """The worker's result, or None (the worker stopped) after
+    ``timeout`` s."""
+    import queue
+    try:
+        out = results.get(timeout=timeout)
+    except queue.Empty:
+        out = None
+    if out is None:
+        proc.terminate()
+    proc.join()
+    if out is None and proc.exitcode not in (None, 0, -15):
+        raise AssertionError(f"clients CPU worker exited {proc.exitcode}")
+    return out
+
+
+def same_streams(a: dict, b: dict, rounds: int) -> dict:
+    """{field: bitwise} over the first ``rounds`` of two runs' streams."""
+    return {f: a[f][:rounds].tobytes() == b[f][:rounds].tobytes()
+            for f in ("sel_mask", "completed", "k_t", "n_available")}
+
+
+def stream_errs(a: dict, b: dict, rounds: int) -> dict:
+    """{train_loss, delta_norm: max abs difference} over the first
+    ``rounds`` of two runs' streams (each held within LOSS_TOL)."""
+    import numpy as np
+    return {f + "_max_abs_err": float(np.abs(
+        a[f][:rounds] - b[f][:rounds]).max())
+        for f in ("train_loss", "delta_norm")}
+
+
+def clients_mesh_rank(mesh, device: str, n: int, rounds: int,
+                      with_run_spec: bool):
+    """One rank of cells 4 and 5 of :func:`clients`, in one spawn: the
+    sharded engine driven ``rounds`` rounds under each ``topk_impl``,
+    then (``with_run_spec``) ``run_spec(RunSpec(mesh_shape=(2,)))``
+    inside this initialized group, as under torchrun.  Each cell's
+    launches on this rank, and from rank 0 its streams, r_k, steady ms
+    and comm bytes (the run_spec cell: its result)."""
+    import torch
+    from repro_torch.sim import RunSpec, run_spec
+    dev = torch.device(device)
+    if mesh.backend == "nccl":
+        dev = torch.device("cuda", mesh.rank)
+    torch.cuda.set_device(dev)
+    lead = mesh.rank == 0
+    out = {}
+    for impl in ("stream", "allgather"):
+        engine = nscale_engine(n, dev, mesh=mesh, topk_impl=impl)
+        spans = ((0, 10), (10, 20), (20, rounds))
+        (streams, rates, walls, _), launches, _ = counted(
+            torch, lambda: drive_engine(engine, dev, spans, keep=(rounds,)))
+        out[impl] = dict(launches=launches,
+                         streams=streams if lead else None,
+                         rates=rates[rounds] if lead else None,
+                         steady_round_ms=steady_chunk_ms(walls),
+                         comm=engine.selection_comm_bytes_per_round,
+                         staged=engine.n_staged_bytes)
+        del engine
+    if with_run_spec:
+        res, launches, wall = counted(torch, lambda: run_spec(
+            RunSpec(mesh_shape=(mesh.size,)), device=dev,
+            log_fn=lambda *a: None))
+        out["run_spec"] = dict(
+            launches=launches, wall_s=wall,
+            res=None if not lead else dict(
+                sel=res.sel_history, comp=res.comp_history, k_t=res.k_t,
+                n_available=res.n_available, rates=res.rates,
+                train_loss=res.train_loss, delta_norm=res.delta_norm,
+                final=res.final_metrics))
+    return out
+
+
+def add_launches(totals, launches):
+    for k, v in launches.items():
+        totals[k] += v
+
+
+def clients(torch, dev, main_run):
+    """The million-client path on the card (the JAX package's N-scaling
+    cell, clients synthesized on demand, masks streamed packed):
+
+    1. ``device`` at N = 10^6, 100 rounds: its first 20 rounds bitwise
+       the same cell on the CPU (masks, K_t, |avail|, r_k after round 20;
+       losses and delta norms within LOSS_TOL); ``fed_select`` (its cooperative path) and
+       ``fed_aggregate`` once a round; peak memory; 0 staged bytes;
+    2. a profiled window of 3 steady rounds of it;
+    3. ``device`` at N = 10^7, 5 rounds: |S_t| = min(K_t, |avail_t|), the
+       launches, peak memory; its first 2 rounds against the CPU where
+       that finishes within CLIENTS_BIG_CPU_S (losses and delta norms
+       too);
+    4. ``sharded`` at N = 10^6 over 2 ranks on the one card (gloo), 30
+       rounds under each ``topk_impl``: masks, K_t, |avail| and r_k
+       bitwise cell 1's card run, losses and delta norms within LOSS_TOL; ``fed_select_mask`` (each shard's
+       candidate cut) and ``fed_aggregate`` once a round a shard (NCCL
+       across cards is ``chip_mesh_nccl.py``'s);
+    5. ``run_spec(RunSpec(mesh_shape=(2,)))`` (gloo), 300 rounds, inside
+       the same group of 2 spawned ranks: bitwise ``main_path``'s device
+       run, losses and delta norms within LOSS_TOL.
+    The CPU runs go first, in spawned workers of CLIENTS_CPU_THREADS
+    threads, while the card runs."""
+    import multiprocessing
+
+    import numpy as np
+    from repro_torch.launch.mesh import spawn_ranks
+
+    t_phase = time.perf_counter()
+    totals = dict(fed_select=0, fed_select_mask=0, fed_aggregate=0)
+    ctx = multiprocessing.get_context("spawn")
+    cpu1 = start_cpu(ctx, CLIENTS_N, ((0, CLIENTS_CPU_ROUNDS),),
+                     CLIENTS_CPU_THREADS)
+    cpu_big = start_cpu(ctx, CLIENTS_N_BIG, (CLIENTS_BIG_SPANS[0],),
+                        CLIENTS_CPU_THREADS)
+    t_big_cpu = time.perf_counter()
+    try:
+        # 1. device, N = 10^6
+        engine = nscale_engine(CLIENTS_N, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        (card, rates, walls, carry), launches1, _ = counted(
+            torch, lambda: drive_engine(
+                engine, dev, CLIENTS_SPANS,
+                keep=(CLIENTS_CPU_ROUNDS, CLIENTS_SHARDED_ROUNDS)))
+        peak1 = torch.cuda.max_memory_allocated(dev)
+        add_launches(totals, launches1)
+        rounds1 = CLIENTS_SPANS[-1][1]
+        if launches1 != dict(fed_select=rounds1, fed_select_mask=0,
+                             fed_aggregate=rounds1):
+            raise AssertionError(f"clients device launches {launches1}")
+        # 2. profiled window of 3 steady rounds
+        box = [carry]
+
+        def window():
+            box[0], _ = engine.chunk(box[0], range(rounds1, rounds1 + 3))
+        (prof, _), launches, _ = counted(torch, lambda: device_profile(
+            torch, window, steps=3, kernel_name="fed_select"))
+        add_launches(totals, launches)
+        emit(dict(phase="clients", cell="profile", n=CLIENTS_N, rounds=3,
+                  **prof))
+        del engine, carry, box
+
+        # 3. device, N = 10^7
+        engine = nscale_engine(CLIENTS_N_BIG, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        (big, big_rates, big_walls, _), launches3, _ = counted(
+            torch, lambda: drive_engine(engine, dev, CLIENTS_BIG_SPANS,
+                                        keep=(CLIENTS_BIG_SPANS[0][1],)))
+        peak3 = torch.cuda.max_memory_allocated(dev)
+        add_launches(totals, launches3)
+        del engine
+        torch.cuda.empty_cache()
+        rounds3 = CLIENTS_BIG_SPANS[-1][1]
+        sizes_ok = bool((big["sel_mask"].sum(1) == np.minimum(
+            big["k_t"], big["n_available"])).all())
+        if not sizes_ok or launches3 != dict(
+                fed_select=rounds3, fed_select_mask=0,
+                fed_aggregate=rounds3):
+            raise AssertionError(f"clients 1e7: |S_t| ok {sizes_ok}, "
+                                 f"launches {launches3}")
+
+        # 4. sharded, d = 2 on the one card (gloo), and 5. run_spec with
+        # mesh_shape=(2,) in the same group
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(clients_mesh_rank, 2, str(dev), CLIENTS_N,
+                            CLIENTS_SHARDED_ROUNDS, True, backend="gloo",
+                            threads=2)
+        spawn_wall = time.perf_counter() - t0
+        for r in ranks:
+            for cell in r.values():
+                add_launches(totals, cell["launches"])
+
+        ref1 = finish_cpu(*cpu1, timeout=600)
+        left = CLIENTS_BIG_CPU_S - (time.perf_counter() - t_big_cpu)
+        ref_big = finish_cpu(*cpu_big, timeout=max(left, 0.1))
+    finally:
+        for proc, _ in (cpu1, cpu_big):
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+
+    rows = []
+    # cell 1 against its CPU run
+    bit1 = same_streams(card, ref1["streams"], CLIENTS_CPU_ROUNDS)
+    bit1["r_after_20"] = (rates[CLIENTS_CPU_ROUNDS].tobytes()
+                          == ref1["rates"][CLIENTS_CPU_ROUNDS].tobytes())
+    errs1 = stream_errs(card, ref1["streams"], CLIENTS_CPU_ROUNDS)
+    rows.append(dict(
+        phase="clients", cell="device", n=CLIENTS_N, rounds=rounds1,
+        steady_round_ms=steady_chunk_ms(walls), wall_s=sum(
+            w for _, w in walls), cpu_round_ms=ref1["ms"],
+        cpu_rounds=CLIENTS_CPU_ROUNDS, cpu_threads=CLIENTS_CPU_THREADS,
+        launches=launches1, peak_mem_gib=peak1 / 2 ** 30,
+        n_staged_bytes=0, bitwise_vs_cpu=bit1, **errs1, tol=LOSS_TOL,
+        mean_available=float(card["n_available"].mean())))
+    ok = all(bit1.values()) and max(errs1.values()) <= LOSS_TOL
+    # cell 3
+    row3 = dict(phase="clients", cell="device", n=CLIENTS_N_BIG,
+                rounds=rounds3, steady_round_ms=steady_chunk_ms(big_walls),
+                round_ms=[1e3 * w / r for r, w in big_walls],
+                launches=launches3, peak_mem_gib=peak3 / 2 ** 30,
+                sizes_min_k_avail=sizes_ok)
+    if ref_big is None:
+        row3["cpu_compare"] = (f"did not finish within "
+                               f"{CLIENTS_BIG_CPU_S:.0f} s")
+    else:
+        n_cmp = CLIENTS_BIG_SPANS[0][1]
+        bit3 = same_streams(big, ref_big["streams"], n_cmp)
+        bit3["r_after_2"] = (big_rates[n_cmp].tobytes()
+                             == ref_big["rates"][n_cmp].tobytes())
+        errs3 = stream_errs(big, ref_big["streams"], n_cmp)
+        row3.update(cpu_rounds=n_cmp, cpu_round_ms=ref_big["ms"],
+                    bitwise_vs_cpu=bit3, **errs3, tol=LOSS_TOL)
+        ok &= all(bit3.values()) and max(errs3.values()) <= LOSS_TOL
+    rows.append(row3)
+    # cell 4 against cell 1's card run
+    for impl in ("stream", "allgather"):
+        r0 = ranks[0][impl]
+        bit = same_streams(card, r0["streams"], CLIENTS_SHARDED_ROUNDS)
+        bit["r_after_30"] = (r0["rates"].tobytes() == rates[
+            CLIENTS_SHARDED_ROUNDS].tobytes())
+        errs = stream_errs(card, r0["streams"], CLIENTS_SHARDED_ROUNDS)
+        launches = {k: sum(r[impl]["launches"][k] for r in ranks)
+                    for k in totals}
+        rows.append(dict(
+            phase="clients", cell="sharded", backend="gloo", shards=2,
+            n=CLIENTS_N, rounds=CLIENTS_SHARDED_ROUNDS, topk_impl=impl,
+            steady_round_ms=r0["steady_round_ms"],
+            rank_steady_round_ms=[r[impl]["steady_round_ms"] for r in ranks],
+            selection_comm_bytes_per_round=r0["comm"],
+            n_staged_bytes=r0["staged"], launches=launches,
+            bitwise_vs_device=bit, **errs, tol=LOSS_TOL,
+            spawn_wall_s=spawn_wall))
+        ok &= (all(bit.values()) and max(errs.values()) <= LOSS_TOL
+               and launches["fed_select_mask"] == 2 * CLIENTS_SHARDED_ROUNDS
+               and launches["fed_aggregate"] == 2 * CLIENTS_SHARDED_ROUNDS)
+    # cell 5 against main_path's device run
+    rs_ranks = [r["run_spec"] for r in ranks]
+    res5 = rs_ranks[0]["res"]
+    bit5 = {
+        "sel_mask": res5["sel"].tobytes() == main_run.sel_history.tobytes(),
+        "completed": (res5["comp"].tobytes()
+                      == main_run.comp_history.tobytes()),
+        "k_t": res5["k_t"].tobytes() == main_run.k_t.tobytes(),
+        "n_available": (res5["n_available"].tobytes()
+                        == main_run.n_available.tobytes()),
+        "final_r": res5["rates"].tobytes() == main_run.rates.tobytes()}
+    errs5 = {"train_loss_max_abs_err": float(np.abs(
+        res5["train_loss"] - main_run.train_loss).max()),
+        "delta_norm_max_abs_err": float(np.abs(
+            res5["delta_norm"] - main_run.delta_norm).max())}
+    launches5 = {k: sum(r["launches"][k] for r in rs_ranks) for k in totals}
+    rounds5 = int(res5["sel"].shape[0])
+    rows.append(dict(
+        phase="clients", cell="run_spec_mesh", mesh_shape=[2],
+        backend="gloo", rounds=rounds5, engine=res5["final"]["engine"],
+        steady_round_ms=steady_ms(res5["final"]),
+        main_path_steady_round_ms=steady_ms(main_run.final_metrics),
+        selection_comm_bytes_per_round=res5["final"][
+            "selection_comm_bytes_per_round"],
+        launches=launches5, bitwise_vs_main_path=bit5, **errs5,
+        tol=LOSS_TOL, wall_s=rs_ranks[0]["wall_s"]))
+    ok &= (all(bit5.values()) and max(errs5.values()) <= LOSS_TOL
+           and res5["final"]["engine"] == "sharded"
+           and launches5["fed_select_mask"] == 2 * rounds5
+           and launches5["fed_aggregate"] == 2 * rounds5)
+    for row in rows:
+        emit(row)
+    emit(dict(phase="clients_summary", cells=len(rows), launches=totals,
+              wall_s=time.perf_counter() - t_phase))
+    if not ok:
+        raise AssertionError("clients: a cell departs from its reference")
+    return totals
 
 
 # ---------------------------------------------------------------------------
@@ -2223,6 +2628,7 @@ def main(argv) -> int:
     grid_launches = scenarios(torch, dev)
     task_launches, agg_resnet18 = paper_tasks(torch, dev)
     host_launches = host_async(torch, dev, main_run)
+    client_launches = clients(torch, dev, main_run)
     check_init(torch, dev)
     attn_err = check_flash_attention(torch, dev)
     t_attn = time_flash_attention(torch, dev)
@@ -2240,7 +2646,8 @@ def main(argv) -> int:
              replaces="src/repro/kernels/fed_select.py:168",
              launches=(launches["fed_select"] + grid_launches["fed_select"]
                        + task_launches["fed_select"]
-                       + host_launches["fed_select"]),
+                       + host_launches["fed_select"]
+                       + client_launches["fed_select"]),
              max_abs_err=sel_err,
              shape=[1 << 20], **{k: t_sel[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
@@ -2249,7 +2656,8 @@ def main(argv) -> int:
              replaces="src/repro/kernels/fed_select.py:152",
              launches=(launches["fed_select_mask"]
                        + grid_launches["fed_select_mask"]
-                       + host_launches["fed_select_mask"]),
+                       + host_launches["fed_select_mask"]
+                       + client_launches["fed_select_mask"]),
              max_abs_err=mask_err,
              shape=[1 << 20], **{k: t_mask[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
@@ -2259,7 +2667,8 @@ def main(argv) -> int:
              launches=(launches["fed_aggregate"]
                        + grid_launches["fed_aggregate"]
                        + task_launches["fed_aggregate"]
-                       + host_launches["fed_aggregate"]),
+                       + host_launches["fed_aggregate"]
+                       + client_launches["fed_aggregate"]),
              max_abs_err=agg_err,
              shape=[10, 1 << 24], **{k: t_agg[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

@@ -38,6 +38,31 @@ def force_nonempty(mask: torch.Tensor, q: torch.Tensor,
     return torch.where(mask.any(), mask, fallback)
 
 
+def force_nonempty_block(mask_blk: torch.Tensor, cand_blk: torch.Tensor,
+                         off: int, axis) -> torch.Tensor:
+    """Blockwise :func:`force_nonempty` for one shard of the client mesh
+    ``axis`` (a ``launch.mesh.ClientMesh``).
+
+    ``cand_blk`` is this shard's slice of the full-width candidate vector
+    ``where(q >= q.max(), tie, -1)`` (pad lanes -1).  Each shard reduces its
+    (max, first argmax) pair and its available count; one gather brings
+    every shard's to every shard, and the first shard holding the global
+    max wins, as a global ``argmax`` picks (shards are ordered by offset,
+    and within a shard the first local index).  The triple travels as
+    float64, which holds the float32 max and the integer id and count
+    exactly.  No (N,) tensor anywhere.
+    """
+    v = cand_blk.max()
+    j = torch.argmax(cand_blk)
+    mine = torch.stack([v.to(torch.float64), (j + off).to(torch.float64),
+                        mask_blk.sum().to(torch.float64)])
+    got = axis.all_gather(mine[None]).reshape(-1, 3)
+    idx = got[torch.argmax(got[:, 0]), 1].to(torch.int64)
+    nonempty = got[:, 2].sum() > 0
+    ids = off + torch.arange(mask_blk.shape[0], device=mask_blk.device)
+    return torch.where(nonempty, mask_blk, ids == idx)
+
+
 @dataclasses.dataclass(frozen=True)
 class AvailabilityProcess(OnDevice):
     """Base class: per-client marginal probabilities, possibly time-varying."""

@@ -20,6 +20,11 @@ Two cohort execution modes, as in the JAX package:
                    whatever the cohort size.
 
 Batch layout: every leaf of ``cohort_batch`` has shape (K, E, B, ...).
+
+With ``cohort_axis`` (a ``launch.mesh.ClientMesh``) the round is the
+client-sharded engine's: each shard trains its slice of the cohort slots,
+reduces its weighted deltas with one ``fed_aggregate`` call and sums the
+shards' Δ with one ``all_reduce`` (JAX's ``psum``).
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch.func import grad_and_value, vmap
 
-from ..kernels.fed_aggregate import fed_aggregate_tree
+from ..kernels.fed_aggregate import fed_aggregate, fed_aggregate_tree
 from ..optim.optimizers import Optimizer, apply_updates
 from ..tree import tree_leaves, tree_map
 from .aggregation import streaming_aggregate_add, streaming_aggregate_init
@@ -71,17 +76,35 @@ def _local_sgd(loss_fn: Callable, params, client_batch: dict,
 
 
 def make_fed_round(loss_fn: Callable, server_opt: Optimizer, *,
-                   mode: str = "parallel", prox_mu: float = 0.0):
+                   mode: str = "parallel", prox_mu: float = 0.0,
+                   cohort_axis=None, cohort_slots: int = None):
     """Build the round function
 
         fed_round(params, opt_state, cohort_batch, weights, client_lr)
             -> (params, opt_state, RoundMetrics)
 
     ``client_lr`` is a Python float (folded into the step as float32).
+
+    ``cohort_axis``: the client mesh (a ``launch.mesh.ClientMesh``) of the
+    sharded engine.  The returned function then takes this shard's slice
+    of the cohort (batch, weights and a ``slot_mask`` flagging the slots
+    of the real K-slot cohort against the shard-count padding), trains it
+    in parallel mode, and sums Δ, the loss and the gradient norm over the
+    shards; ``cohort_slots`` is the real cohort size K the loss and
+    gradient-norm means divide by, as the single-device mean over K
+    slots.  The sum order differs from the single-device round's, so the
+    sharded round is held to it within float tolerance, not bitwise.
     """
     if mode not in ("parallel", "sequential"):
         raise ValueError(f"mode must be 'parallel' or 'sequential', "
                          f"got {mode!r}")
+    if cohort_axis is not None:
+        if mode != "parallel":
+            raise ValueError("sharded cohort execution is parallel-mode")
+        if cohort_slots is None:
+            raise ValueError("cohort_axis needs cohort_slots=K")
+        return _sharded_round(loss_fn, server_opt, prox_mu, cohort_axis,
+                              int(cohort_slots))
 
     def cohort_parallel(params, cohort_batch, weights, lr):
         deltas, losses, gnorms = vmap(
@@ -116,3 +139,35 @@ def make_fed_round(loss_fn: Callable, server_opt: Optimizer, *,
                                                grad_norm=gnorms.mean())
 
     return fed_round
+
+
+def _sharded_round(loss_fn: Callable, server_opt: Optimizer, prox_mu: float,
+                   axis, cohort_slots: int):
+    """The parallel round over one shard's cohort slots, its Δ and
+    metrics summed over the mesh ``axis`` in one ``all_reduce``."""
+
+    def fed_round_sharded(params, opt_state, cohort_batch, weights,
+                          client_lr, slot_mask):
+        lr = float(client_lr)
+        deltas, losses, gnorms = vmap(
+            lambda b: _local_sgd(loss_fn, params, b, lr, prox_mu))(
+                cohort_batch)
+        leaves = tree_leaves(deltas)
+        k_rows = leaves[0].shape[0]
+        flat = torch.cat([x.reshape(k_rows, -1) for x in leaves], dim=1)
+        part = fed_aggregate(flat, weights.to(torch.float32))
+        sums = torch.stack([(losses * slot_mask).sum(),
+                            (gnorms * slot_mask).sum()]).to(part.dtype)
+        total = axis.all_reduce(torch.cat([part, sums]))
+        pieces = iter(torch.split(total[:-2],
+                                  [x[0].numel() for x in leaves]))
+        delta = tree_map(lambda x: next(pieces).reshape(x.shape[1:]),
+                         deltas)
+        loss, gnorm = total[-2] / cohort_slots, total[-1] / cohort_slots
+        dnorm = torch.sqrt(_sq_norm(delta))
+        updates, opt_state = server_opt.update(delta, opt_state, params)
+        params = apply_updates(params, updates)
+        return params, opt_state, RoundMetrics(loss=loss, delta_norm=dnorm,
+                                               grad_norm=gnorm)
+
+    return fed_round_sharded

@@ -32,8 +32,10 @@ Registry (the paper's policy and its baselines):
 
 and the alias ``fedadam`` (fedavg with a server Adam step).  The registry
 flags ``needs_losses``/``host_only`` route a strategy to the host loop, as
-in the JAX package.  :func:`as_sharded` raises ``NotImplementedError``
-(ROADMAP.md queue 1 item 11).
+in the JAX package.  :func:`as_sharded` wraps a strategy's ``score`` and
+``finalize`` around the distributed cut of the client-sharded engine
+(``f3ast`` and ``fixed_f3ast`` also score a shard's block alone, through
+``score_block``).
 """
 from __future__ import annotations
 
@@ -44,11 +46,14 @@ import numpy as np
 import torch
 
 from . import selection as sel
+from .bitmask import all_gather_bits
+from .blockrng import block_uniform
 from .aggregation import fedavg_weights, unbiased_weights, uniform_weights
 from .hfun import R_MIN, marginal_utility
 from .rates import RateState, init_rates, update_rates
 from .. import random as jr
 from ..device import resolve_device
+from ..sharding.rules import pad_client_dim
 
 __all__ = [
     "SELECT_IMPLS", "STRATEGY_ALIASES", "STRATEGY_REGISTRY",
@@ -102,7 +107,12 @@ class RateTrackState(NamedTuple):
 class SelectionStrategy(NamedTuple):
     """A selection policy as pure functions; ``needs_losses``/``host_only``
     route it to the host loop (``needs_losses``: fresh per-client losses
-    in ``ctx.losses`` each round)."""
+    in ``ctx.losses`` each round).
+
+    ``score_block(state, key, avail_blk, k_t, ctx, off, n_total) ->
+    (n_local,) f32`` is the optional blockwise spelling of ``score`` for
+    the sharded engine: the slice ``[off, off + n_local)`` of the
+    full-width scores, bitwise, with pad lanes 0."""
     name: str
     init: Callable[..., Any]
     select: Callable[..., Any]
@@ -111,6 +121,7 @@ class SelectionStrategy(NamedTuple):
     n_clients: Optional[int] = None
     needs_losses: bool = False
     host_only: bool = False
+    score_block: Optional[Callable[..., Any]] = None
 
 
 def strategy_rates(strategy: SelectionStrategy, state):
@@ -122,7 +133,9 @@ def topk_strategy(name: str, init: Callable, score: Callable,
                   finalize: Callable, *, device: torch.device,
                   n_clients: Optional[int] = None,
                   select_impl: str = "xla",
-                  fused: Optional[Callable] = None) -> SelectionStrategy:
+                  fused: Optional[Callable] = None,
+                  score_block: Optional[Callable] = None
+                  ) -> SelectionStrategy:
     """Build a strategy from the canonical score → top-k → weight shape.
 
     ``fused(state, scores, avail, k_t) -> (mask, weights, new_state)`` is
@@ -146,7 +159,7 @@ def topk_strategy(name: str, init: Callable, score: Callable,
 
     return SelectionStrategy(name=name, init=init, select=select,
                              score=score, finalize=finalize,
-                             n_clients=n_clients)
+                             n_clients=n_clients, score_block=score_block)
 
 
 def _fused_rate_select(p: torch.Tensor, beta: float, weight_mode: str,
@@ -169,12 +182,62 @@ def _fused_rate_select(p: torch.Tensor, beta: float, weight_mode: str,
     return fused
 
 
-def as_sharded(strategy: SelectionStrategy, **kw):
-    """The client-sharded adapter (and the strategies' ``score_block``) of
-    the JAX package; not ported."""
-    raise NotImplementedError(
-        "as_sharded (the client-sharded selection) is not ported to "
-        "repro_torch yet (ROADMAP.md queue 1 item 11)")
+def as_sharded(strategy: SelectionStrategy, *, axis, k_max: int,
+               n_pad: int, topk_impl: str = "stream") -> Callable:
+    """The blockwise adapter of the client-sharded engine.
+
+    Returns ``select_blk(state, key, avail_blk, k_t, ctx, avail_full=None)
+    -> (mask_blk, weights_blk, new_state, completed_full)`` for one shard
+    of the client mesh ``axis`` (a ``launch.mesh.ClientMesh``):
+    ``avail_blk`` is this shard's block of the client dimension padded to
+    ``n_pad``; the strategy ``state`` is replicated (real-N shape on every
+    shard).  The scores come from ``score_block`` when the strategy has
+    one, else from ``score`` at full (N,) shape and sliced (the
+    availability mask gathered first unless ``avail_full`` is given); the
+    cut is :func:`selection.sharded_topk_mask`; the selection mask is then
+    gathered (packed words) and ``finalize`` runs at full (N,) shape on
+    every shard, so r_k and the weights are replicated and identical —
+    the same values, key for key, as the single-device path.
+    ``completed_full`` is the full-width completed mask (the selection
+    mask without a completion hook).
+    """
+    if strategy.score is None or strategy.finalize is None:
+        raise ValueError(
+            f"strategy {strategy.name!r} has no score/finalize "
+            f"decomposition, so the generic sharded adapter cannot run it; "
+            f"build it with topk_strategy(...) or use an unsharded engine")
+    n = strategy.n_clients
+    if n is None:
+        raise ValueError(f"strategy {strategy.name!r} does not declare "
+                         f"n_clients; as_sharded needs it to un-pad fields")
+    if topk_impl not in sel.TOPK_IMPLS:
+        raise ValueError(f"unknown topk_impl {topk_impl!r}; "
+                         f"known: {sel.TOPK_IMPLS}")
+
+    def block_of(x: torch.Tensor, off: int, n_local: int) -> torch.Tensor:
+        return pad_client_dim(x, n_pad)[off:off + n_local]
+
+    def select_blk(state, key, avail_blk, k_t,
+                   ctx: Optional[SelectCtx] = None, avail_full=None):
+        n_local = avail_blk.shape[0]
+        off = axis.rank * n_local
+        if strategy.score_block is not None:
+            scores_blk = strategy.score_block(state, key, avail_blk, k_t,
+                                              ctx, off, n)
+        else:
+            if avail_full is None:
+                avail_full = all_gather_bits(avail_blk, axis, n)
+            scores = strategy.score(state, key, avail_full, k_t, ctx)
+            scores_blk = block_of(scores, off, n_local)
+        mask_blk = sel.sharded_topk_mask(scores_blk, avail_blk, k_t, axis,
+                                         k_max, method=topk_impl)
+        mask_full = all_gather_bits(mask_blk, axis, n)
+        completed_full = apply_completion(ctx, mask_full)
+        weights, new_state = strategy.finalize(state, completed_full, ctx)
+        w_blk = block_of(weights.to(torch.float32), off, n_local)
+        return mask_blk, w_blk, new_state, completed_full
+
+    return select_blk
 
 
 # ---------------------------------------------------------------------------
@@ -308,6 +371,26 @@ def _rate_init(n_default: int, clients_per_round, device) -> Callable:
     return init
 
 
+def _rate_score_block(p: torch.Tensor, positively_correlated: bool,
+                      r_of: Callable) -> Callable:
+    """Blockwise spelling of the rate-utility score (f3ast family): the
+    slice of ``marginal_utility(r, p) * (1 + 1e-6·uniform)`` from the
+    block's own r/p rows and the slice-consistent ``core.blockrng``
+    tie-break — bitwise the slice of the full-width score, pad lanes 0."""
+
+    def score_block(state, key, avail_blk, k_t, ctx, off, n_total):
+        n_local = avail_blk.shape[0]
+        ids = off + torch.arange(n_local, device=avail_blk.device)
+        real = ids < n_total
+        safe = torch.clamp_max(ids, n_total - 1)
+        util = marginal_utility(r_of(state)[safe], p[safe],
+                                positively_correlated)
+        tie = block_uniform(key, n_total, off, n_local)
+        return torch.where(real, util * (1.0 + 1e-6 * tie), 0.0)
+
+    return score_block
+
+
 @register_strategy("f3ast")
 def _make_f3ast(n_clients, p, device, beta: float = 1e-3,
                 positively_correlated: bool = False,
@@ -332,7 +415,10 @@ def _make_f3ast(n_clients, p, device, beta: float = 1e-3,
                          _rate_init(n_clients, clients_per_round, device),
                          score, finalize, device=device, n_clients=n_clients,
                          select_impl=select_impl,
-                         fused=_fused_rate_select(p, beta, "unbiased"))
+                         fused=_fused_rate_select(p, beta, "unbiased"),
+                         score_block=_rate_score_block(
+                             p, positively_correlated,
+                             lambda s: s.rates.r))
 
 
 @register_strategy("fixed_f3ast")
@@ -362,7 +448,9 @@ def _make_fixed_f3ast(n_clients, p, device, beta: float = 1e-3,
                          score, finalize, device=device, n_clients=n_clients,
                          select_impl=select_impl,
                          fused=_fused_rate_select(p, beta, "unbiased_frozen",
-                                                  r_weight_of=r_of))
+                                                  r_weight_of=r_of),
+                         score_block=_rate_score_block(
+                             p, positively_correlated, r_of))
 
 
 def _ema_finalize(beta: float, weights_from_mask: Callable) -> Callable:

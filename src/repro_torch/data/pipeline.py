@@ -16,6 +16,12 @@ Unselected cohort slots repeat a valid client and get zero weight.
   (N, S, ...) with per-client sample counts; the gather then assembles a
   cohort batch on the device from the same ``randint`` draw as the JAX
   package (per-row bounds ``counts[ids]``).
+* **on-demand path** (``synth_cohort_batch``): with a ``SynthTask`` no
+  client data is staged at all; each round synthesizes the selected
+  cohort's (K, S, ...) block and gathers from it with the same draw.
+
+Under a client mesh (the sharded engine) each rank stages only its own
+block of the client dimension, padded to a multiple of (mesh size × 32).
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ import numpy as np
 import torch
 
 from .. import random as jr
-from .synthetic import SyntheticDataset
+from .synthetic import SynthTask, SyntheticDataset
 
 
 @dataclasses.dataclass
@@ -72,6 +78,84 @@ def staged_cohort_batch(staged: StagedData, key: torch.Tensor,
             for name, arr in staged.arrays.items()}
 
 
+def synth_cohort_batch(task: SynthTask, key: torch.Tensor, ids: torch.Tensor,
+                       local_steps: int, local_batch: int) -> dict:
+    """On-demand cohort batch: synthesize only the selected (K, S, ...)
+    block.  The same ``randint`` draw as :func:`staged_cohort_batch` (the
+    per-row bound is the task's uniform sample count, what
+    ``staged.counts[ids]`` holds on the staged path) and the same gather,
+    so the batch is bitwise the staged one for the same (key, ids)."""
+    k = ids.shape[0]
+    counts = torch.full((k,), task.samples_per_client, dtype=torch.int32,
+                        device=key.device)
+    idx = jr.randint(key, (k, local_steps, local_batch), 0,
+                     counts[:, None, None]).long()
+    block = task.client_block(ids)
+    rows = torch.arange(k, device=key.device)[:, None, None]
+    return {name: arr[rows, idx] for name, arr in block.items()}
+
+
+# Client-dim padding quantum per mesh shard: keeps every shard's block a
+# multiple of 32, so the sharded engine streams packed masks with no pad
+# bits mid-mask (core.bitmask).  Padded clients stay inert.
+SHARD_PAD_QUANTUM = 32
+
+
+def stage_client_arrays(arrays: dict, counts: np.ndarray, device, *,
+                        mesh=None) -> StagedData:
+    """Place pre-stacked per-client arrays ({feature: (N, S, ...)}, counts
+    (N,)) on ``device`` as a :class:`StagedData`.
+
+    ``mesh=None``: every client.  With a client mesh (a
+    ``launch.mesh.ClientMesh``) the client dimension is padded to a
+    multiple of (mesh size × 32) and this rank stages only its own block
+    ``[rank · nl, (rank + 1) · nl)`` of the arrays; ``counts`` stay whole
+    (n_pad,), read for any cohort id on every rank, and a padded client
+    gets sample count 1 so a bounded ``randint`` stays defined (it is
+    never selected).  Zero rows pad the arrays."""
+    counts = np.asarray(counts, np.int32)
+    if mesh is None:
+        return StagedData(
+            arrays={k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                    for k, v in arrays.items()},
+            counts=torch.from_numpy(counts).to(device))
+    n = counts.shape[0]
+    quantum = mesh.size * SHARD_PAD_QUANTUM
+    n_pad = -(-n // quantum) * quantum
+    nl = n_pad // mesh.size
+    lo = mesh.rank * nl
+    m = max(0, min(lo + nl, n) - lo)
+    placed = {}
+    for name, arr in arrays.items():
+        arr = np.asarray(arr)
+        blk = np.zeros((nl,) + arr.shape[1:], arr.dtype)
+        blk[:m] = arr[lo:lo + m]
+        placed[name] = torch.from_numpy(blk).to(device)
+    counts_pad = np.concatenate([counts, np.ones(n_pad - n, np.int32)])
+    return StagedData(arrays=placed,
+                      counts=torch.from_numpy(counts_pad).to(device))
+
+
+def stage_synth_task(task: SynthTask, device, *, mesh=None,
+                     block: int = 8192) -> StagedData:
+    """Materialize a :class:`SynthTask` into :class:`StagedData`, generated
+    in blocks of ``block`` clients through the same keyed generator the
+    on-demand path uses (on ``device``), so ``staged_cohort_batch`` on the
+    result is bitwise ``synth_cohort_batch`` on the task."""
+    n = task.n_clients
+    arrays = None
+    for lo in range(0, n, block):
+        ids = torch.arange(lo, min(lo + block, n), device=device)
+        blk = {k: v.cpu().numpy() for k, v in task.client_block(ids).items()}
+        if arrays is None:
+            arrays = {name: np.empty((n,) + v.shape[1:], v.dtype)
+                      for name, v in blk.items()}
+        for name, v in blk.items():
+            arrays[name][lo:lo + ids.shape[0]] = v
+    return stage_client_arrays(arrays, task.counts().numpy(), device,
+                               mesh=mesh)
+
+
 @dataclasses.dataclass
 class CohortSampler:
     """Assembles static-shape cohort batches.  ``cohort_size`` (K, the
@@ -86,8 +170,10 @@ class CohortSampler:
     def __post_init__(self):
         self._rng = np.random.default_rng(self.seed)
 
-    def stage_device(self, device) -> StagedData:
-        """Stage every client's train split onto ``device`` (one transfer)."""
+    def stage_device(self, device, mesh=None) -> StagedData:
+        """Stage every client's train split onto ``device`` (one transfer);
+        with a client ``mesh``, this rank's padded block of it
+        (:func:`stage_client_arrays`)."""
         clients = self.data.clients
         counts = np.asarray(
             [len(next(iter(c.train.values()))) for c in clients], np.int32)
@@ -98,9 +184,8 @@ class CohortSampler:
                                leaf.dtype)
             for i, c in enumerate(clients):
                 stacked[i, :counts[i]] = c.train[name]
-            arrays[name] = torch.from_numpy(stacked).to(device)
-        return StagedData(arrays=arrays,
-                          counts=torch.from_numpy(counts).to(device))
+            arrays[name] = stacked
+        return stage_client_arrays(arrays, counts, device, mesh=mesh)
 
     def cohort_batch(self, selected: Sequence[int],
                      key: Optional[torch.Tensor] = None):

@@ -8,8 +8,12 @@ makers).
   Gaussian images, LDA-partitioned (``partition.dirichlet_partition``).
 
 Pure numpy (``np.random.default_rng``), copied op for op, so the same seed
-and kwargs give the same bytes as the JAX package's makers.  The on-demand
-``SynthTask`` is ROADMAP.md queue 1 item 11.
+and kwargs give the same bytes as the JAX package's makers.
+
+* ``SynthTask`` — Synthetic(alpha, beta) as a pure function of the client
+  id, drawn from the port's threefry (``repro_torch.random``): the engines
+  synthesize only the selected cohort's block each round, so client data
+  costs no resident bytes at any N.
 """
 from __future__ import annotations
 
@@ -17,7 +21,10 @@ import dataclasses
 from typing import List
 
 import numpy as np
+import torch
 
+from .. import random as jr
+from .. import xla_math
 from .partition import dirichlet_partition
 
 
@@ -65,6 +72,105 @@ def make_synthetic_federated(n_clients=100, dim=60, n_classes=10,
         clients.append(_split({"x": x.astype(np.float32), "y": y},
                               seed=seed + k))
     return clients
+
+
+_SQRT2 = xla_math.f32(2.0 ** 0.5)
+
+
+@dataclasses.dataclass(frozen=True)
+class SynthTask:
+    """On-demand keyed Synthetic(alpha, beta): client ``k``'s data is a
+    function of ``fold_in(PRNGKey(seed), k)`` alone (port of
+    ``repro.data.synthetic.SynthTask``).
+
+    Per client: model W_k, b_k ~ N(u_k, 1) with u_k ~ N(0, alpha),
+    features x ~ N(v_k, Σ) with v_k ~ N(b_mean, 1), b_mean ~ N(0, beta),
+    Σ_jj = j^{-1.2}, labels argmax(x W_k + b_k).  :meth:`client_block`
+    over any ids is bitwise the same rows of the full materialization,
+    and bitwise the jitted JAX ``client_block``.  A plain frozen config:
+    engines close over it.
+    """
+
+    n_clients: int
+    dim: int = 32
+    n_classes: int = 10
+    alpha: float = 1.0
+    beta: float = 1.0
+    samples_per_client: int = 64
+    seed: int = 0
+
+    def client_block(self, ids: torch.Tensor) -> dict:
+        """ids (K,) → {"x": (K, S, dim) f32, "y": (K, S) int32} on the
+        ids' device.  Row ``j`` depends only on ``ids[j]``.
+
+        One batched draw per field for the whole cohort (each client's
+        six keys broadcast against the counters, as ``vmap`` of the JAX
+        draws), spelled as jitted XLA:CPU computes it: a normal is
+        ``erf_inv(u) * sqrt(2)``, and XLA folds the scale of a draw into
+        the constant it multiplies and contracts the add that follows
+        into an FMA — ``u = e·(√2·alpha)``, ``v = fma(e, √2, b_mean)``,
+        ``W = fma(e, √2, u)``, ``b = fma(e, √2, u)``, ``x = fma(e,
+        diag_sqrt·√2, v)`` — and its dot accumulates the ``dim`` products
+        in 4 interleaved FMA chains (lane ``j`` takes terms ``j, j+4,
+        …``), summed as ``(c0 + c1) + (c2 + c3)``.  Every step is a
+        correctly rounded float32 operation (the FMAs exact through
+        float64), so the card gives the CPU's bits.
+        """
+        ids = torch.as_tensor(ids).to(torch.int64)
+        dev = ids.device
+        dim, c, s = self.dim, self.n_classes, self.samples_per_client
+        base = jr.PRNGKey(self.seed, device=dev)
+        keys = jr.split(jr.fold_in(base, ids), 6)        # (K, 6, 2)
+
+        def erf(i, shape):
+            u = jr.uniform(keys[:, i], shape, jr._NORMAL_LO, 1.0)
+            return xla_math.erf_inv(u)
+
+        u = erf(0, ()) * xla_math.f32(_SQRT2 * xla_math.f32(self.alpha))
+        b_mean = erf(1, ()) * xla_math.f32(
+            _SQRT2 * xla_math.f32(self.beta))
+        v = xla_math.fma(erf(2, (dim,)), _SQRT2, b_mean[:, None])
+        w = xla_math.fma(erf(3, (dim, c)), _SQRT2, u[:, None, None])
+        b = xla_math.fma(erf(4, (c,)), _SQRT2, u[:, None])
+        scale = self.diag_sqrt(dev) * _SQRT2
+        x = xla_math.fma(erf(5, (s, dim)), scale, v[:, None, :])
+        logits = _dot_4_chains(x, w) + b[:, None, :]
+        return {"x": x, "y": torch.argmax(logits, -1).to(torch.int32)}
+
+    def diag_sqrt(self, device) -> torch.Tensor:
+        """sqrt((arange(dim) + 1) ** -1.2) with XLA's pow and sqrt."""
+        j = torch.arange(self.dim, dtype=torch.float32, device=device) + 1.0
+        return xla_math.sqrt(xla_math.pow(j, -1.2))
+
+    def counts(self, n: int = None) -> torch.Tensor:
+        """(n,) int32 per-client sample counts (uniform by construction),
+        on the CPU."""
+        return torch.full((self.n_clients if n is None else n,),
+                          self.samples_per_client, dtype=torch.int32)
+
+    @property
+    def bytes_per_client(self) -> int:
+        """Staged footprint per client this task avoids: S·(dim·4 + 4)."""
+        return self.samples_per_client * (self.dim * 4 + 4)
+
+
+def _dot_4_chains(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(K, S, D) @ (K, D, C) as XLA:CPU's batched dot sums it: four FMA
+    chains over the products (chain j takes d = j, j + 4, …, from 0),
+    then ``(c0 + c1) + (c2 + c3)``.  D is zero-padded to a multiple of 4
+    (an FMA of a zero product leaves a chain as it is)."""
+    k, s, d = x.shape
+    pad = -d % 4
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+        w = torch.nn.functional.pad(w, (0, 0, 0, pad))
+    c = w.shape[-1]
+    xr = x.reshape(k, s, -1, 4, 1).expand(k, s, x.shape[-1] // 4, 4, c)
+    wr = w.reshape(k, 1, -1, 4, c).expand(k, s, x.shape[-1] // 4, 4, c)
+    acc = torch.zeros((k, s, 4, c), dtype=torch.float32, device=x.device)
+    for i in range(xr.shape[2]):
+        acc = xla_math.fma(xr[:, :, i], wr[:, :, i], acc)
+    return (acc[:, :, 0] + acc[:, :, 1]) + (acc[:, :, 2] + acc[:, :, 3])
 
 
 def make_char_lm_federated(n_clients=100, vocab=90, seq_len=80,

@@ -57,6 +57,9 @@ def _k_arg(k, device):
     return None, int(k)
 
 
+# the kernel's client count is an int32
+_N_MAX = 2 ** 31 - 1
+
 # path: 0 by N (the kernel's crossover), 1 the one-block path, 2 the
 # cooperative one; anything but 0 is for measuring the two
 _PATHS = {None: 0, "small": 1, "large": 2}
@@ -70,6 +73,9 @@ def _launch(scores, avail, k, r, p, rw, beta: float, mode: int,
         raise ValueError(f"unknown path {path!r}; known: small, large")
     dev = scores.device
     n = scores.shape[0]
+    if n > _N_MAX:
+        raise ValueError(f"fed_select takes N <= {_N_MAX} clients (the "
+                         f"kernel indexes them with int32), got {n}")
     lib = _build.load("fed_select")
     k_dev, k_value = _k_arg(k, dev)
     mask = torch.empty(n, dtype=torch.bool, device=dev)

@@ -18,9 +18,11 @@ package's CLI.  ``--engine host`` runs the reference host loop,
 ``--aggregation buffered`` the FedBuff-style server (with
 ``--buffer-size``, ``--staleness-power``, ``--staleness-discount``),
 ``--ckpt-dir`` writes checkpoints and ``--algo poc`` runs Power-of-Choice
-(on the host loop).  What the port lacks fails before anything runs, with
-``NotImplementedError`` naming its ROADMAP.md queue 1 item: ``--arch``
-(the model zoo's federated round, item 12) and ``--mesh-shape`` (item 11).
+(on the host loop).  ``--mesh-shape C`` runs the client-sharded engine
+over C ranks (``--dist-backend`` gloo or nccl).  What the port lacks fails
+before anything runs, with ``NotImplementedError`` naming its ROADMAP.md
+queue 1 item: ``--arch`` (the model zoo's federated round, item 12) and
+``--mesh-shape C,M`` (the (clients, model) mesh, item 11).
 """
 from __future__ import annotations
 
@@ -111,6 +113,9 @@ def main(argv=None) -> None:
                          "flags are ignored)")
     ap.add_argument("--save-spec", default=None, metavar="PATH",
                     help="write the assembled RunSpec JSON before running")
+    ap.add_argument("--dist-backend", default=None, choices=["gloo", "nccl"],
+                    help="the sharded engine's collectives (default: gloo "
+                         "on the CPU, NCCL on CUDA with one card a rank)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -149,7 +154,7 @@ def main(argv=None) -> None:
     if args.save_spec:
         spec.save(args.save_spec)
         print(f"wrote {args.save_spec}")
-    res = run_spec(spec, device=args.device)
+    res = run_spec(spec, device=args.device, dist_backend=args.dist_backend)
     print(json.dumps(res.final_metrics, indent=1))
 
 

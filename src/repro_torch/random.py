@@ -101,8 +101,13 @@ def _counters(key: torch.Tensor, shape: tuple, start: int = 0):
 def bits(key: torch.Tensor, shape: Shape, *, start: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (uint32 words, in int64).  With
     ``start``, the lanes ``[start, start + size)`` of a flat draw from the
-    same key (``start=0``: the draw itself)."""
-    hi, lo = _counters(key, _shape(shape), start)
+    same key (``start=0``: the draw itself).  A stack of keys (..., 2)
+    draws key by key (``vmap``), giving (..., *shape); so do the draws
+    built on it (``uniform``, ``normal``)."""
+    shape = _shape(shape)
+    hi, lo = _counters(key, shape, start)
+    if key.dim() > 1:
+        key = key.reshape(key.shape[:-1] + (1,) * len(shape) + (2,))
     b1, b2 = threefry2x32(key, hi, lo)
     return b1 ^ b2
 
@@ -116,8 +121,14 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in(key, data)`` for a Python int ``data``."""
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` for a Python int ``data``; for an
+    integer tensor of ids, ``vmap(fold_in, (None, 0))``: a (..., 2) stack,
+    one key an id."""
+    if torch.is_tensor(data):
+        d = data.to(device=key.device, dtype=torch.int64) & _M32
+        b1, b2 = threefry2x32(key, torch.zeros_like(d), d)
+        return torch.stack([b1, b2], dim=-1)
     d = torch.full((1,), int(data) & _M32, dtype=torch.int64,
                    device=key.device)
     b1, b2 = threefry2x32(key, torch.zeros_like(d), d)

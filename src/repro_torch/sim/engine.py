@@ -16,6 +16,14 @@ comes from the port's bit-identical threefry, so the same seed and the same
 RunSpec give bitwise the same availability masks, K_t, selection and
 completion masks and r_k trajectory.
 
+The data is staged once (``StagedData``) or synthesized on demand: with a
+``data.SynthTask`` as ``staged`` the cohort's block is drawn each round
+(``synth_cohort_batch``) and nothing O(N) of the data is resident, which is
+what lets a round run at N = 1e6–1e7.  The selection and completion masks
+stream packed (``core.bitmask``); the drivers unpack once a chunk.
+With a client mesh (``mesh=``) ``build_engine`` builds the client-sharded
+engine (:mod:`repro_torch.sim.engine_sharded`) instead.
+
 ``run_cells_vmapped`` runs a batch of cells (seed × budget cap) over one
 data realisation, as the JAX function of that name does.  There one
 vmapped program steps every cell; here each cell's round is the eager
@@ -35,13 +43,15 @@ from torch.profiler import record_function
 
 from .. import random as jr
 from ..checkpoint import save_checkpoint
+from ..core.bitmask import pack_bits, unpack_bits_np
 from ..core.fedstep import make_fed_round
 from ..core.keys import COMPLETION as KEY_FOLD
 from ..core.selection import cohort_ids_from_mask
 from ..core.strategies import (SelectCtx, get_strategy_entry,
                                make_strategy, resolve_strategy)
 from ..data import CohortSampler
-from ..data.pipeline import staged_cohort_batch
+from ..data.pipeline import staged_cohort_batch, synth_cohort_batch
+from ..data.synthetic import SynthTask
 from ..device import resolve_device
 from ..optim import make_optimizer
 from .scenario import Scenario, get_scenario
@@ -62,15 +72,36 @@ class EngineCarry(NamedTuple):
 class RoundStream(NamedTuple):
     """Per-round outputs of a chunk, stacked along the round axis.
 
-    The masks stream as (C, N) bool; bit-packing them (``core.bitmask`` in
-    the JAX package) waits for the million-client slice.
+    The two masks stream packed: (C, ceil(N/32)) words (``core.bitmask``,
+    int32 holding the uint32 bits), 8× less device→host traffic than
+    (C, N) bool at million-client N.  The drivers unpack once a chunk
+    (:func:`_to_host`) before anything reads them.
     """
-    sel_mask: torch.Tensor     # (C, N) bool — cohort S_t
-    completed: torch.Tensor    # (C, N) bool — survivors ⊆ S_t
+    sel_mask: torch.Tensor     # (C, ceil(N/32)) words — cohort S_t
+    completed: torch.Tensor    # (C, ceil(N/32)) words — survivors ⊆ S_t
     k_t: torch.Tensor          # (C,) int32
     n_available: torch.Tensor  # (C,) int32
     train_loss: torch.Tensor   # (C,) f32
     delta_norm: torch.Tensor   # (C,) f32
+
+
+def _to_host(out: RoundStream, n: int) -> RoundStream:
+    """A chunk's stream on the host (numpy), the packed masks decoded to
+    (C, n) bool (bits past ``n``, the client-dim padding, are never set):
+    the one host sync of the chunk."""
+    out_np = RoundStream(*(x.cpu().numpy() for x in out))
+    return out_np._replace(sel_mask=unpack_bits_np(out_np.sel_mask, n),
+                           completed=unpack_bits_np(out_np.completed, n))
+
+
+def _staged_nbytes(staged) -> int:
+    """Resident device bytes of a staged client dataset (0 when the data
+    is synthesized on demand: nothing is resident)."""
+    if isinstance(staged, SynthTask):
+        return 0
+    return int(sum(a.numel() * a.element_size()
+                   for a in staged.arrays.values())
+               + staged.counts.numel() * staged.counts.element_size())
 
 
 class DeviceEngine:
@@ -81,21 +112,24 @@ class DeviceEngine:
     ``init_carry(key)`` builds the round-0 state for a cell seed.
     ``k_cap`` bounds K_t (the budget-cap axis of
     :func:`run_cells_vmapped`); None leaves every draw as it is.
+    ``staged`` is a ``StagedData`` or a ``data.SynthTask`` (then
+    ``n_staged_bytes`` is 0 and each round synthesizes its cohort).
+    ``device`` (None: CUDA) is where the engine's own tensors go.
     """
 
     def __init__(self, *, avail_model, budget, strategy, staged, fed_round,
                  init_params, opt, client_lr, local_steps, local_batch,
-                 device, completion=None):
+                 device=None, completion=None):
         self.avail_model = avail_model
         self.budget = budget
         self.strategy = strategy
         self.completion = completion
-        self.device = device
+        self.device = resolve_device(device)
         self.k_max = budget.k_max
-        self.n_clients = int(staged.counts.shape[0])
-        self.n_staged_bytes = int(
-            sum(a.numel() * a.element_size() for a in staged.arrays.values())
-            + staged.counts.numel() * staged.counts.element_size())
+        self._synth = isinstance(staged, SynthTask)
+        self.n_clients = (staged.n_clients if self._synth
+                          else int(staged.counts.shape[0]))
+        self.n_staged_bytes = _staged_nbytes(staged)
         self.selection_comm_bytes_per_round = 0   # single device: no comm
         self._staged = staged
         self._fed_round = fed_round
@@ -151,16 +185,18 @@ class DeviceEngine:
         completed = sel_mask if self._trivial else complete_fn(sel_mask)
         with record_function("round/cohort_batch"):
             ids, valid = cohort_ids_from_mask(sel_mask, self.k_max)
-            batch = staged_cohort_batch(self._staged, k_batch, ids,
-                                        self._local_steps, self._local_batch)
+            gather = (synth_cohort_batch if self._synth
+                      else staged_cohort_batch)
+            batch = gather(self._staged, k_batch, ids, self._local_steps,
+                           self._local_batch)
             w = w_full[ids] * valid
             if not self._trivial:
                 w = w * completed[ids]
         with record_function("round/fed_round"):
             params, opt_state, m = self._fed_round(
                 carry.params, carry.opt_state, batch, w, self._client_lr)
-        out = (sel_mask, completed, k_t, avail.sum().to(torch.int32),
-               m.loss, m.delta_norm)
+        out = (pack_bits(sel_mask), pack_bits(completed), k_t,
+               avail.sum().to(torch.int32), m.loss, m.delta_norm)
         return EngineCarry(key, params, opt_state, algo_state,
                            avail_state), out
 
@@ -185,15 +221,25 @@ def build_engine(scenario, algo_name: str = "f3ast", *, device,
                  positively_correlated: bool = False,
                  fed_mode: str = "parallel", strategy_kwargs=None,
                  completion: Optional[str] = None, completion_kwargs=None,
-                 select_impl: str = "xla"):
+                 select_impl: str = "xla", mesh=None,
+                 topk_impl: str = "stream"):
     """Build the cell for one (scenario × strategy) on ``device``.
 
     Returns ``(engine, ctx)`` where ``ctx`` carries what the run loop needs
     on the host side (eval fns, test batch, rounds default, N).  ``seed``
     selects the data realization; the cell's model seed is what
-    ``init_carry`` takes.
+    ``init_carry`` takes.  ``mesh`` (a ``launch.mesh.ClientMesh``) builds
+    the client-sharded engine, this process one shard of it, with
+    ``topk_impl`` its distributed cut (``core.selection.TOPK_IMPLS``).
     """
     from .runner import build_task   # local import: runner ↔ engine
+    from .engine_sharded import ShardedEngine
+
+    if mesh is not None and select_impl == "pallas":
+        raise ValueError(
+            "select_impl='pallas' fuses the single-device top-k cut; the "
+            "client-sharded engine keeps its distributed sharded_topk_mask "
+            "(drop mesh= or use select_impl='xla')")
 
     sc = get_scenario(scenario)
     algo_name, server_opt, server_lr = resolve_strategy(algo_name, server_opt,
@@ -220,21 +266,37 @@ def build_engine(scenario, algo_name: str = "f3ast", *, device,
     hyper.update(strategy_kwargs or {})
     strategy = make_strategy(algo_name, n, p, device=device, **hyper)
     opt = make_optimizer(server_opt, lr=server_lr)
-    fed_round = make_fed_round(loss, opt, mode=fed_mode, prox_mu=prox_mu)
-    engine = DeviceEngine(avail_model=avail_model, budget=budget,
-                          strategy=strategy,
-                          staged=CohortSampler(fed).stage_device(device),
-                          fed_round=fed_round, init_params=init, opt=opt,
-                          client_lr=task.client_lr,
-                          local_steps=task.local_steps,
-                          local_batch=task.local_batch, device=device,
-                          completion=comp_model)
+    common = dict(avail_model=avail_model, budget=budget, strategy=strategy,
+                  init_params=init, opt=opt, client_lr=task.client_lr,
+                  local_steps=task.local_steps, local_batch=task.local_batch,
+                  device=device, completion=comp_model)
+    if mesh is not None:
+        if fed_mode != "parallel":
+            raise ValueError("the client-sharded engine runs the cohort in "
+                             "parallel mode only (the mesh axis carries the "
+                             f"cohort split); got fed_mode={fed_mode!r}")
+        fed_round = make_fed_round(loss, opt, mode="parallel",
+                                   prox_mu=prox_mu, cohort_axis=mesh,
+                                   cohort_slots=budget.k_max)
+        engine = ShardedEngine(
+            mesh=mesh, staged=CohortSampler(fed).stage_device(device,
+                                                              mesh=mesh),
+            fed_round=fed_round, n_clients=n, topk_impl=topk_impl, **common)
+    else:
+        fed_round = make_fed_round(loss, opt, mode=fed_mode,
+                                   prox_mu=prox_mu)
+        engine = DeviceEngine(staged=CohortSampler(fed).stage_device(device),
+                              fed_round=fed_round, **common)
     test_batch = {k: torch.from_numpy(v).to(device)
                   for k, v in fed.test_batch().items()}
     ctx = dict(scenario=sc, task=task, n_clients=n,
                rounds_default=sc.rounds or task.rounds,
                eval_loss=loss, eval_acc=acc, test_batch=test_batch)
     return engine, ctx
+
+
+def _silent(*args, **kwargs) -> None:
+    pass
 
 
 def _chunk_spans(rounds: int, chunk_size: int):
@@ -258,19 +320,28 @@ def run_scenario_device(scenario, algo_name: str = "f3ast", *, device,
                         fed_mode: str = "parallel", strategy_kwargs=None,
                         completion: Optional[str] = None,
                         completion_kwargs=None, select_impl: str = "xla",
+                        mesh=None, topk_impl: str = "stream",
                         algo_label: Optional[str] = None, log_fn=print):
     """Run one cell on ``device``; same semantics, cadence and outputs as
     the JAX ``run_scenario_device`` (evaluation at the end of any chunk
     holding an ``eval_every`` round and after the final round; the
     ``chunk_size`` default is ``eval_every``; checkpoints, if
-    ``ckpt_dir``, at chunk boundaries)."""
+    ``ckpt_dir``, at chunk boundaries).  With a client ``mesh`` this
+    process runs its shard of the sharded engine; every shard returns the
+    same result, and only shard 0 logs and writes the metrics file and
+    checkpoints."""
     engine, ctx = build_engine(
         scenario, algo_name, device=device, seed=seed,
         clients_per_round=clients_per_round, beta=beta,
         server_opt=server_opt, server_lr=server_lr, prox_mu=prox_mu,
         positively_correlated=positively_correlated, fed_mode=fed_mode,
         strategy_kwargs=strategy_kwargs, completion=completion,
-        completion_kwargs=completion_kwargs, select_impl=select_impl)
+        completion_kwargs=completion_kwargs, select_impl=select_impl,
+        mesh=mesh, topk_impl=topk_impl)
+    lead = mesh is None or mesh.rank == 0
+    if not lead:
+        metrics_path = ckpt_dir = None
+        log_fn = _silent
     n_real = engine.n_clients
     sc: Scenario = ctx["scenario"]
     rounds = rounds or ctx["rounds_default"]
@@ -293,7 +364,7 @@ def run_scenario_device(scenario, algo_name: str = "f3ast", *, device,
         for (t0, t1) in _chunk_spans(rounds, chunk_size):
             carry, out = engine.chunk(carry, range(t0, t1))
             # the one host sync of the chunk
-            out_np = RoundStream(*(x.cpu().numpy() for x in out))
+            out_np = _to_host(out, n_real)
             if t_first_chunk is None:
                 t_first_chunk = time.time()
             streams.append(out_np)
@@ -345,7 +416,7 @@ def run_scenario_device(scenario, algo_name: str = "f3ast", *, device,
     comp_history = np.concatenate([s.completed for s in streams], axis=0)
     t_end = time.time()
     final = dict(history[-1])
-    final["engine"] = "device"
+    final["engine"] = "device" if mesh is None else "sharded"
     final["device"] = str(device)
     final["wall_s"] = t_end - t_start
     final["n_staged_bytes"] = engine.n_staged_bytes
@@ -406,8 +477,7 @@ def run_cells_vmapped(scenario, algo_name: str = "f3ast", *,
                 carries[c], out = engine.round_step(carries[c], t, caps[c])
                 outs[c].append(out)
         for c in range(n_cells):
-            streams[c].append(RoundStream(*(x.cpu().numpy()
-                                            for x in _stack(outs[c]))))
+            streams[c].append(_to_host(_stack(outs[c]), engine.n_clients))
         if t_first_chunk is None:
             t_first_chunk = time.time()
     t_end = time.time()

@@ -16,8 +16,8 @@ completion reads it.
 Registered: the paper's five §4.1 / §D.4 models (``always``, ``scarce``,
 ``homedevices``, ``smartphones``, ``uneven``) through :class:`Stateless`,
 and ``bernoulli``, ``markov``, ``gilbert_elliott``, ``diurnal``, ``drift``
-and ``trace``.  The sharded engine's ``step_block`` is ROADMAP.md queue 1
-item 11 and is not ported.
+and ``trace``.  ``bernoulli`` also has ``step_block``, the sharded
+engine's O(n_local) step of one shard's block.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ import torch
 from .. import random as jr
 from .. import xla_math
 from ..core import availability as core_av
+from ..core.blockrng import block_bernoulli, block_uniform
 from ..core.keys import NONEMPTY
 from ..device import OnDevice
 
@@ -133,8 +134,9 @@ class Bernoulli(_OnDevice):
             qs = self.q * t_k / t_k.max()
         else:
             qs = np.full(self.n_clients, self.q)
-        object.__setattr__(self, "_q",
-                           self._tensor(np.asarray(qs, np.float32)))
+        qs32 = np.asarray(qs, np.float32)
+        object.__setattr__(self, "_q", self._tensor(qs32))
+        object.__setattr__(self, "_q_max", float(qs32.max()))
 
     def marginals(self, t):
         return self._q
@@ -142,6 +144,22 @@ class Bernoulli(_OnDevice):
     def step(self, key, state, t):
         mask = jr.bernoulli(key, self._q)
         return state, _nonempty(mask, self._q, jr.fold_in(key, NONEMPTY))
+
+    def step_block(self, key, state, t, *, off: int, n_local: int, axis):
+        """One shard's slice [off, off + n_local) of ``step``'s mask,
+        bitwise the slice, at O(n_local) with no (N,) intermediate
+        (``core.blockrng``; the non-empty guarantee reduces per-shard
+        (max, argmax) candidates over the mesh ``axis``).  Pad lanes come
+        back False."""
+        n = self.n_clients
+        ids = off + torch.arange(n_local, device=self.device)
+        real = ids < n
+        q_blk = torch.where(real, self._q[torch.clamp_max(ids, n - 1)],
+                            0.0)
+        mask = block_bernoulli(key, q_blk, n, off, n_local) & real
+        tie = block_uniform(jr.fold_in(key, NONEMPTY), n, off, n_local)
+        cand = torch.where(real & (q_blk >= self._q_max), tie, -1.0)
+        return state, core_av.force_nonempty_block(mask, cand, off, axis)
 
 
 @dataclasses.dataclass(frozen=True)

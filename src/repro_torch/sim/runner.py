@@ -12,7 +12,11 @@ package does:
 * ``aggregation="buffered"`` — the FedBuff-style server
   (:mod:`repro_torch.sim.engine_async`), on ``spec.engine``'s executor;
 * ``engine="device"`` (default) — the device engine
-  (:mod:`repro_torch.sim.engine`);
+  (:mod:`repro_torch.sim.engine`); with ``mesh_shape=(c,)`` the
+  client-sharded engine (:mod:`repro_torch.sim.engine_sharded`) over c
+  ranks: inside an initialized ``torch.distributed`` group (``torchrun``)
+  this process is its rank of that group; otherwise ``run_spec`` spawns
+  the c ranks itself and returns rank 0's result;
 * ``engine="host"`` — the reference loop below: availability step →
   strategy ``select`` (completion-aware) → static-shape cohort batch
   assembled in numpy → the federated round on the device → per-round
@@ -39,6 +43,7 @@ from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import random as jr
 from ..checkpoint import save_checkpoint
@@ -191,8 +196,8 @@ def run_scenario(spec: Union[RunSpec, str, Scenario] = None,
     return run_spec(spec, device=device, log_fn=log_fn)
 
 
-def run_spec(spec: RunSpec, device=None, *,
-             log_fn: Callable = print) -> TrainResult:
+def run_spec(spec: RunSpec, device=None, *, log_fn: Callable = print,
+             dist_backend: Optional[str] = None) -> TrainResult:
     """Execute a :class:`RunSpec` on ``device`` (default CUDA), on the
     engine it names.
 
@@ -201,16 +206,22 @@ def run_spec(spec: RunSpec, device=None, *,
     Host-only strategies (``needs_losses``/``host_only`` registry flags)
     fall back from the device engine to the host loop, on the same device,
     with a warning; ``final_metrics["engine"]`` names the engine that ran.
+
+    ``dist_backend`` is the sharded engine's collective backend
+    (``mesh_shape=(c,)``; ignored otherwise).  None means gloo on the CPU
+    and NCCL on CUDA, one card a rank (``RuntimeError`` when c exceeds the
+    cards); ``"gloo"`` on CUDA puts every rank on ``device``.
     """
     dev = resolve_device(device)
     rs = spec.resolved()
     if dev.type == "cuda":
         with torch.cuda.device(dev):
-            return _dispatch(rs, spec.strategy, dev, log_fn)
-    return _dispatch(rs, spec.strategy, dev, log_fn)
+            return _dispatch(rs, spec.strategy, dev, log_fn, dist_backend)
+    return _dispatch(rs, spec.strategy, dev, log_fn, dist_backend)
 
 
-def _dispatch(rs: RunSpec, algo_label: str, dev, log_fn) -> TrainResult:
+def _dispatch(rs: RunSpec, algo_label: str, dev, log_fn,
+              dist_backend: Optional[str] = None) -> TrainResult:
     sc = get_scenario(rs.scenario)
     entry = get_strategy_entry(rs.strategy)
     if rs.aggregation == "buffered":
@@ -229,6 +240,10 @@ def _dispatch(rs: RunSpec, algo_label: str, dev, log_fn) -> TrainResult:
             buffer_size=rs.buffer_size, staleness_power=rs.staleness_power,
             staleness_discount=rs.staleness_discount,
             select_impl=rs.select_impl, engine=rs.engine, log_fn=log_fn)
+    if rs.engine == "host" and rs.mesh_shape is not None:
+        raise ValueError("mesh_shape= shards the device engine's client "
+                         "dimension; it cannot apply to engine='host' (drop "
+                         "mesh_shape or use engine='device')")
     fallback_reason = None
     if rs.engine == "device" and entry.host_only:
         fallback_reason = (
@@ -240,20 +255,74 @@ def _dispatch(rs: RunSpec, algo_label: str, dev, log_fn) -> TrainResult:
             f"engine ({fallback_reason}); falling back to engine='host'",
             stacklevel=3)
     if rs.engine == "device" and fallback_reason is None:
-        from .engine import run_scenario_device  # lazy: engine ↔ runner
-        return run_scenario_device(
-            sc, rs.strategy, device=dev, algo_label=algo_label,
-            rounds=rs.rounds, server_opt=rs.server_opt,
-            server_lr=rs.server_lr, clients_per_round=rs.clients_per_round,
-            beta=rs.beta, seed=rs.seed, eval_every=rs.eval_every,
-            chunk_size=rs.chunk_size, ckpt_dir=rs.ckpt_dir,
-            prox_mu=rs.prox_mu,
-            positively_correlated=rs.positively_correlated,
-            metrics_path=rs.metrics_path, fed_mode=rs.fed_mode,
-            strategy_kwargs=rs.strategy_kwargs, completion=rs.completion,
-            completion_kwargs=rs.completion_kwargs,
-            select_impl=rs.select_impl, log_fn=log_fn)
+        if rs.mesh_shape is not None:
+            return _run_sharded(rs, algo_label, dev, log_fn, dist_backend)
+        return _run_device(rs, algo_label, dev, log_fn)
     return _run_host(rs, sc, dev, algo_label, fallback_reason, log_fn)
+
+
+def _run_device(rs: RunSpec, algo_label: str, dev, log_fn,
+                mesh=None) -> TrainResult:
+    """The device engine, or one shard of the sharded engine (``mesh``)."""
+    from .engine import run_scenario_device  # lazy: engine ↔ runner
+    return run_scenario_device(
+        get_scenario(rs.scenario), rs.strategy, device=dev,
+        algo_label=algo_label, rounds=rs.rounds, server_opt=rs.server_opt,
+        server_lr=rs.server_lr, clients_per_round=rs.clients_per_round,
+        beta=rs.beta, seed=rs.seed, eval_every=rs.eval_every,
+        chunk_size=rs.chunk_size, ckpt_dir=rs.ckpt_dir, prox_mu=rs.prox_mu,
+        positively_correlated=rs.positively_correlated,
+        metrics_path=rs.metrics_path, fed_mode=rs.fed_mode,
+        strategy_kwargs=rs.strategy_kwargs, completion=rs.completion,
+        completion_kwargs=rs.completion_kwargs, select_impl=rs.select_impl,
+        mesh=mesh, topk_impl=rs.topk_impl, log_fn=log_fn)
+
+
+def _run_sharded(rs: RunSpec, algo_label: str, dev, log_fn,
+                 dist_backend: Optional[str]) -> TrainResult:
+    """``mesh_shape=(c,)``: this process's rank of an initialized group,
+    or c spawned ranks (rank 0's result; its log lines replayed here)."""
+    from ..launch.mesh import make_fed_mesh, spawn_ranks
+    axes = (rs.clients_axis, rs.model_axis)
+    if dist.is_available() and dist.is_initialized():
+        mesh = make_fed_mesh(rs.mesh_shape, axis_names=axes)
+        if mesh.backend == "nccl" and dev.index is None:
+            dev = torch.device("cuda", int(os.environ.get(
+                "LOCAL_RANK", mesh.rank % torch.cuda.device_count())))
+        return _run_device(rs, algo_label, dev, log_fn, mesh)
+    c = rs.mesh_shape[0] or (torch.cuda.device_count()
+                             if dev.type == "cuda" else 1)
+    if c == 1:
+        return _run_device(rs, algo_label, dev, log_fn,
+                           make_fed_mesh((1,), axis_names=axes))
+    backend = dist_backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if backend == "nccl":
+        if dev.type != "cuda":
+            raise ValueError("dist_backend='nccl' needs a CUDA device")
+        if c > torch.cuda.device_count():
+            raise RuntimeError(
+                f"mesh_shape ({c},) on NCCL needs one card a rank, and "
+                f"{torch.cuda.device_count()} are visible; pass "
+                f'dist_backend="gloo" to put every rank on {dev}')
+    res, lines = spawn_ranks(_sharded_rank, c, rs.to_json(), algo_label,
+                             str(dev), backend=backend)[0]
+    for line in lines:
+        log_fn(line)
+    return res
+
+
+def _sharded_rank(mesh, spec_json: str, algo_label: str, device: str):
+    """One spawned rank of :func:`_run_sharded`: rank 0 returns (result,
+    log lines), the others None."""
+    dev = torch.device(device)
+    if mesh.backend == "nccl":
+        dev = torch.device("cuda", mesh.rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    lines = []
+    res = _run_device(RunSpec.from_json(spec_json), algo_label, dev,
+                      lines.append, mesh)
+    return (res, lines) if mesh.rank == 0 else None
 
 
 def _to_device(batch_np: dict, dev) -> dict:

@@ -9,8 +9,11 @@ Port of ``repro.sim.spec`` with every field and the same
 
 ``resolved()`` validates as the JAX package does, then rejects with
 ``NotImplementedError`` — before anything runs — what this port does not
-have yet: ``mesh_shape`` (the client-sharded engine, ROADMAP.md queue 1
-item 11).
+have yet: a 2-D ``mesh_shape`` ``(c, m)`` (the (clients, model) mesh,
+ROADMAP.md queue 1 item 11).  A 1-D ``(c,)`` runs the client-sharded
+engine; its collective backend is an argument of ``run_spec``
+(``dist_backend=``), not a field, so a spec file crosses between the
+packages.
 """
 from __future__ import annotations
 
@@ -268,10 +271,11 @@ def _reject_unported(spec: "RunSpec", sc: Scenario, mesh_shape,
     """Fail fast on what the port does not run yet (after the JAX
     package's own validation, so an invalid spec still raises what it
     raises there)."""
-    if mesh_shape is not None:
+    if mesh_shape is not None and len(mesh_shape) == 2:
         raise NotImplementedError(
-            "mesh_shape (the client-sharded engine) is not ported to "
-            "repro_torch yet (ROADMAP.md queue 1 item 11)")
+            f"mesh_shape {mesh_shape}: the (clients, model) mesh is not "
+            f"ported to repro_torch yet (ROADMAP.md queue 1 item 11); a 1-D "
+            f"mesh_shape (c,) runs the client-sharded engine")
     make_optimizer(server_opt)
     check_budget(sc.budget)
     check_process(sc.availability)

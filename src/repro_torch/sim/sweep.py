@@ -15,8 +15,10 @@ metrics, keyed ``"<scenario>|<algorithm>"`` — the JAX sweep's layout.
 ``--aggregations sync,buffered`` adds a server-aggregation axis (the
 FedBuff-style buffered server).  Every cell's spec is resolved before the
 first one runs, so an invalid cell fails before any work.  Runs on CUDA
-unless ``--device cpu``; the JAX sweep's ``--mesh-shape`` (the
-client-sharded engine) is not ported (ROADMAP.md queue 1 item 11).
+unless ``--device cpu``.  ``--mesh-shape C`` runs every cell on the
+client-sharded engine over C ranks (``--dist-backend``: gloo or nccl,
+default gloo on the CPU and NCCL on CUDA); ``C,M`` (the (clients, model)
+mesh) raises ``NotImplementedError`` naming ROADMAP.md queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -46,7 +48,8 @@ def run_sweep(scenarios: Sequence[str],
               seed: Optional[int] = None, server_opt: Optional[str] = None,
               eval_every: Optional[int] = None,
               engine: Optional[str] = None, device=None,
-              base_spec: Optional[RunSpec] = None,
+              base_spec: Optional[RunSpec] = None, mesh_shape=None,
+              dist_backend: Optional[str] = None,
               log_fn: Callable = print) -> dict:
     """Run the grid on ``device`` (default CUDA); returns {(scenario,
     algorithm[, completion][, aggregation]): final_metrics}.
@@ -58,7 +61,8 @@ def run_sweep(scenarios: Sequence[str],
     device = resolve_device(device)    # no card: fail before any file
     overrides = {k: v for k, v in dict(rounds=rounds, seed=seed,
                                        server_opt=server_opt,
-                                       engine=engine).items()
+                                       engine=engine,
+                                       mesh_shape=mesh_shape).items()
                  if v is not None}
     base = dataclasses.replace(base_spec or RunSpec(), **overrides)
     cells = []
@@ -90,7 +94,8 @@ def run_sweep(scenarios: Sequence[str],
     results = {}
     for cell, cell_key, spec, path in cells:
         spec.save(os.path.join(out_dir, f"{cell}.spec.json"))
-        res = run_spec(spec, device=device, log_fn=lambda *_: None)
+        res = run_spec(spec, device=device, log_fn=lambda *_: None,
+                       dist_backend=dist_backend)
         results[cell_key] = fm = res.final_metrics
         log_fn(f"sweep,{','.join(cell_key)},"
                f"acc={fm.get('test_acc', float('nan')):.4f},"
@@ -105,6 +110,11 @@ def _parse_list(arg: str, universe: Sequence[str]) -> list:
     if arg == "all":
         return list(universe)
     return [x.strip() for x in arg.split(",") if x.strip()]
+
+
+def _parse_mesh_shape(arg: str) -> tuple:
+    """'4' -> (4,); '2,2' -> (2, 2).  Validation lives in RunSpec.resolved."""
+    return tuple(int(x.strip()) for x in arg.split(",") if x.strip())
 
 
 def main(argv=None) -> None:
@@ -131,6 +141,13 @@ def main(argv=None) -> None:
     ap.add_argument("--engine", default="device", choices=["device", "host"],
                     help="the device engine (default) or the reference "
                          "host loop")
+    ap.add_argument("--mesh-shape", default=None, metavar="C",
+                    help="run every cell on the client-sharded engine over "
+                         "C ranks ('C,M', the (clients, model) mesh, is not "
+                         "ported: ROADMAP.md queue 1 item 11)")
+    ap.add_argument("--dist-backend", default=None, choices=["gloo", "nccl"],
+                    help="the sharded engine's collectives (default: gloo "
+                         "on the CPU, NCCL on CUDA with one card a rank)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' for the CPU)")
     ap.add_argument("--list", action="store_true",
@@ -156,7 +173,9 @@ def main(argv=None) -> None:
               aggregations=aggregations, rounds=args.rounds,
               out_dir=args.out, seed=args.seed, server_opt=args.server_opt,
               eval_every=args.eval_every, engine=args.engine,
-              device=args.device)
+              device=args.device, dist_backend=args.dist_backend,
+              mesh_shape=(_parse_mesh_shape(args.mesh_shape)
+                          if args.mesh_shape is not None else None))
 
 
 if __name__ == "__main__":

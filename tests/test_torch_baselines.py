@@ -107,8 +107,10 @@ def test_resolve_strategy_alias_and_lr_defaults():
 
 def test_poc_and_as_sharded_name_their_items():
     """``poc`` raised naming item 7 until the host loop was ported: now it
-    is registered with JAX's routing flags and builds; ``as_sharded`` still
-    raises naming item 11."""
+    is registered with JAX's routing flags and builds.  ``as_sharded``
+    raised naming item 11 until the sharded engine was ported: now it
+    builds for f3ast and, as JAX's, refuses a strategy without a
+    score/finalize decomposition."""
     jentry = jstrat.get_strategy_entry("poc")
     tentry = tstrat.get_strategy_entry("poc")
     assert (tentry.host_only, tentry.needs_losses) == \
@@ -117,11 +119,19 @@ def test_poc_and_as_sharded_name_their_items():
     s = tstrat.make_strategy("poc", 10, np.full(10, 0.1, np.float32),
                              device="cpu")
     assert s.needs_losses and s.host_only
+    with pytest.raises(ValueError, match="score/finalize"):
+        tstrat.as_sharded(s, axis="clients", k_max=4, n_pad=16)
+    with pytest.raises(ValueError, match="score/finalize"):
+        jstrat.as_sharded(jstrat.make_strategy(
+            "poc", 10, np.full(10, 0.1, np.float32)), axis="clients",
+            k_max=4, n_pad=16)
     s = tstrat.make_strategy("f3ast", 10, np.full(10, 0.1, np.float32),
                              device="cpu")
     assert not (s.needs_losses or s.host_only)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tstrat.as_sharded(s, axis="clients", k_max=4, n_pad=16)
+    assert callable(tstrat.as_sharded(s, axis="clients", k_max=4, n_pad=16))
+    with pytest.raises(ValueError, match="topk_impl"):
+        tstrat.as_sharded(s, axis="clients", k_max=4, n_pad=16,
+                          topk_impl="bogus")
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -12,7 +12,7 @@ import numpy as np
 import repro.sim as jsim
 import repro_torch.sim as tsim
 from repro_torch import random as tr
-from repro_torch.sim.engine import build_engine
+from repro_torch.sim.engine import _to_host, build_engine
 from torch_parity import one_intra_op_thread
 
 ROUNDS = 16
@@ -70,7 +70,7 @@ def test_each_cell_is_its_single_cell_run(runs, cell):
         for t0 in range(0, ROUNDS, 8):
             carry, out = engine.chunk(carry, range(t0, t0 + 8),
                                       k_cap=t["k_caps"][cell])
-            masks.append(out.sel_mask.numpy())
+            masks.append(_to_host(out, engine.n_clients).sel_mask)
     assert np.concatenate(masks).tobytes() == \
         t["sel_history"][cell].tobytes()
     assert carry.algo_state.rates.r.numpy().tobytes() == \

@@ -111,14 +111,18 @@ def test_history_and_final_metrics(runs):
     np.testing.assert_array_equal(tr.empirical_rates, jr.empirical_rates)
 
 
-@pytest.mark.parametrize("override", [dict(mesh_shape=(2,))])
+@pytest.mark.parametrize("override", [dict(mesh_shape=(2, 2))])
 def test_resolve_rejects_unported(override):
     """What the port lacks fails at resolve time, before anything runs —
-    and the same spec is valid in the JAX package."""
+    and the same spec is valid in the JAX package: the (clients, model)
+    mesh (item 11).  The 1-D mesh, ported, resolves as in JAX."""
     jsim.RunSpec(**override).resolved()
     spec = tsim.RunSpec.from_json(jsim.RunSpec(**override).to_json())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 11"):
         spec.resolved()
+    one_d = jsim.RunSpec(mesh_shape=(2,)).to_json()
+    assert tsim.RunSpec.from_json(one_d).resolved().mesh_shape == \
+        jsim.RunSpec.from_json(one_d).resolved().mesh_shape == (2,)
 
 
 @pytest.mark.parametrize("override", [

@@ -202,12 +202,17 @@ def test_run_scenario_shim_warns_and_rejects_as_jax():
              TypeError),
             (lambda: tsim.run_scenario("scarce", "f3ast", mesh="2",
                                        device="cpu"), TypeError),
-            (lambda: tsim.run_scenario("scarce", "f3ast", mesh=2,
-                                       device="cpu"), NotImplementedError)):
+            (lambda: tsim.run_scenario("scarce", "f3ast",
+                                       mesh_shape=(2, 2), device="cpu"),
+             NotImplementedError)):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", DeprecationWarning)
             with pytest.raises(exc):
                 call()
+    # the legacy scalar mesh= is the 1-D mesh_shape (the sharded engine)
+    with pytest.warns(DeprecationWarning):
+        assert tsim.runner._legacy_spec("scarce", "f3ast", {"mesh": 2}) \
+            .resolved().mesh_shape == (2,)
     # the legacy server_lr default: 1.0, which only an alias reads as unset
     with pytest.warns(DeprecationWarning):
         spec = tsim.runner._legacy_spec("scarce", "fedadam", {})

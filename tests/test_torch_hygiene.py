@@ -37,7 +37,11 @@ SLICE_MODULES = [
     "repro_torch.models.transformer", "repro_torch.models.ssm",
     "repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd_chunk",
     "repro_torch.launch",
-    "repro_torch.launch.serve", "repro_torch.launch.steps"]
+    "repro_torch.launch.serve", "repro_torch.launch.steps",
+    "repro_torch.core.bitmask", "repro_torch.core.blockrng",
+    "repro_torch.data.synthetic", "repro_torch.data.pipeline",
+    "repro_torch.sharding", "repro_torch.sharding.rules",
+    "repro_torch.launch.mesh", "repro_torch.sim.engine_sharded"]
 
 
 def test_import_pulls_in_no_jax_and_no_repro():
@@ -135,7 +139,10 @@ def _entry_points():
     from repro_torch.launch import train
     from repro_torch.launch.serve import serve
     from repro_torch.models import resnet, rnn, transformer
-    from repro_torch.sim import (RunSpec, run_cells_vmapped, run_scenario,
+    from repro_torch.data import SynthTask
+    from repro_torch.launch.mesh import ClientMesh
+    from repro_torch.sim import (DeviceEngine, RunSpec, ShardedEngine,
+                                 run_cells_vmapped, run_scenario,
                                  run_scenario_buffered, run_spec, sweep)
     llama = get_arch("llama3.2-1b").smoke_model
     mamba = get_arch("mamba2-2.7b").smoke_model
@@ -187,7 +194,42 @@ def _entry_points():
         "sweep.main(host)": lambda: sweep.main(
             ["--scenarios", "scarce", "--engine", "host", "--rounds", "1",
              "--out", "unused"]),
+        "run_spec(mesh_shape)": lambda: run_spec(RunSpec(
+            rounds=1, mesh_shape=(2,))),
+        "sweep.main(mesh_shape)": lambda: sweep.main(
+            ["--scenarios", "scarce", "--mesh-shape", "2", "--rounds", "1",
+             "--out", "unused"]),
+        "DeviceEngine(SynthTask)": lambda: DeviceEngine(
+            staged=SynthTask(n_clients=64), **_engine_parts()),
+        "ShardedEngine": lambda: ShardedEngine(
+            mesh=ClientMesh(), staged=SynthTask(n_clients=64),
+            n_clients=64, **_engine_parts()),
     }
+
+
+def _engine_parts():
+    """An engine's parts, built on the CPU (everything but the engine's
+    own ``device``)."""
+    import functools
+    import numpy as np
+    from repro_torch.core.fedstep import make_fed_round
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.models import softmax_reg
+    from repro_torch.optim import make_optimizer
+    from repro_torch.sim.budgets import make_budget
+    from repro_torch.sim.processes import make_process
+    cfg = softmax_reg.SoftmaxRegConfig(dim=32, n_classes=10)
+    opt = make_optimizer("sgd", lr=1.0)
+    return dict(avail_model=make_process("bernoulli", 64, q=0.3,
+                                         device="cpu"),
+                budget=make_budget("constant", k=4, device="cpu"),
+                strategy=make_strategy("f3ast", 64, np.full(64, 1 / 64),
+                                       device="cpu"),
+                fed_round=make_fed_round(
+                    functools.partial(softmax_reg.loss_fn, cfg), opt),
+                init_params=functools.partial(softmax_reg.init_params, cfg,
+                                              device="cpu"),
+                opt=opt, client_lr=0.05, local_steps=2, local_batch=4)
 
 
 @pytest.mark.parametrize("name", ["build_task", "PRNGKey", "make_strategy",
@@ -204,7 +246,11 @@ def _entry_points():
                                   "run_scenario", "run_cells_vmapped",
                                   "run_scenario_buffered",
                                   "train.main(host, buffered, ckpt)",
-                                  "train.main(poc)", "sweep.main(host)"])
+                                  "train.main(poc)", "sweep.main(host)",
+                                  "run_spec(mesh_shape)",
+                                  "sweep.main(mesh_shape)",
+                                  "DeviceEngine(SynthTask)",
+                                  "ShardedEngine"])
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device is usable")

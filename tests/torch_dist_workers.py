@@ -1,0 +1,139 @@
+"""Rank functions of the port's client-mesh tests, run in processes spawned
+by ``repro_torch.launch.mesh.spawn_ranks``.  Each takes the rank's
+``ClientMesh`` and numpy inputs and returns numpy outputs; this module
+imports torch and the port only, so a spawned rank starts fast."""
+import numpy as np
+import torch
+
+from repro_torch import random as tr
+from repro_torch.core import bitmask, selection
+from repro_torch.core.availability import force_nonempty_block
+from repro_torch.core.blockrng import block_uniform
+from repro_torch.sim.processes import make_process
+
+
+def _block(x: np.ndarray, mesh) -> torch.Tensor:
+    nl = x.shape[0] // mesh.size
+    return torch.from_numpy(np.ascontiguousarray(
+        x[mesh.rank * nl:(mesh.rank + 1) * nl]))
+
+
+def gather_bits(mesh, masks, ns):
+    """``all_gather_bits`` of each padded mask's block, and the bool gather
+    of the same block."""
+    return [(bitmask.all_gather_bits(_block(m, mesh), mesh, n).numpy(),
+             mesh.all_gather(_block(m, mesh))[:n].numpy())
+            for m, n in zip(masks, ns)]
+
+
+def topk_cases(mesh, cases, k_max, cohort):
+    """``sharded_topk_mask`` (both methods) and
+    ``sharded_cohort_ids_from_mask`` (both methods) of each (scores,
+    avail, k, mask) case's blocks; the masks reassembled by a gather."""
+    out = []
+    for scores, avail, k, mask in cases:
+        row = {}
+        for method in selection.TOPK_IMPLS:
+            m = selection.sharded_topk_mask(
+                _block(scores, mesh), _block(avail, mesh),
+                torch.tensor(k, dtype=torch.int32), mesh, k_max,
+                method=method)
+            row[f"topk_{method}"] = mesh.all_gather(m).numpy()
+            ids, valid = selection.sharded_cohort_ids_from_mask(
+                _block(mask, mesh), cohort, mesh, mask.shape[0],
+                method=method)
+            row[f"ids_{method}"] = (ids.numpy(), valid.numpy())
+        out.append(row)
+    return out
+
+
+def nonempty_cases(mesh, seed, cases, q_lin):
+    """``Bernoulli.step_block`` of each (n, q, sigma) case, and
+    ``force_nonempty_block`` of an all-down mask over the marginals
+    ``q_lin`` (64 a shard); the blocks reassembled by a gather."""
+    out = []
+    key = tr.PRNGKey(seed, device="cpu")
+    for n, q, sigma in cases:
+        quantum = mesh.size * 32
+        nl = -(-n // quantum) * quantum // mesh.size
+        model = make_process("bernoulli", n, q=q, sigma=sigma, device="cpu")
+        _, blk = model.step_block(key, (), 0, off=mesh.rank * nl,
+                                  n_local=nl, axis=mesh)
+        out.append(mesh.all_gather(blk).numpy())
+    q = torch.from_numpy(q_lin)
+    n = q.shape[0]
+    nl = n // mesh.size
+    off = mesh.rank * nl
+    tie = block_uniform(tr.fold_in(key, 1), n, off, nl)
+    q_blk = q[off:off + nl]
+    cand = torch.where(q_blk >= q.max(), tie, -1.0)
+    got = force_nonempty_block(torch.zeros(nl, dtype=torch.bool), cand, off,
+                               mesh)
+    out.append(mesh.all_gather(got).numpy())
+    return out
+
+
+def run_specs(mesh, spec_jsons, chunk_sizes=None):
+    """``run_spec``'s rank body (``runner._run_device`` with this mesh) for
+    each spec: rank 0 returns the results' streams and final r_k."""
+    from repro_torch.sim import RunSpec
+    from repro_torch.sim.runner import _run_device
+    out = []
+    for i, js in enumerate(spec_jsons):
+        rs = RunSpec.from_json(js).resolved()
+        if chunk_sizes is not None:
+            rs = rs.replace(chunk_size=chunk_sizes[i])
+        res = _run_device(rs, rs.strategy, torch.device("cpu"),
+                          lambda *a: None, mesh)
+        out.append(dict(sel=res.sel_history, comp=res.comp_history,
+                        k_t=res.k_t, n_available=res.n_available,
+                        rates=res.rates, train_loss=res.train_loss,
+                        delta_norm=res.delta_norm,
+                        final=res.final_metrics))
+    return out if mesh.rank == 0 else None
+
+
+def engine_parts(n: int, k: int = 10, device="cpu") -> dict:
+    """The parts of the JAX package's N-scaling cell
+    (``benchmarks/bench_engine.py::_build_nscale_engine``): bernoulli
+    q = 0.3, constant K = k, f3ast with p = 1/N, softmax regression (dim
+    32, 10 classes), server sgd lr 1.0, client lr 0.05, E = 5, B = 20;
+    ``loss`` in place of the round, which the caller builds."""
+    import functools
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.models import softmax_reg
+    from repro_torch.optim import make_optimizer
+    from repro_torch.sim.budgets import make_budget
+    cfg = softmax_reg.SoftmaxRegConfig(dim=32, n_classes=10)
+    return dict(
+        avail_model=make_process("bernoulli", n, q=0.3, device=device),
+        budget=make_budget("constant", k=k, device=device),
+        strategy=make_strategy("f3ast", n, np.full(n, 1.0 / n, np.float32),
+                               clients_per_round=k, device=device),
+        init_params=functools.partial(softmax_reg.init_params, cfg,
+                                      device=device),
+        opt=make_optimizer("sgd", lr=1.0), client_lr=0.05, local_steps=5,
+        local_batch=20, loss=functools.partial(softmax_reg.loss_fn, cfg))
+
+
+def synth_engines(mesh, n, rounds, k, topk_impl, seed):
+    """The sharded engine on a ``SynthTask`` of n clients
+    (:func:`engine_parts`): its unpacked streams and final r_k from rank
+    0."""
+    from repro_torch.core.fedstep import make_fed_round
+    from repro_torch.data import SynthTask
+    from repro_torch.sim.engine import _to_host
+    from repro_torch.sim.engine_sharded import ShardedEngine
+    parts = engine_parts(n, k)
+    parts["fed_round"] = make_fed_round(
+        parts.pop("loss"), parts["opt"], cohort_axis=mesh, cohort_slots=k)
+    eng = ShardedEngine(mesh=mesh, staged=SynthTask(n_clients=n, seed=seed),
+                        n_clients=n, topk_impl=topk_impl, device="cpu",
+                        **parts)
+    carry = eng.init_carry(tr.PRNGKey(0, device="cpu"))
+    carry, out = eng.chunk(carry, range(rounds))
+    host = _to_host(out, n)
+    return (dict(host._asdict(), rates=carry.algo_state.rates.r.numpy(),
+                 comm=eng.selection_comm_bytes_per_round,
+                 staged=eng.n_staged_bytes)
+            if mesh.rank == 0 else None)

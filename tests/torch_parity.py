@@ -18,6 +18,7 @@ from repro.sim.engine import build_engine as jax_build_engine
 from repro_torch import random as tr
 from repro_torch.convert import params_to_numpy
 from repro_torch.sim import RunSpec as TorchRunSpec
+from repro_torch.sim.engine import _to_host
 from repro_torch.sim.engine import build_engine as torch_build_engine
 from repro_torch.tree import tree_leaves
 
@@ -96,7 +97,7 @@ def torch_run(spec_json, rounds, chunk=CHUNK, history=None):
     outs = []
     for t0 in range(0, rounds, chunk):
         carry, out = eng.chunk(carry, range(t0, min(t0 + chunk, rounds)))
-        outs.append([x.numpy() for x in out])
+        outs.append(list(_to_host(out, eng.n_clients)))
         if history is not None:
             m = getattr(carry.opt_state, "m", None)
             history.append(dict(
