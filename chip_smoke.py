@@ -44,7 +44,7 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  train loss and delta norm within 1e-4;
 5a. ``scenarios`` the paper's grid on the card: scenarios always, scarce,
                  homedevices, smartphones and uneven × strategies f3ast,
-                 fedavg and fedadam at RunSpec()'s 300 rounds, every other
+                 fedavg and fedadam at GRID_ROUNDS (150), every other
                  scenario under f3ast and uniform, fedavg_weighted and
                  fixed_f3ast (with an r_target) on homedevices and dropout
                  at 60 rounds; each cell held to the port's CPU run of the
@@ -58,7 +58,7 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
 5b. ``paper_tasks`` the paper's Shakespeare and CIFAR tasks at their task
                  configs (the LSTM, 820,522 parameters; the reduced ResNet,
                  310,116) in the cell ``launch.train --task X`` builds
-                 (homedevices), under f3ast and fedadam, 20 rounds each on
+                 (homedevices), under f3ast and fedadam, 10 rounds each on
                  the card, each held to its CPU run (spawned workers, two
                  threads each): masks, K_t, |avail| and final r_k bitwise,
                  train loss and delta norm within PAPER_TASK_LOSS_TOL
@@ -136,11 +136,17 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  check that binds; plus bf16 cases through the tensor-core
                  route at hd = 128, (1, 4096, 32, 8, 128) causal and with a
                  window of 32 (smaller than a key tile), and llama's shape
-                 with that window; it reports each reference's RMS;
+                 with that window; at gemma's head dim 256 (where the bf16
+                 route reads Q from shared memory each k-step) a
+                 (1, 512, 4, 2, 256) case in both dtypes and every mode and
+                 window 32, gemma-7b's prefill layer (1, 8192, 16, 16, 256)
+                 and qwen3-14b's group of 5, (1, 2048, 40, 8, 128), causal
+                 in both dtypes; it reports each reference's RMS;
 8. ``flash_timing`` median CUDA-event times of the kernel (its bf16 route,
                  on the tensor cores, and its float32 route, on the CUDA
                  cores), its plain version and
-                 ``scaled_dot_product_attention`` at llama's prefill shape,
+                 ``scaled_dot_product_attention`` at llama's and gemma's
+                 prefill shapes,
                  beside the bound (the larger of bytes over 3.35 TB/s and
                  the unmasked QK^T + PV flops over 989 TFLOP/s bf16), the
                  bf16 route's TFLOP/s and its share of the bound;
@@ -158,6 +164,22 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  float32, S = 128, the card's prefill within 2e-3 of
                  stepping the same prompt through ``decode_step`` (the
                  limit of ``tests/test_models_consistency.py``);
+9a. ``dense_path`` drives qwen3-8b, qwen3-14b and gemma-7b at full width,
+                 one after another, each freed before the next: (a) the
+                 weights ``launch.serve`` draws (``serve_params``, timed on
+                 the card), one ``prefill`` of B = 1, S = 8192 with the
+                 launch count set to 0 just before, which must launch the
+                 kernel once a layer (36, 40, 28) and give finite logits,
+                 the median of 3 and a profiled run whose flash kernels
+                 must all be the tensor-core route's; (b) 8 decode steps
+                 through ``serve`` on those weights (batch 4), with no
+                 flash launch; (c) at depth 2 of the full widths, the
+                 card's ``init_params`` against the CPU's at seed 0 in
+                 bfloat16 and seed 3 in float32 (the CPU walks the same key
+                 tree and re-draws windows of every drawn row, the norms
+                 whole: ``sampled_init_check``), then the card's float32
+                 prefill (S = 512, 2 launches) within 1e-4 of the CPU's on
+                 the same weights;
 10. ``ssd_chunk`` holds the Mamba-2 SSD kernel against its plain version
                  (``ref.ssd_chunk_ref``) in float32 (the CUDA-core route)
                  and with bf16 x, Bm, Cm (the tensor-core route) at the
@@ -193,7 +215,8 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  at depth 2 in float32, S = 128, prefill within 2e-3 of
                  stepping the prompt through ``decode_step``.
 
-Each phase prints one JSON line; any failure raises (exit status != 0).
+Each phase prints one JSON line (``seconds_by_phase`` their wall times);
+any failure raises (exit status != 0).
 The last three lines are the card's name and power limit as nvidia-smi
 reports them, the kernels summary, and ``{"ok": true, "device": ...}``.
 ``--profile`` runs only the build and a profiled window of the main path
@@ -665,6 +688,10 @@ OTHER_SCENARIOS = ("bernoulli", "markov", "gilbert_elliott", "diurnal",
                    "straggler")
 BASELINE_SCENARIOS = ("homedevices", "dropout")
 BASELINE_ALGORITHMS = ("uniform", "fedavg_weighted", "fixed_f3ast")
+# The paper grid's rounds: RunSpec()'s 300 cut to 150 when the dense
+# archs joined the script (each grid cell took ~13 s of the phase's 262
+# at 300), to keep the script well inside its time limit.
+GRID_ROUNDS = 150
 SHORT_ROUNDS = 60
 CPU_WORKERS = 4
 # completion processes that split the cut from the EMA and weights, so the
@@ -674,14 +701,14 @@ HOOKED_SCENARIOS = ("dropout", "straggler")
 
 def scenario_cells():
     """(scenario, strategy, rounds, spec JSON) of the phase: the paper's
-    grid at RunSpec()'s 300 rounds, every other scenario under f3ast and
-    the other baselines at SHORT_ROUNDS."""
+    grid at GRID_ROUNDS, every other scenario under f3ast and the other
+    baselines at SHORT_ROUNDS."""
     from repro_torch.sim import RunSpec
 
     # fixed_f3ast's frozen target: the feasible rate K/N spread over the
     # fleet (a ramp around 0.1), so it differs from the tracked r
     r_target = [0.05 + 0.1 * k / 99 for k in range(100)]
-    cells = [(sc, algo, 300) for sc in PAPER_SCENARIOS
+    cells = [(sc, algo, GRID_ROUNDS) for sc in PAPER_SCENARIOS
              for algo in PAPER_ALGORITHMS]
     cells += [(sc, "f3ast", SHORT_ROUNDS) for sc in OTHER_SCENARIOS]
     cells += [(sc, algo, SHORT_ROUNDS) for sc in BASELINE_SCENARIOS
@@ -819,7 +846,12 @@ def check_cell(torch, cell, card, ref, phase: str, loss_tol: float,
 # ---------------------------------------------------------------------------
 
 PAPER_TASKS = ("shakespeare", "cifar")
-PAPER_TASK_ROUNDS = 20
+# cut from 20 when the dense archs joined the script: the phase waits
+# for the CPU's Shakespeare runs (~5.6 s a round); evaluated every
+# PAPER_TASK_EVAL rounds, so the runs after the first chunk give the
+# steady round
+PAPER_TASK_ROUNDS = 10
+PAPER_TASK_EVAL = 5
 PAPER_TASK_CPU_THREADS = 2
 PAPER_TASK_STRATEGIES = ("f3ast", "fedadam")
 # card vs the CPU, train loss each round.  The LSTM's rounds stay within
@@ -852,7 +884,8 @@ def paper_task_cells():
                       task=task)
         for algo in PAPER_TASK_STRATEGIES:
             spec = RunSpec(scenario=sc, strategy=algo,
-                           rounds=PAPER_TASK_ROUNDS)
+                           rounds=PAPER_TASK_ROUNDS,
+                           eval_every=PAPER_TASK_EVAL)
             out.append((task, algo, PAPER_TASK_ROUNDS, spec.to_json()))
     return out
 
@@ -1640,7 +1673,10 @@ TEST_ATTN_SHAPES = [(1, 128, 4, 4, 64), (2, 256, 4, 2, 64),
                     (1, 256, 8, 1, 32), (1, 512, 4, 2, 128)]
 LLAMA_ATTN = (1, 8192, 32, 8, 64)   # llama3.2-1b prefill, B = 1, S = 8192
 RAGGED_ATTN = (2, 1000, 32, 8, 64)
-HD128_ATTN = (1, 4096, 32, 8, 128)  # the largest head dim, two KV tiles a row
+HD128_ATTN = (1, 4096, 32, 8, 128)  # two KV tiles a row at head dim 128
+HD256_ATTN = (1, 512, 4, 2, 256)    # gemma's head dim, GQA
+GEMMA_ATTN = (1, 8192, 16, 16, 256)  # gemma-7b prefill layer, B = 1
+QWEN14_ATTN = (1, 2048, 40, 8, 128)  # qwen3-14b's group of 5 heads a KV head
 # a window smaller than the kernel's 64-key tile: every visited tile is an
 # edge tile, and a row's first visited tile can hide all its keys
 WINDOW32 = dict(causal=True, window=32, softcap=0.0)
@@ -1677,8 +1713,13 @@ def check_flash_attention(torch, dev):
     cases += [(HD128_ATTN, torch.bfloat16, "causal"),
               (HD128_ATTN, torch.bfloat16, "window32"),
               (LLAMA_ATTN, torch.bfloat16, "window32")]
+    cases += [(HD256_ATTN, dtype, mode)
+              for dtype in (torch.bfloat16, torch.float32)
+              for mode in (*ATTN_MODES, "window32")]
+    cases += [(shape, dtype, "causal") for shape in (GEMMA_ATTN, QWEN14_ATTN)
+              for dtype in (torch.bfloat16, torch.float32)]
     modes = dict(ATTN_MODES, window32=WINDOW32)
-    rows, max_err, llama = [], {}, {}
+    rows, max_err, llama, gemma = [], {}, {}, {}
     for i, (shape, dtype, mode) in enumerate(cases):
         q, k, v = attn_inputs(torch, dev, shape, dtype, i)
         got = flash_attention(q, k, v, **modes[mode])
@@ -1700,9 +1741,9 @@ def check_flash_attention(torch, dev):
         rows.append(dict(shape=list(shape), dtype=dname, mode=mode,
                          max_abs_err=err, ref_rms=rms, tol=tol, ok=ok))
         max_err[dname] = max(max_err.get(dname, 0.0), err)
-        if shape == LLAMA_ATTN and mode == "causal":
-            llama[dname] = dict(max_abs_err=err, ref_rms=rms,
-                                err_over_rms=err / rms)
+        if shape in (LLAMA_ATTN, GEMMA_ATTN) and mode == "causal":
+            (llama if shape == LLAMA_ATTN else gemma)[dname] = dict(
+                max_abs_err=err, ref_rms=rms, err_over_rms=err / rms)
         if not ok:
             raise AssertionError(
                 f"flash_attention {shape} {dtype} {mode}: max |err| {err} "
@@ -1711,17 +1752,26 @@ def check_flash_attention(torch, dev):
                 f"from the plain output")
         del q, k, v, got, want, diff
     emit(dict(phase="flash_attention", checks=rows,
-              max_abs_err_by_dtype=max_err, llama_shape=llama))
+              max_abs_err_by_dtype=max_err, llama_shape=llama,
+              gemma_shape=gemma))
     return llama["bfloat16"]["max_abs_err"]
 
 
 def time_flash_attention(torch, dev):
+    """The llama and gemma prefill layers' rows; returns llama's with
+    gemma's under ``at_gemma``."""
+    llama = time_flash_shape(torch, dev, LLAMA_ATTN)
+    llama["at_gemma"] = time_flash_shape(torch, dev, GEMMA_ATTN)
+    return llama
+
+
+def time_flash_shape(torch, dev, shape):
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
 
-    B, S, H, KV, hd = LLAMA_ATTN
-    q, k, v = attn_inputs(torch, dev, LLAMA_ATTN, torch.bfloat16, 100)
+    B, S, H, KV, hd = shape
+    q, k, v = attn_inputs(torch, dev, shape, torch.bfloat16, 100)
     # the library yardstick takes (B, heads, S, hd); its copies are made
     # here, outside the timed calls
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -1730,7 +1780,7 @@ def time_flash_attention(torch, dev):
     nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)  # q, o, k, v
     b, by = bound_ms(nbytes, flops, peak=BF16_FLOPS)
     q32, k32, v32 = (x.float() for x in (q, k, v))
-    row = dict(shape=list(LLAMA_ATTN), dtype="bfloat16", mode="causal",
+    row = dict(shape=list(shape), dtype="bfloat16", mode="causal",
                ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True),
                           warmup=2, runs=15),
                f32_ms=cuda_ms(lambda: flash_attention(q32, k32, v32,
@@ -2317,6 +2367,199 @@ def serve_path(torch, dev, flash_ms: float):
 
 
 # ---------------------------------------------------------------------------
+# dense path: qwen3-8b, qwen3-14b and gemma-7b at full width
+# ---------------------------------------------------------------------------
+
+DENSE_ARCHS = ("qwen3-8b", "qwen3-14b", "gemma-7b")
+INIT_WINDOW = 4096          # lanes of each drawn row re-drawn on the CPU
+
+
+class DrawWindows:
+    """Windows of one drawn leaf re-drawn on the CPU: ``parts`` maps
+    (layer row, first lane) to the lanes' values."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+
+def sampled_init_check(torch, cfg, seed, dev):
+    """The card's ``init_params`` of ``cfg`` against the CPU's, without
+    drawing the full widths on the CPU: the CPU walks the same key tree
+    (``init_params`` with ``layers._normal`` replaced) and re-draws, for
+    each drawn leaf and each layer's row of it, the first and the last
+    INIT_WINDOW lanes and the window that straddles the draw's first
+    2^24-lane chunk boundary, with the same ``random.normal(start=)``;
+    every undrawn leaf (the norms) is compared whole.  Returns (the card's
+    parameters, the windows and leaves compared, the paths that differ)."""
+    import math
+
+    from repro_torch import random as jr
+    from repro_torch.models import layers, transformer
+
+    card = transformer.init_params(cfg, jr.PRNGKey(seed, device=dev), dev)
+    chunk = layers._DRAW_CHUNK
+
+    def windows(keys, shape, scale, dtype, *, divide=False):
+        n = math.prod(shape)
+        starts = sorted({0, max(0, n - INIT_WINDOW)}
+                        | ({chunk - INIT_WINDOW // 2} if n > chunk else set()))
+        out = {}
+        for i, key in enumerate(keys.reshape(-1, 2)):
+            for s in starts:
+                m = min(INIT_WINDOW, n - s)
+                x = jr.normal(key, m, start=s)
+                out[(i, s)] = (x / scale if divide else x * scale).to(dtype)
+        return DrawWindows(out)
+
+    saved = (layers._normal, transformer._normal)
+    layers._normal = transformer._normal = windows
+    try:
+        cpu = transformer.init_params(cfg, jr.PRNGKey(seed, device="cpu"),
+                                      "cpu")
+    finally:
+        layers._normal, transformer._normal = saved
+    compared, differ = 0, []
+    leaves = dict(tree_items(card))
+    for path, want in tree_items(cpu):
+        got = leaves[path]
+        if isinstance(want, DrawWindows):   # windows of each layer's row
+            rows = got.reshape(len({i for i, _ in want.parts}), -1)
+            for (i, s), w in want.parts.items():
+                compared += 1
+                if not same_tensor_bits(torch, rows[i, s:s + w.numel()].cpu(),
+                                        w):
+                    differ.append(f"{path}[{i}, {s}:]")
+        else:
+            compared += 1
+            if not same_tensor_bits(torch, got.cpu(), want):
+                differ.append(path)
+    return card, compared, differ
+
+
+def same_tensor_bits(torch, a, b) -> bool:
+    """Equal dtypes, shapes and bits (NaNs and signed zeros included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    as_int = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return torch.equal(a.contiguous().view(as_int),
+                       b.contiguous().view(as_int))
+
+
+def dense_path(torch, dev):
+    """Each dense arch at full width through ``launch.serve``'s entry
+    points; returns the flash launches of their prefills."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import serve, serve_params
+    from repro_torch.models import transformer
+
+    total = 0
+    for name in DENSE_ARCHS:
+        torch.cuda.empty_cache()
+        cfg = get_arch(name).model
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = serve_params(name, 0, smoke=False, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        gen = torch.Generator(device=dev).manual_seed(2)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (1, 8192),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int32)}
+
+        # (a) prefill, B = 1, S = 8192, one flash launch a layer
+        flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = transformer.prefill(cfg, params, batch)
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        launches = flash_attention.launches
+        finite = bool(torch.isfinite(logits).all())
+        if (launches != cfg.n_layers or not finite
+                or tuple(logits.shape) != (1, 1, cfg.vocab)):
+            raise AssertionError(
+                f"{name} prefill: {launches} flash launches (want "
+                f"{cfg.n_layers}), finite {finite}, shape "
+                f"{tuple(logits.shape)}")
+        total += launches
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            transformer.prefill(cfg, params, batch)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.reset_peak_memory_stats()
+        prof = device_profile(
+            torch, lambda: transformer.prefill(cfg, params, batch),
+            kernel_name="flash_kernel")[0]
+        # bf16 q, k, v reach the tensor-core route and nothing else
+        if not prof["kernel_names"] or any(
+                "flash_kernel_mma" not in n for n in prof["kernel_names"]):
+            raise AssertionError(f"{name}: profiled flash kernels "
+                                 f"{prof['kernel_names']}")
+        prefill = dict(batch=1, seq_len=8192, layers=cfg.n_layers,
+                       head_dim=cfg.head_dim, dtype=cfg.dtype,
+                       n_params=n_params, init_params_s=init_s,
+                       flash_launches=launches, logits_finite=finite,
+                       first_call_ms=first_ms,
+                       wall_ms_median_of_3=sorted(walls)[1],
+                       wall_ms_runs=walls,
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       profiled=prof)
+        del logits
+
+        # (b) a few decode tokens through serve, on the same weights
+        flash_attention.launches = 0
+        res = serve(name, steps=8, smoke=False, device=dev, params=params,
+                    log_fn=lambda *a: None)
+        if flash_attention.launches != 0 or res.tokens.shape != (4, 8):
+            raise AssertionError(f"{name} serve: {flash_attention.launches} "
+                                 f"flash launches, tokens "
+                                 f"{res.tokens.shape}")
+        served = dict(batch=4, prompt_len=16, steps=8,
+                      tokens_per_s=res.tokens_per_s, decode_s=res.decode_s,
+                      first_tokens=res.tokens[0].tolist())
+        del params
+        torch.cuda.empty_cache()
+
+        # (c) the full widths at depth 2: the card's draws against the
+        # CPU's at two seeds, then the card's float32 logits (kernel)
+        # against the CPU's (plain) on the same weights
+        cfg2 = cfg.replace(n_layers=2)
+        init_rows = []
+        for seed, dtype in ((0, "bfloat16"), (3, "float32")):
+            p2, compared, differ = sampled_init_check(
+                torch, cfg2.replace(dtype=dtype), seed, dev)
+            init_rows.append(dict(seed=seed, dtype=dtype, compared=compared,
+                                  not_bitwise=differ))
+            if differ:
+                raise AssertionError(f"{name} depth-2 init seed {seed} "
+                                     f"{dtype}: card differs in {differ}")
+        cfg2 = cfg2.replace(dtype="float32")
+        toks = torch.randint(0, cfg.vocab, (1, 512), generator=gen,
+                             device=dev, dtype=torch.int32)
+        flash_attention.launches = 0
+        card = transformer.prefill(cfg2, p2, {"tokens": toks})
+        torch.cuda.synchronize()
+        card_launches = flash_attention.launches
+        cpu = transformer.prefill(cfg2, _tree_to(p2, "cpu"),
+                                  {"tokens": toks.cpu()})
+        card_vs_cpu = float((card.cpu() - cpu).abs().max())
+        if card_launches != 2 or not card_vs_cpu <= 1e-4:
+            raise AssertionError(f"{name} depth-2 card vs CPU: "
+                                 f"{card_vs_cpu} ({card_launches} launches)")
+        del p2, card, cpu
+        emit(dict(phase="dense_path", arch=name, prefill=prefill,
+                  serve=served, depth2_init=init_rows,
+                  depth2_f32_card_vs_cpu_max_abs_err=card_vs_cpu))
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
 # ssd_chunk
 # ---------------------------------------------------------------------------
 
@@ -2621,21 +2864,33 @@ def main(argv) -> int:
     if argv[1:] == ["--profile"]:
         profile_main_path(torch, dev)
         return 0
-    sel_err, mask_err = check_fed_select(torch, dev)
-    agg_err = check_fed_aggregate(torch, dev)
-    timing = time_kernels(torch, dev)
-    launches, main_run = main_path(torch, dev)
-    grid_launches = scenarios(torch, dev)
-    task_launches, agg_resnet18 = paper_tasks(torch, dev)
-    host_launches = host_async(torch, dev, main_run)
-    client_launches = clients(torch, dev, main_run)
-    check_init(torch, dev)
-    attn_err = check_flash_attention(torch, dev)
-    t_attn = time_flash_attention(torch, dev)
-    flash_launches = serve_path(torch, dev, t_attn["ms"])
-    ssd_err = check_ssd_chunk(torch, dev)
-    t_ssd = time_ssd(torch, dev)
-    ssd_launches = mamba_path(torch, dev, t_ssd["ms"])
+    phase_s = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    sel_err, mask_err = phase("fed_select", check_fed_select, torch, dev)
+    agg_err = phase("fed_aggregate", check_fed_aggregate, torch, dev)
+    timing = phase("timing", time_kernels, torch, dev)
+    launches, main_run = phase("main_path", main_path, torch, dev)
+    grid_launches = phase("scenarios", scenarios, torch, dev)
+    task_launches, agg_resnet18 = phase("paper_tasks", paper_tasks, torch,
+                                        dev)
+    host_launches = phase("host_async", host_async, torch, dev, main_run)
+    client_launches = phase("clients", clients, torch, dev, main_run)
+    phase("init", check_init, torch, dev)
+    attn_err = phase("flash_attention", check_flash_attention, torch, dev)
+    t_attn = phase("flash_timing", time_flash_attention, torch, dev)
+    flash_launches = phase("serve_path", serve_path, torch, dev,
+                           t_attn["ms"])
+    flash_launches += phase("dense_path", dense_path, torch, dev)
+    ssd_err = phase("ssd_chunk", check_ssd_chunk, torch, dev)
+    t_ssd = phase("ssd_timing", time_ssd, torch, dev)
+    ssd_launches = phase("mamba_path", mamba_path, torch, dev, t_ssd["ms"])
+    emit(dict(phase="seconds_by_phase", **phase_s))
 
     src = "src/repro_torch/kernels/csrc/"
     t_sel, t_mask, t_agg = (timing["fed_select_n1048576"],
@@ -2684,6 +2939,9 @@ def main(argv) -> int:
                      "float32": "CUDA cores; f32_ms"},
              shape=list(LLAMA_ATTN), **{k: t_attn[k] for k in (
                  "ms", "f32_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")},
+             at_gemma={k: t_attn["at_gemma"][k] for k in (
+                 "shape", "ms", "f32_ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms")}),
         dict(name="ssd_chunk", route="cuda", source=src + "ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_chunk.py:52",

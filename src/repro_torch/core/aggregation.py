@@ -4,7 +4,7 @@ F3AST (unbiased, Lemma C.1):     Delta = sum_{k in S} (p_k / r_k) v_k
 FedAvg-style (biased baseline):  Delta = sum_{k in S} p_k v_k / sum_{k in S} p_k
 Unweighted mean (biased):        Delta = (1/|S|) sum_{k in S} v_k
 
-The Δ reduction itself — the JAX package's ``weighted_aggregate`` — is
+The Δ reduction itself, :func:`weighted_aggregate`, is
 ``kernels.fed_aggregate_tree`` (a CUDA kernel on the card, its plain
 spelling on the CPU).  The sequential cohort mode sums client by client
 instead (``streaming_aggregate_init`` / ``streaming_aggregate_add``).
@@ -13,8 +13,14 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.fed_aggregate import fed_aggregate_tree
 from ..tree import tree_map
 from .hfun import R_MIN
+
+# Σ_k weights[k] · deltas[k] over the leading cohort axis of every leaf,
+# accumulated in float32 and cast back to the leaf's dtype: one
+# fed_aggregate launch over the whole tree on the card.
+weighted_aggregate = fed_aggregate_tree
 
 
 def unbiased_weights(p_sel: torch.Tensor, r_sel: torch.Tensor,
@@ -37,9 +43,10 @@ def uniform_weights(valid: torch.Tensor) -> torch.Tensor:
     return v / torch.clamp_min(v.sum(), 1.0)
 
 
-def streaming_aggregate_init(params_like):
-    """A float32 zero accumulator shaped like the parameter tree."""
-    return tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+def streaming_aggregate_init(params_like, dtype=torch.float32):
+    """A zero accumulator shaped like the parameter tree, in ``dtype``
+    (float32 by default; bfloat16 halves it for the largest models)."""
+    return tree_map(lambda x: torch.zeros(x.shape, dtype=dtype,
                                           device=x.device), params_like)
 
 

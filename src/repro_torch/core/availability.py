@@ -222,3 +222,31 @@ class CommBudget:
         lo = max(1, self.fixed - self.jitter)
         hi = self.fixed + self.jitter
         return jr.randint(key, (), lo, hi + 1)
+
+
+AVAILABILITY_REGISTRY = {
+    "always": Always,
+    "scarce": Scarce,
+    "homedevices": HomeDevices,
+    "smartphones": SmartPhones,
+    "uneven": Uneven,
+    "markov": MarkovClusters,
+}
+
+
+def make_availability(name: str, n_clients: int, p=None,
+                      **kw) -> AvailabilityProcess:
+    """The paper's availability model ``name`` for ``n_clients`` clients;
+    ``uneven`` needs the client data fractions ``p``.  ``kw`` goes to the
+    model (``device=`` among it: None is CUDA)."""
+    name = name.lower()
+    if name not in AVAILABILITY_REGISTRY:
+        raise KeyError(
+            f"unknown availability model {name!r}; registered: "
+            f"{sorted(AVAILABILITY_REGISTRY)}")
+    if name == "uneven":
+        assert p is not None, \
+            "Uneven availability needs client data fractions p"
+        return Uneven(n_clients=n_clients,
+                      p=tuple(np.asarray(p).tolist()), **kw)
+    return AVAILABILITY_REGISTRY[name](n_clients=n_clients, **kw)

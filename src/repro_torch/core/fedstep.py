@@ -31,7 +31,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
-from torch.func import grad_and_value, vmap
+from torch.func import grad_and_value, vjp, vmap
 
 from ..kernels.fed_aggregate import fed_aggregate, fed_aggregate_tree
 from ..optim.optimizers import Optimizer, apply_updates
@@ -48,6 +48,45 @@ class RoundMetrics(NamedTuple):
 def _sq_norm(tree) -> torch.Tensor:
     """Σ over leaves of Σ x², leaves in JAX's order."""
     return sum(torch.sum(x * x).to(torch.float32) for x in tree_leaves(tree))
+
+
+class _Remat(torch.autograd.Function):
+    """``fn(leaves, batch)`` with nothing of its forward kept for the
+    backward but its inputs: the backward runs the forward again under
+    ``vjp`` (``jax.checkpoint``'s trade of compute for memory).  Works
+    under ``torch.func``'s ``grad`` and ``vmap``."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, batch, *leaves):
+        return fn(leaves, batch)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        fn, batch, *leaves = inputs
+        ctx.fn, ctx.batch = fn, batch
+        ctx.save_for_backward(*leaves)
+
+    @staticmethod
+    def backward(ctx, grad):
+        _, pull = vjp(lambda *ls: ctx.fn(ls, ctx.batch), *ctx.saved_tensors)
+        return (None, None) + tuple(pull(grad))
+
+
+def _rematted(loss_fn: Callable) -> Callable:
+    """``loss_fn(params, batch)`` whose activations are recomputed in the
+    backward instead of kept (:class:`_Remat`); the same values."""
+
+    def rebuilt(params, leaves, batch):
+        it = iter(leaves)
+        return loss_fn(tree_map(lambda _: next(it), params), batch)
+
+    def loss(params, batch):
+        return _Remat.apply(lambda ls, b: rebuilt(params, ls, b), batch,
+                            *tree_leaves(params))
+
+    return loss
 
 
 def _local_sgd(loss_fn: Callable, params, client_batch: dict,
@@ -76,14 +115,23 @@ def _local_sgd(loss_fn: Callable, params, client_batch: dict,
 
 
 def make_fed_round(loss_fn: Callable, server_opt: Optimizer, *,
-                   mode: str = "parallel", prox_mu: float = 0.0,
-                   cohort_axis=None, cohort_slots: int = None):
+                   mode: str = "parallel", remat: bool = False,
+                   param_shardings=None, acc_dtype=torch.float32,
+                   prox_mu: float = 0.0, cohort_axis=None,
+                   cohort_slots: int = None, model_axis=None,
+                   param_specs=None):
     """Build the round function
 
         fed_round(params, opt_state, cohort_batch, weights, client_lr)
             -> (params, opt_state, RoundMetrics)
 
     ``client_lr`` is a Python float (folded into the step as float32).
+    ``remat`` recomputes each local step's activations in its backward
+    instead of keeping them (the same values, less memory).
+    ``acc_dtype`` is the sequential mode's Δ accumulator (float32 by
+    default).  The model axis of the (clients, model) mesh
+    (``model_axis``, ``param_specs``, ``param_shardings``) is not ported
+    and raises ``NotImplementedError`` (ROADMAP.md queue 1 item 11).
 
     ``cohort_axis``: the client mesh (a ``launch.mesh.ClientMesh``) of the
     sharded engine.  The returned function then takes this shard's slice
@@ -98,6 +146,14 @@ def make_fed_round(loss_fn: Callable, server_opt: Optimizer, *,
     if mode not in ("parallel", "sequential"):
         raise ValueError(f"mode must be 'parallel' or 'sequential', "
                          f"got {mode!r}")
+    if (model_axis is not None or param_specs is not None
+            or param_shardings is not None):
+        raise NotImplementedError(
+            "make_fed_round's model axis (model_axis=, param_specs=, "
+            "param_shardings=) is not ported yet: ROADMAP.md queue 1 "
+            "item 11")
+    if remat:
+        loss_fn = _rematted(loss_fn)
     if cohort_axis is not None:
         if mode != "parallel":
             raise ValueError("sharded cohort execution is parallel-mode")
@@ -113,7 +169,7 @@ def make_fed_round(loss_fn: Callable, server_opt: Optimizer, *,
         return fed_aggregate_tree(deltas, weights), losses, gnorms
 
     def cohort_sequential(params, cohort_batch, weights, lr):
-        acc = streaming_aggregate_init(params)
+        acc = streaming_aggregate_init(params, acc_dtype)
         losses, gnorms = [], []
         for k in range(weights.shape[0]):
             v_k, loss_k, gnorm_k = _local_sgd(

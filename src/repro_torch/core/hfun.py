@@ -17,6 +17,19 @@ import torch
 R_MIN = 1e-3
 
 
+def h_value(r: torch.Tensor, p: torch.Tensor,
+            positively_correlated: bool) -> torch.Tensor:
+    """The variance surrogate H(r) (paper Eq. 3), a float32 scalar:
+    Σ_k p_k²/r_k, or Σ_k p_k/r_k when availabilities are positively
+    correlated.  It upper-bounds the client-sampling variance (Lemma 3.4);
+    F3AST's selection is its greedy minimizer.  The sum's order is not
+    XLA's, so it agrees with the JAX package to float32 rounding, not
+    bitwise."""
+    rc = torch.clamp_min(r, R_MIN)
+    num = p if positively_correlated else p * p
+    return torch.sum(num / rc)
+
+
 def h_grad(r: torch.Tensor, p: torch.Tensor,
            positively_correlated: bool) -> torch.Tensor:
     """∇H(r) in closed form — shape (N,), elementwise −p_k²/r_k² (resp.

@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import xla_math
 from ..device import resolve_device
 
 
@@ -44,3 +45,13 @@ def update_rates(state: RateState, sel_mask: torch.Tensor,
                  beta: float) -> RateState:
     """One EMA step of Algorithm 1 line 5 on the (N,) bool indicator."""
     return RateState(r=ema(state.r, sel_mask, beta), t=state.t + 1)
+
+
+def empirical_rate(sel_history: torch.Tensor) -> torch.Tensor:
+    """Time-average participation rate (1/T) Σ_t 1_{S_t} of a (T, N)
+    selection history: the estimate of the long-term rate that Theorem
+    3.3's tracked EMA approaches.  The sum of 0/1 values is exact; the
+    mean is the sum times 1/T rounded to float32, as XLA spells
+    ``mean``, so the result is the JAX package's bit for bit."""
+    total = sel_history.to(torch.float32).sum(0)
+    return total * xla_math.recip(sel_history.shape[0])

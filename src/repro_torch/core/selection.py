@@ -1,4 +1,7 @@
-"""The top-K_t cut and the cohort layout (port of ``repro.core.selection``).
+"""Client selection (port of ``repro.core.selection``): the paper's
+Alg. 1 line 4 (:func:`f3ast_select`) and Alg. 2
+(:func:`fixed_policy_select`), the baselines' draws, the top-K_t cut and
+the cohort layout.
 
 Tie-break contract (``(score, id)``): every top-k cut — the argsort path
 (:func:`_topk_mask`) and the ``fed_select`` kernel with its plain version
@@ -14,6 +17,7 @@ import torch
 
 from .. import random as jr
 from .. import xla_math
+from .hfun import marginal_utility
 
 # Score sentinel for unavailable clients — low enough that no real score
 # reaches it, so unavailable clients rank last.  ``kernels.ref.SELECT_NEG``
@@ -36,6 +40,40 @@ def _topk_mask(scores: torch.Tensor, avail: torch.Tensor,
     k_eff = torch.minimum(torch.as_tensor(k, device=scores.device)
                           .to(torch.int32), avail.sum().to(torch.int32))
     return (ranks < k_eff) & avail
+
+
+def f3ast_scores(r: torch.Tensor, p: torch.Tensor,
+                 positively_correlated: bool = False,
+                 key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The utility F3AST ranks by, −∇H(r) (Eq. 4), times (1 + 1e-6·u)
+    with u uniform from ``key``: an infinitesimal random tie-break, so
+    equal utilities (a uniform r at initialization) do not favour low
+    client ids.  Without ``key``, the utility alone."""
+    util = marginal_utility(r, p, positively_correlated)
+    if key is None:
+        return util
+    return util * (1.0 + 1e-6 * jr.uniform(key, tuple(util.shape)))
+
+
+def f3ast_select(avail: torch.Tensor, k, p: torch.Tensor, r: torch.Tensor,
+                 positively_correlated: bool = False,
+                 key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """F3AST's greedy selection, S_t ∈ argmax_{S ∈ C_t} −∇H(r)·1_S
+    (Algorithm 1 line 4).  H is separable over clients, so the argmax over
+    all subsets of at most K_t available clients is exactly the top K_t
+    available clients by utility: greedy is optimal.  ``r`` is the
+    tracked rate r(t−1); ``key`` adds :func:`f3ast_scores`' tie-break."""
+    return _topk_mask(f3ast_scores(r, p, positively_correlated, key),
+                      avail, k)
+
+
+def fixed_policy_select(avail: torch.Tensor, k, p: torch.Tensor,
+                        r_target: torch.Tensor,
+                        positively_correlated: bool = False) -> torch.Tensor:
+    """Fixed-policy F3AST (Algorithm 2): Alg. 1 line 4 with the utility
+    at a static target rate ``r_target`` instead of the tracked one."""
+    return _topk_mask(marginal_utility(r_target, p, positively_correlated),
+                      avail, k)
 
 
 def fedavg_select(key: torch.Tensor, avail: torch.Tensor, k, p: torch.Tensor,

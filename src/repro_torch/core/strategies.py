@@ -105,9 +105,12 @@ class RateTrackState(NamedTuple):
 
 
 class SelectionStrategy(NamedTuple):
-    """A selection policy as pure functions; ``needs_losses``/``host_only``
-    route it to the host loop (``needs_losses``: fresh per-client losses
-    in ``ctx.losses`` each round).
+    """A selection policy as pure functions; ``rates_of(state)`` reads a
+    tracked (N,) participation rate from a state of its own layout (for
+    reporting; None: the built-in ``state.rates.r``);
+    ``needs_losses``/``host_only`` route it to the host loop
+    (``needs_losses``: fresh per-client losses in ``ctx.losses`` each
+    round).
 
     ``score_block(state, key, avail_blk, k_t, ctx, off, n_total) ->
     (n_local,) f32`` is the optional blockwise spelling of ``score`` for
@@ -118,6 +121,7 @@ class SelectionStrategy(NamedTuple):
     select: Callable[..., Any]
     score: Optional[Callable[..., Any]] = None
     finalize: Optional[Callable[..., Any]] = None
+    rates_of: Optional[Callable[[Any], Any]] = None
     n_clients: Optional[int] = None
     needs_losses: bool = False
     host_only: bool = False
@@ -125,26 +129,32 @@ class SelectionStrategy(NamedTuple):
 
 
 def strategy_rates(strategy: SelectionStrategy, state):
-    """Tracked (N,) participation rates of ``state``, or None."""
+    """Tracked (N,) participation rates of ``state``, or None: through
+    ``strategy.rates_of`` when it is set, else the built-in state
+    convention ``state.rates.r``."""
+    if strategy.rates_of is not None:
+        return strategy.rates_of(state)
     return getattr(getattr(state, "rates", None), "r", None)
 
 
 def topk_strategy(name: str, init: Callable, score: Callable,
-                  finalize: Callable, *, device: torch.device,
-                  n_clients: Optional[int] = None,
+                  finalize: Callable, *, n_clients: Optional[int] = None,
+                  rates_of: Optional[Callable] = None,
                   select_impl: str = "xla",
                   fused: Optional[Callable] = None,
-                  score_block: Optional[Callable] = None
-                  ) -> SelectionStrategy:
-    """Build a strategy from the canonical score → top-k → weight shape.
+                  score_block: Optional[Callable] = None,
+                  device=None) -> SelectionStrategy:
+    """Build a strategy from the canonical score → top-k → weight shape
+    for ``device`` (None: CUDA), which picks the cut.
 
     ``fused(state, scores, avail, k_t) -> (mask, weights, new_state)`` is
     the one-call spelling of cut + ``finalize``: used on CUDA, and on the
     CPU under ``select_impl="pallas"``, whenever no completion hook splits
-    the cut from ``finalize``.
+    the cut from ``finalize``.  ``rates_of`` is passed on to the
+    strategy (:func:`strategy_rates`).
     """
     _check_select_impl(select_impl)
-    cuda = torch.device(device).type == "cuda"
+    cuda = resolve_device(device).type == "cuda"
     topk = _topk_fn(select_impl, cuda)
     use_fused = fused is not None and (cuda or select_impl == "pallas")
 
@@ -159,7 +169,8 @@ def topk_strategy(name: str, init: Callable, score: Callable,
 
     return SelectionStrategy(name=name, init=init, select=select,
                              score=score, finalize=finalize,
-                             n_clients=n_clients, score_block=score_block)
+                             rates_of=rates_of, n_clients=n_clients,
+                             score_block=score_block)
 
 
 def _fused_rate_select(p: torch.Tensor, beta: float, weight_mode: str,
@@ -399,10 +410,7 @@ def _make_f3ast(n_clients, p, device, beta: float = 1e-3,
     """Algorithm 1: greedy −∇H(r) selection, unbiased p_k/r_k weights."""
 
     def score(state, key, avail, k_t, ctx=None):
-        util = marginal_utility(state.rates.r, p, positively_correlated)
-        # Infinitesimal random tie-break so identical utilities (e.g. at
-        # initialization with uniform r) do not favor low-index clients.
-        return util * (1.0 + 1e-6 * jr.uniform(key, tuple(util.shape)))
+        return sel.f3ast_scores(state.rates.r, p, positively_correlated, key)
 
     def finalize(state, mask, ctx=None):
         # select with r(t−1) (line 4), update the EMA (line 5), aggregate
@@ -435,9 +443,8 @@ def _make_fixed_f3ast(n_clients, p, device, beta: float = 1e-3,
         return rt_fixed if rt_fixed is not None else state.rates.r
 
     def score(state, key, avail, k_t, ctx=None):
-        util = marginal_utility(r_of(state), p, positively_correlated)
         # the tie-break of f3ast: under a uniform target every utility ties
-        return util * (1.0 + 1e-6 * jr.uniform(key, tuple(util.shape)))
+        return sel.f3ast_scores(r_of(state), p, positively_correlated, key)
 
     def finalize(state, mask, ctx=None):
         w = unbiased_weights(p, torch.clamp_min(r_of(state), R_MIN), mask)

@@ -38,15 +38,15 @@
 //   it).  S = Q K^T and O += P V run as mma.sync m16n8k16 (bf16 in, f32
 //   accumulate); q and k are bf16, so the products are exact and S is the
 //   same float32 dot product the plain version forms, up to summation
-//   order.  Q is staged once and kept in registers as A fragments; K and V
-//   tiles are double-buffered in shared memory by 16-byte cp.async copies
-//   (keys past Skv zero-filled: v must be 0 there, as 0 * garbage can be
-//   NaN), in an XOR-swizzled layout so that ldmatrix (K) and ldmatrix.trans
-//   (V) run without bank conflicts.  The online softmax runs on the quad of
-//   lanes that holds a row in the accumulator layout, with exp on the
-//   special-function unit; the soft-cap and the mask each sit in a branch
-//   around a whole loop, so the common path's code stays short (inside the
-//   per-score loop they cost 1.8x).
+//   order.  Q is staged once and, at hd <= 128, kept in registers as A
+//   fragments; K and V tiles are double-buffered in shared memory by
+//   16-byte cp.async copies (keys past Skv zero-filled: v must be 0 there,
+//   as 0 * garbage can be NaN), in an XOR-swizzled layout so that ldmatrix
+//   (K) and ldmatrix.trans (V) run without bank conflicts.  The online
+//   softmax runs on the quad of lanes that holds a row in the accumulator
+//   layout, with exp on the special-function unit; the soft-cap and the
+//   mask each sit in a branch around a whole loop, so the common path's
+//   code stays short (inside the per-score loop they cost 1.8x).
 //   Why P is split: the product P V takes bf16 operands, and rounding the
 //   softmax weights P to bf16 once (the usual tensor-core design) moves
 //   ~10% of the outputs by more than one bf16 step from the plain version
@@ -60,10 +60,22 @@
 //   FLOP bound is mma.sync itself (Hopper's full tensor-core rate needs
 //   wgmma) and the softmax's scalar work between the products; wgmma fed
 //   by TMA, with a producer warp, is the next step.
+//   At hd = 256 (gemma) the per-warp O accumulator alone is 32 n-tiles x 4
+//   = 128 float32 registers a thread, and Q's A fragments would be 16
+//   k-steps x 4 = 64 more: with S (32) and P's hi and lo fragments that is
+//   past the 255 a thread may have.  So there Q stays in shared memory,
+//   where it is staged anyway, and each k-step of Q K^T reads its A
+//   fragment by ldmatrix (FlashAttention-2's choice at hdim 256): 4 live
+//   registers instead of 64, for one more ldmatrix per k-step and K tile.
+//   The block's 163,840 bytes of shared memory (Q, and K and V double
+//   buffered) leave room for one block an SM.
 // * float32: the CUDA cores (flash_kernel).  TF32 would not hold the 2e-5
 //   limit against the plain version.  64 rows a block; each thread owns a
 //   4-row x 8-key tile of scores and a 4-row x hd/8 tile of the output, so
-//   QK^T and PV each do 32 FMAs for three 16-byte shared-memory loads.  Q
+//   QK^T and PV each do 32 FMAs for three 16-byte shared-memory loads.  At
+//   hd = 256 its tiles take 222,208 bytes, under the 232,448 a block may
+//   opt into, and each thread 128 accumulators; V is read four columns at
+//   a time and used at once, so no 32-float row of V is held.  Q
 //   and K are staged transposed (d-major) and P key-major, so those loads
 //   are float4 reads of consecutive addresses.  It runs at up to 67
 //   TFLOP/s, far from the bf16 bound.
@@ -261,23 +273,28 @@ flash_kernel(const Args a) {
       const float4 pv = *reinterpret_cast<const float4*>(
           Ps + j * (kRows + kPad) + rg * kRowsPerThread);
       const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
-      float vr[kCols];
       if constexpr (kCols % 4 == 0) {
 #pragma unroll
         for (int c = 0; c < kCols; c += 4) {
           const float4 vv = *reinterpret_cast<const float4*>(
               Vs + j * HD + cg * kCols + c);
-          vr[c] = vv.x; vr[c + 1] = vv.y; vr[c + 2] = vv.z; vr[c + 3] = vv.w;
+          const float vr[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+          for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc)
+              acc[i][c + cc] = fmaf(pr[i], vr[cc], acc[i][c + cc]);
         }
       } else {
+        float vr[kCols];
 #pragma unroll
         for (int c = 0; c < kCols; ++c) vr[c] = Vs[j * HD + cg * kCols + c];
+#pragma unroll
+        for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+          for (int c = 0; c < kCols; ++c)
+            acc[i][c] = fmaf(pr[i], vr[c], acc[i][c]);
       }
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c)
-          acc[i][c] = fmaf(pr[i], vr[c], acc[i][c]);
     }
   }
 
@@ -351,9 +368,19 @@ constexpr int smem_bytes() {
   return (kRows + 4 * kKeys) * HD * 2;   // Q; K and V, two buffers each
 }
 
-// At hd <= 64, 128 registers a thread keep four blocks (16 warps) on an SM.
+// At hd <= 64, 128 registers a thread keep four blocks (16 warps) on an SM;
+// at hd = 256 shared memory holds one block an SM, which may then take up
+// to 255 registers a thread.
 template <int HD>
-__global__ void __launch_bounds__(kThreads, HD <= 64 ? 4 : 2)
+constexpr int kMinBlocks = HD <= 64 ? 4 : (HD <= 128 ? 2 : 1);
+
+// Q's A fragments live in registers up to hd = 128 and are read from shared
+// memory each k-step above (see the note at the top of the file).
+template <int HD>
+constexpr bool kQInRegisters = HD <= 128;
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<HD>)
 flash_kernel_mma(const Args a, int n_tiles, int KV, int B) {
   constexpr int kChunks = HD / 8;
   constexpr int kSteps = HD / 16;    // k-steps of Q K^T
@@ -423,11 +450,16 @@ flash_kernel_mma(const Args a, int n_tiles, int KV, int B) {
   cp_async_wait<1>();                // Q has landed
   __syncthreads();
 
-  uint32_t qf[kSteps][4];            // A fragments of the warp's 16 rows
+  // The A fragment of the warp's 16 rows at k-step kk.
+  auto q_frag_addr = [&](int kk) {
+    return s_q + Sw::off(warp * 16 + lane % 16, 2 * kk + lane / 16);
+  };
+  constexpr int kQRegSteps = kQInRegisters<HD> ? kSteps : 1;
+  uint32_t qf[kQRegSteps][4];
+  if constexpr (kQInRegisters<HD>) {
 #pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk)
-    ldsm_x4(s_q + Sw::off(warp * 16 + lane % 16, 2 * kk + lane / 16),
-            qf[kk]);
+    for (int kk = 0; kk < kSteps; ++kk) ldsm_x4(q_frag_addr(kk), qf[kk]);
+  }
 
   // This thread holds rows r_a = wr0 + g and r_b = r_a + 8 of the warp's.
   const int wr0 = row0 + warp * 16;
@@ -464,13 +496,15 @@ flash_kernel_mma(const Args a, int n_tiles, int KV, int B) {
       for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
 #pragma unroll
       for (int kk = 0; kk < kSteps; ++kk) {
+        uint32_t(&qa)[4] = qf[kQInRegisters<HD> ? kk : 0];
+        if constexpr (!kQInRegisters<HD>) ldsm_x4(q_frag_addr(kk), qa);
 #pragma unroll
         for (int jp = 0; jp < kNT / 2; ++jp) {
           uint32_t kf[4];
           ldsm_x4(kb + Sw::off(16 * jp + lane % 8 + 8 * (lane / 16),
                                2 * kk + (lane / 8) % 2), kf);
-          mma_bf16(s[2 * jp], qf[kk], kf[0], kf[1]);
-          mma_bf16(s[2 * jp + 1], qf[kk], kf[2], kf[3]);
+          mma_bf16(s[2 * jp], qa, kf[0], kf[1]);
+          mma_bf16(s[2 * jp + 1], qa, kf[2], kf[3]);
         }
       }
 
@@ -617,6 +651,7 @@ int dispatch(bool tensor_cores, const Args& a, int B, int KV, int hd,
     case 32: return launch<32>(tensor_cores, a, B, KV, s);
     case 64: return launch<64>(tensor_cores, a, B, KV, s);
     case 128: return launch<128>(tensor_cores, a, B, KV, s);
+    case 256: return launch<256>(tensor_cores, a, B, KV, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -636,7 +671,7 @@ extern "C" {
 // hd and the given element strides along batch, sequence and head; o is
 // contiguous (B, Sq, H, hd) in q's dtype.  dtype 0 = float32 (CUDA cores),
 // 1 = bf16 (tensor cores; needs 16-byte aligned q, k, v and strides that
-// are multiples of 8); hd in {16, 32, 64, 128}.  Returns a cudaError_t.
+// are multiples of 8); hd in {16, 32, 64, 128, 256}.  Returns a cudaError_t.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int B, int Sq, int Skv, int H,
                            int KV, int hd, int64_t qsb, int64_t qss,

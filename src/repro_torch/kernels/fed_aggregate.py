@@ -58,10 +58,13 @@ def fed_aggregate_tree(deltas, weights: torch.Tensor):
     """Alg. 1 line 9 over a parameter tree (nested dicts and lists) of
     (K, ...) leaves: the leaves are flattened into one (K, D) buffer in
     JAX's leaf order, reduced by ONE :func:`fed_aggregate` call, and split
-    back to the leaf shapes."""
+    back to the leaf shapes and dtypes.  A tree of mixed dtypes is reduced
+    in float32 (the buffer takes the widest) and each leaf's sum is cast
+    back once."""
     leaves = tree_leaves(deltas)
     k_rows = leaves[0].shape[0]
     flat = torch.cat([x.reshape(k_rows, -1) for x in leaves], dim=1)
     pieces = iter(torch.split(fed_aggregate(flat, weights),
                               [x[0].numel() for x in leaves]))
-    return tree_map(lambda x: next(pieces).reshape(x.shape[1:]), deltas)
+    return tree_map(lambda x: next(pieces).reshape(x.shape[1:]).to(x.dtype),
+                    deltas)

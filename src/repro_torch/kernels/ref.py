@@ -15,9 +15,6 @@ from __future__ import annotations
 
 import torch
 
-from ..core.hfun import R_MIN
-from ..core.rates import ema
-
 # Sentinel for unavailable clients — must match core.selection._NEG.
 SELECT_NEG = -1e30
 
@@ -85,6 +82,7 @@ def topk_threshold_mask(scores: torch.Tensor, avail: torch.Tensor,
 
 def select_weights_ref(mask, new_r, p, r_weight, weight_mode: str):
     """The built-in strategies' weight rules on the selection mask."""
+    from ..core.hfun import R_MIN   # here: ``core`` imports the kernels
     zero = torch.zeros_like(p)
     if weight_mode == "unbiased":
         return torch.where(mask, p / torch.clamp_min(new_r, R_MIN), zero)
@@ -104,6 +102,7 @@ def fed_select_ref(scores, avail, k, r, p, beta, *,
                    weight_mode: str = "unbiased", r_weight=None):
     """The fused selection step (mask, new_r, weights): threshold cut →
     r_k EMA → cohort weights."""
+    from ..core.rates import ema    # here: ``core`` imports the kernels
     mask = topk_threshold_mask(scores, avail, k)
     new_r = ema(r, mask, beta)
     w = select_weights_ref(mask, new_r, p, r_weight, weight_mode)

@@ -3,6 +3,9 @@ architecture — the deployment path of the federated global model (port of
 ``repro.launch.serve``).
 
   python -m repro_torch.launch.serve --arch llama3.2-1b [--full]
+  python -m repro_torch.launch.serve --arch qwen3-8b [--full]
+  python -m repro_torch.launch.serve --arch qwen3-14b [--full]
+  python -m repro_torch.launch.serve --arch gemma-7b [--full]
   python -m repro_torch.launch.serve --arch mamba2-2.7b [--full]
 
 Runs on CUDA unless ``--device cpu`` is given.  The prompt is drawn with
@@ -36,18 +39,22 @@ class ServeResult:
 
 def serve(arch_id: str, batch: int = 4, prompt_len: int = 16,
           steps: int = 32, max_len: int = 128, seed: int = 0,
-          smoke: bool = True, log_fn=print, device=None) -> ServeResult:
+          smoke: bool = True, log_fn=print, device=None,
+          params=None) -> ServeResult:
     """Step the prompt through ``decode_step``, then decode ``steps``
     greedy tokens (``max_len`` sizes the KV cache; mamba2's state does not
     grow with it).  The loop keeps the tokens on the device and waits for
-    it once, at the end."""
+    it once, at the end.  ``params`` are weights already on ``device``
+    for this config (e.g. :func:`serve_params`' for this seed); None
+    draws them."""
     device = resolve_device(device)
     arch = get_arch(arch_id)
     cfg = arch.smoke_model if smoke else arch.model
     api = get_model_api(cfg)
     # (params, audio frames, prompt) keys, as the JAX package splits them
-    key, _, k_prompt = jr.split(jr.PRNGKey(seed, device=device), 3)
-    params = api.init_params(key, device)
+    _, _, k_prompt = jr.split(jr.PRNGKey(seed, device=device), 3)
+    if params is None:
+        params = serve_params(arch_id, seed, smoke, device)
     state = api.init_decode_state(batch, max_len, device)
     prompt = jr.randint(k_prompt, (batch, prompt_len), 0, cfg.vocab)
 
@@ -71,6 +78,17 @@ def serve(arch_id: str, batch: int = 4, prompt_len: int = 16,
         raise FloatingPointError(f"[{arch_id}] non-finite logits")
     return ServeResult(tokens=toks, prompt=prompt.cpu().numpy(), decode_s=dt,
                        tokens_per_s=steps * batch / dt)
+
+
+def serve_params(arch_id: str, seed: int = 0, smoke: bool = True,
+                 device=None):
+    """The weights :func:`serve` draws for ``arch_id`` at ``seed``: from
+    the first of the seed key's three (params, audio frames, prompt)."""
+    device = resolve_device(device)
+    arch = get_arch(arch_id)
+    cfg = arch.smoke_model if smoke else arch.model
+    key = jr.split(jr.PRNGKey(seed, device=device), 3)[0]
+    return get_model_api(cfg).init_params(key, device)
 
 
 def main(argv=None):

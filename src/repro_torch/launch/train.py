@@ -33,7 +33,8 @@ from typing import Callable, Optional
 from ..configs import PAPER_TASKS
 from ..core.strategies import STRATEGY_ALIASES, list_strategies
 from ..sim.completion import COMPLETION_REGISTRY
-from ..sim.runner import TrainResult, _legacy_server_lr, run_spec
+from ..sim.runner import (TrainResult, _legacy_server_lr, run_spec,
+                          run_spec_dist)
 from ..sim.scenario import Scenario, list_scenarios
 from ..sim.spec import RunSpec
 
@@ -154,7 +155,8 @@ def main(argv=None) -> None:
     if args.save_spec:
         spec.save(args.save_spec)
         print(f"wrote {args.save_spec}")
-    res = run_spec(spec, device=args.device, dist_backend=args.dist_backend)
+    res = run_spec_dist(spec, dist_backend=args.dist_backend,
+                        device=args.device)
     print(json.dumps(res.final_metrics, indent=1))
 
 

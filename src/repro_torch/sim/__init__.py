@@ -1,5 +1,17 @@
 """Scenario engine of the port: spec, registries, the device, sharded and
-buffered engines, the host loop and the runner."""
+buffered engines, the host loop and the runner.  The names are the JAX
+package's ``repro.sim`` (``tools/api_surface.json``)."""
+from .processes import (PROCESS_REGISTRY, AvailabilityModel, Bernoulli,
+                        ClusterMarkov, Diurnal, GilbertElliott,
+                        NonStationaryDrift, Stateless, TraceDriven,
+                        make_process)
+from .budgets import (BUDGET_REGISTRY, BandwidthCoupled, BudgetSchedule,
+                      Constant, DiurnalBudget, Jittered, StepBudget,
+                      make_budget)
+from .completion import (COMPLETION_REGISTRY, AlwaysComplete,
+                         AvailabilityCoupled, BernoulliCompletion,
+                         CompletionModel, DeadlineCompletion,
+                         make_completion, resolve_completion)
 from .spec import RunSpec
 from .scenario import (SCENARIO_REGISTRY, Scenario, get_scenario,
                        list_scenarios, register_scenario)

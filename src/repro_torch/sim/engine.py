@@ -119,7 +119,7 @@ class DeviceEngine:
 
     def __init__(self, *, avail_model, budget, strategy, staged, fed_round,
                  init_params, opt, client_lr, local_steps, local_batch,
-                 device=None, completion=None):
+                 completion=None, device=None):
         self.avail_model = avail_model
         self.budget = budget
         self.strategy = strategy
@@ -214,26 +214,34 @@ def _stack(outs) -> RoundStream:
     return RoundStream(*(torch.stack(col) for col in zip(*outs)))
 
 
-def build_engine(scenario, algo_name: str = "f3ast", *, device,
-                 seed: int = 0, clients_per_round: Optional[int] = None,
+def build_engine(scenario, algo_name: str = "f3ast", *, seed: int = 0,
+                 clients_per_round: Optional[int] = None,
                  beta: Optional[float] = None, server_opt: str = "sgd",
                  server_lr: Optional[float] = None, prox_mu: float = 0.0,
                  positively_correlated: bool = False,
-                 fed_mode: str = "parallel", strategy_kwargs=None,
-                 completion: Optional[str] = None, completion_kwargs=None,
-                 select_impl: str = "xla", mesh=None,
-                 topk_impl: str = "stream"):
-    """Build the cell for one (scenario × strategy) on ``device``.
+                 fed_mode: str = "parallel", mesh=None,
+                 clients_axis: str = "clients", model_axis: str = "model",
+                 strategy_kwargs=None, completion: Optional[str] = None,
+                 completion_kwargs=None, select_impl: str = "xla",
+                 topk_impl: str = "stream", device=None):
+    """Build the cell for one (scenario × strategy) on ``device`` (None:
+    CUDA).
 
     Returns ``(engine, ctx)`` where ``ctx`` carries what the run loop needs
     on the host side (eval fns, test batch, rounds default, N).  ``seed``
     selects the data realization; the cell's model seed is what
-    ``init_carry`` takes.  ``mesh`` (a ``launch.mesh.ClientMesh``) builds
-    the client-sharded engine, this process one shard of it, with
-    ``topk_impl`` its distributed cut (``core.selection.TOPK_IMPLS``).
+    ``init_carry`` takes.  ``mesh`` (a ``launch.mesh.ClientMesh``, a shard
+    count or a 1-D shape, resolved over ``clients_axis``) builds the
+    client-sharded engine, this process one shard of it, with
+    ``topk_impl`` its distributed cut (``core.selection.TOPK_IMPLS``).  A
+    2-D ``(c, m)`` shape, the model axis, raises ``NotImplementedError``
+    (ROADMAP.md queue 1 item 11).
     """
     from .runner import build_task   # local import: runner ↔ engine
-    from .engine_sharded import ShardedEngine
+    from .engine_sharded import ShardedEngine, resolve_client_mesh
+
+    device = resolve_device(device)
+    mesh = resolve_client_mesh(mesh, clients_axis, model_axis)
 
     if mesh is not None and select_impl == "pallas":
         raise ValueError(
@@ -279,8 +287,8 @@ def build_engine(scenario, algo_name: str = "f3ast", *, device,
                                    prox_mu=prox_mu, cohort_axis=mesh,
                                    cohort_slots=budget.k_max)
         engine = ShardedEngine(
-            mesh=mesh, staged=CohortSampler(fed).stage_device(device,
-                                                              mesh=mesh),
+            mesh=mesh, axis=clients_axis,
+            staged=CohortSampler(fed).stage_device(device, mesh=mesh),
             fed_round=fed_round, n_clients=n, topk_impl=topk_impl, **common)
     else:
         fed_round = make_fed_round(loss, opt, mode=fed_mode,
@@ -305,7 +313,7 @@ def _chunk_spans(rounds: int, chunk_size: int):
             for t0 in range(0, rounds, chunk_size)]
 
 
-def run_scenario_device(scenario, algo_name: str = "f3ast", *, device,
+def run_scenario_device(scenario, algo_name: str = "f3ast", *,
                         rounds: Optional[int] = None,
                         server_opt: str = "sgd",
                         server_lr: Optional[float] = None,
@@ -317,19 +325,24 @@ def run_scenario_device(scenario, algo_name: str = "f3ast", *, device,
                         prox_mu: float = 0.0,
                         positively_correlated: bool = False,
                         metrics_path: Optional[str] = None,
-                        fed_mode: str = "parallel", strategy_kwargs=None,
+                        fed_mode: str = "parallel", mesh=None,
+                        clients_axis: str = "clients",
+                        model_axis: str = "model", strategy_kwargs=None,
                         completion: Optional[str] = None,
                         completion_kwargs=None, select_impl: str = "xla",
-                        mesh=None, topk_impl: str = "stream",
-                        algo_label: Optional[str] = None, log_fn=print):
-    """Run one cell on ``device``; same semantics, cadence and outputs as
-    the JAX ``run_scenario_device`` (evaluation at the end of any chunk
+                        topk_impl: str = "stream",
+                        algo_label: Optional[str] = None, log_fn=print,
+                        device=None):
+    """Run one cell on ``device`` (None: CUDA); same semantics, cadence
+    and outputs as the JAX ``run_scenario_device`` (evaluation at the end
+    of any chunk
     holding an ``eval_every`` round and after the final round; the
     ``chunk_size`` default is ``eval_every``; checkpoints, if
     ``ckpt_dir``, at chunk boundaries).  With a client ``mesh`` this
     process runs its shard of the sharded engine; every shard returns the
     same result, and only shard 0 logs and writes the metrics file and
     checkpoints."""
+    device = resolve_device(device)
     engine, ctx = build_engine(
         scenario, algo_name, device=device, seed=seed,
         clients_per_round=clients_per_round, beta=beta,
@@ -337,7 +350,9 @@ def run_scenario_device(scenario, algo_name: str = "f3ast", *, device,
         positively_correlated=positively_correlated, fed_mode=fed_mode,
         strategy_kwargs=strategy_kwargs, completion=completion,
         completion_kwargs=completion_kwargs, select_impl=select_impl,
-        mesh=mesh, topk_impl=topk_impl)
+        mesh=mesh, clients_axis=clients_axis, model_axis=model_axis,
+        topk_impl=topk_impl)
+    mesh = getattr(engine, "mesh", None)    # the resolved client mesh
     lead = mesh is None or mesh.rank == 0
     if not lead:
         metrics_path = ckpt_dir = None
@@ -428,14 +443,12 @@ def run_scenario_device(scenario, algo_name: str = "f3ast", *, device,
     rates = _rates_np(engine.strategy, carry.algo_state, n_real)
     return TrainResult(history=history, final_metrics=final, rates=rates,
                        empirical_rates=sel_history.mean(0),
-                       sel_history=sel_history, comp_history=comp_history,
-                       k_t=np.concatenate([s.k_t for s in streams]),
-                       n_available=np.concatenate(
-                           [s.n_available for s in streams]),
-                       train_loss=np.concatenate(
-                           [s.train_loss for s in streams]),
-                       delta_norm=np.concatenate(
-                           [s.delta_norm for s in streams]))
+                       sel_history=sel_history, comp_history=comp_history
+                       ).with_streams(
+        k_t=np.concatenate([s.k_t for s in streams]),
+        n_available=np.concatenate([s.n_available for s in streams]),
+        train_loss=np.concatenate([s.train_loss for s in streams]),
+        delta_norm=np.concatenate([s.delta_norm for s in streams]))
 
 
 def run_cells_vmapped(scenario, algo_name: str = "f3ast", *,

@@ -225,17 +225,18 @@ class AsyncEngine:
     """One buffered-aggregation cell (scenario × strategy × task) on one
     device.  ``chunk(carry, ts)`` advances ``len(ts)`` server steps, with
     no host sync; ``init_carry(key)`` builds the step-0 state (empty
-    pool)."""
+    pool).  ``device`` (None: CUDA) is where the engine's own tensors go."""
 
     def __init__(self, *, avail_model, budget, strategy, staged, fed_round,
                  init_params, opt, client_lr, local_steps, local_batch,
-                 arrival, buffer_size, device, staleness_power=0.5,
-                 staleness_discount="polynomial", pool_slots=None):
+                 arrival, buffer_size, staleness_power=0.5,
+                 staleness_discount="polynomial", pool_slots=None,
+                 device=None):
         self.avail_model = avail_model
         self.budget = budget
         self.strategy = strategy
         self.arrival = arrival
-        self.device = device
+        self.device = resolve_device(device)
         self.k_max = budget.k_max
         self.n_clients = int(staged.counts.shape[0])
         self.buffer_size = int(buffer_size)
@@ -385,7 +386,8 @@ def _result(history, final, strategy, algo_state, n, sel_history,
                        rates=_rates_np(strategy, algo_state, n),
                        empirical_rates=sel_history.mean(0),
                        sel_history=sel_history, comp_history=comp_history,
-                       async_history=async_history, **streams)
+                       async_history=async_history
+                       ).with_streams(**streams)
 
 
 def _stack_streams(streams) -> tuple:
@@ -413,7 +415,7 @@ def _stack_streams(streams) -> tuple:
 # One buffered cell end to end (either executor)
 # ---------------------------------------------------------------------------
 
-def run_scenario_buffered(scenario, algo_name: str = "f3ast", *, device=None,
+def run_scenario_buffered(scenario, algo_name: str = "f3ast", *,
                           rounds: Optional[int] = None,
                           server_opt: str = "sgd",
                           server_lr: Optional[float] = 1.0,
@@ -432,7 +434,8 @@ def run_scenario_buffered(scenario, algo_name: str = "f3ast", *, device=None,
                           staleness_power: float = 0.5,
                           staleness_discount: str = "polynomial",
                           select_impl: str = "xla", engine: str = "device",
-                          algo_label: Optional[str] = None, log_fn=print):
+                          algo_label: Optional[str] = None, log_fn=print,
+                          device=None):
     """Run one buffered-aggregation cell on ``device`` (default CUDA) with
     the named executor: ``engine="device"`` the :class:`AsyncEngine` loop,
     ``engine="host"`` the event-driven reference.  Both give bitwise the

@@ -118,13 +118,20 @@ class ShardedEngine:
     ``data.stage_client_arrays(mesh=...)``) or a ``SynthTask``.
     ``topk_impl`` picks the distributed cut's reduction
     (``core.selection.TOPK_IMPLS``); ``device`` (None: CUDA) is where
-    this shard's tensors go."""
+    this shard's tensors go.  ``axis`` names the mesh's client axis; a
+    ``model_axis`` (the (clients, model) mesh) raises
+    ``NotImplementedError`` (ROADMAP.md queue 1 item 11)."""
 
-    def __init__(self, *, mesh: ClientMesh, avail_model, budget, strategy,
-                 staged, fed_round, init_params, opt, client_lr,
-                 local_steps, local_batch, n_clients: int, device=None,
-                 completion=None, topk_impl: str = "stream"):
-        self.mesh = mesh
+    def __init__(self, *, mesh: ClientMesh, axis: str = "clients",
+                 avail_model, budget, strategy, staged, fed_round,
+                 init_params, opt, client_lr, local_steps, local_batch,
+                 n_clients: int, completion=None, topk_impl: str = "stream",
+                 model_axis: Optional[str] = None, device=None):
+        if model_axis is not None:
+            raise NotImplementedError(
+                "ShardedEngine's model axis (model_axis=) is not ported "
+                "yet: ROADMAP.md queue 1 item 11")
+        self.mesh, self.axis = mesh, axis
         self.avail_model = avail_model
         self.budget = budget
         self.strategy = strategy

@@ -76,11 +76,22 @@ class TrainResult:
     async_history: Optional[dict] = None       # buffered runs only: per-step
     #   buf_ids/buf_valid/buf_staleness/buf_weights (T, M) and n_buffered /
     #   mean_staleness / n_overflow (T,) — see sim.engine_async
-    # per-round streams, (T,) each
-    k_t: Optional[np.ndarray] = None
-    n_available: Optional[np.ndarray] = None
-    train_loss: Optional[np.ndarray] = None
-    delta_norm: Optional[np.ndarray] = None
+    # the port's per-round streams, (T,) each: set by the engine after
+    # construction, so the constructor's signature is the JAX package's
+    k_t: Optional[np.ndarray] = dataclasses.field(default=None, init=False)
+    n_available: Optional[np.ndarray] = dataclasses.field(default=None,
+                                                          init=False)
+    train_loss: Optional[np.ndarray] = dataclasses.field(default=None,
+                                                         init=False)
+    delta_norm: Optional[np.ndarray] = dataclasses.field(default=None,
+                                                         init=False)
+
+    def with_streams(self, **streams) -> "TrainResult":
+        """Set the per-round streams (``k_t``, ``n_available``,
+        ``train_loss``, ``delta_norm``); returns ``self``."""
+        for name, value in streams.items():
+            setattr(self, name, value)
+        return self
 
 
 def build_task(task_id: str, seed: int, device=None, **task_kwargs):
@@ -196,8 +207,8 @@ def run_scenario(spec: Union[RunSpec, str, Scenario] = None,
     return run_spec(spec, device=device, log_fn=log_fn)
 
 
-def run_spec(spec: RunSpec, device=None, *, log_fn: Callable = print,
-             dist_backend: Optional[str] = None) -> TrainResult:
+def run_spec(spec: RunSpec, *, log_fn: Callable = print,
+             device=None) -> TrainResult:
     """Execute a :class:`RunSpec` on ``device`` (default CUDA), on the
     engine it names.
 
@@ -206,6 +217,16 @@ def run_spec(spec: RunSpec, device=None, *, log_fn: Callable = print,
     Host-only strategies (``needs_losses``/``host_only`` registry flags)
     fall back from the device engine to the host loop, on the same device,
     with a warning; ``final_metrics["engine"]`` names the engine that ran.
+    ``mesh_shape=(c,)`` spawns c ranks on the default collective backend
+    (:func:`run_spec_dist` names another).
+    """
+    return run_spec_dist(spec, log_fn=log_fn, device=device)
+
+
+def run_spec_dist(spec: RunSpec, *, dist_backend: Optional[str] = None,
+                  log_fn: Callable = print, device=None) -> TrainResult:
+    """:func:`run_spec` with the sharded engine's collective backend
+    chosen (the CLIs' ``--dist-backend``).
 
     ``dist_backend`` is the sharded engine's collective backend
     (``mesh_shape=(c,)``; ignored otherwise).  None means gloo on the CPU
@@ -487,8 +508,8 @@ def _run_host(rs: RunSpec, sc: Scenario, dev, algo_label: str,
     return TrainResult(history=history, final_metrics=final,
                        rates=_rates_np(strategy, algo_state, N),
                        empirical_rates=sel_history.mean(0),
-                       sel_history=sel_history, comp_history=comp_history,
-                       **streams)
+                       sel_history=sel_history, comp_history=comp_history
+                       ).with_streams(**streams)
 
 
 def _rates_np(strategy, algo_state, n: int) -> np.ndarray:

@@ -11,7 +11,7 @@ Port of ``repro.sim.spec`` with every field and the same
 ``NotImplementedError`` — before anything runs — what this port does not
 have yet: a 2-D ``mesh_shape`` ``(c, m)`` (the (clients, model) mesh,
 ROADMAP.md queue 1 item 11).  A 1-D ``(c,)`` runs the client-sharded
-engine; its collective backend is an argument of ``run_spec``
+engine; its collective backend is an argument of ``runner.run_spec_dist``
 (``dist_backend=``), not a field, so a spec file crosses between the
 packages.
 """

@@ -31,7 +31,7 @@ from typing import Callable, Optional, Sequence
 
 from ..device import resolve_device
 from .completion import COMPLETION_REGISTRY
-from .runner import run_spec
+from .runner import run_spec_dist
 from .scenario import SCENARIO_REGISTRY, get_scenario, list_scenarios
 from .spec import RunSpec
 
@@ -94,8 +94,8 @@ def run_sweep(scenarios: Sequence[str],
     results = {}
     for cell, cell_key, spec, path in cells:
         spec.save(os.path.join(out_dir, f"{cell}.spec.json"))
-        res = run_spec(spec, device=device, log_fn=lambda *_: None,
-                       dist_backend=dist_backend)
+        res = run_spec_dist(spec, dist_backend=dist_backend,
+                            log_fn=lambda *_: None, device=device)
         results[cell_key] = fm = res.final_metrics
         log_fn(f"sweep,{','.join(cell_key)},"
                f"acc={fm.get('test_acc', float('nan')):.4f},"

@@ -63,6 +63,20 @@ def test_plain_attention_matches_pallas_interpreter(shape, mode):
     _close(flash_attention(tq, tk, tv, **mode), want, "float32")
 
 
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_attention_matches_pallas_interpreter_at_head_dim_256(dtype,
+                                                                    mode):
+    """gemma-7b's head_dim, which the TPU kernel takes like any other, on
+    a small GQA shape: (1, 128, 4 heads, 2 KV heads, 256), blocks of 64."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(1, 128, 128, 4, 2, 256,
+                                         jnp.dtype(dtype), 2)
+    want = jflash(jq, jk, jv, bq=64, bk=64, interpret=True, **mode)
+    got = flash_attention(tq, tk, tv, **mode)
+    assert got.dtype == tq.dtype and tuple(got.shape) == (1, 128, 4, 256)
+    _close(got, want, dtype)
+
+
 # (B, Sq, Skv, H, KV, hd)
 _REF_SHAPES = [(1, 128, 128, 4, 4, 64),     # MHA
                (2, 256, 256, 4, 2, 64),     # GQA 2:1

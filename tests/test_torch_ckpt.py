@@ -29,6 +29,15 @@ from repro_torch.models import resnet as tresnet
 from repro_torch.models import rnn as trnn
 from repro_torch.models import softmax_reg as tsoftmax
 from repro_torch.tree import tree_leaves
+from torch_parity import one_intra_op_thread
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """The runs of both packages (the task cells' rounds) on one intra-op
+    thread: test workers share the cores."""
+    with one_intra_op_thread():
+        yield
 
 
 def _quiet(*args, **kwargs):

@@ -146,13 +146,17 @@ ATTN_MODES = [dict(causal=True, window=0, softcap=0.0),
 
 
 # (B, Sq, Skv, H, KV, hd): the shapes of tests/test_kernels.py, a ragged
-# length with G = 4, cross lengths, and the smallest head dim
+# length with G = 4, cross lengths, the smallest head dim, gemma-7b's
+# head dim (MHA, GQA and ragged) and qwen3-14b's group of 5
 @pytest.mark.parametrize("shape", [(1, 128, 128, 4, 4, 64),
                                    (2, 256, 256, 4, 2, 64),
                                    (1, 256, 256, 8, 1, 32),
                                    (1, 512, 512, 4, 2, 128),
                                    (2, 1000, 1000, 8, 2, 64),
-                                   (1, 100, 300, 4, 1, 16)])
+                                   (1, 100, 300, 4, 1, 16),
+                                   (1, 512, 512, 4, 4, 256),
+                                   (2, 300, 300, 8, 2, 256),
+                                   (1, 1024, 1024, 40, 8, 128)])
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-5),
                                        ("bfloat16", 2e-2)])
 def test_flash_attention_kernel_allclose(dev, shape, dtype, tol):
@@ -226,14 +230,17 @@ def test_flash_attention_rejects_misaligned_bf16(dev, which):
     assert flash_attention.launches == before
 
 
-def test_llama_smoke_prefill_card_matches_cpu(dev):
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen3-8b", "qwen3-14b",
+                                  "gemma-7b"])
+def test_llama_smoke_prefill_card_matches_cpu(dev, arch):
     """The smoke model's prefill through the kernel (2 launches) against
-    the same weights' CPU prefill through the plain attention."""
+    the same weights' CPU prefill through the plain attention, for each
+    dense arch."""
     from repro_torch import random as jr
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import transformer
-    cfg = get_arch("llama3.2-1b").smoke_model
+    cfg = get_arch(arch).smoke_model
     params = transformer.init_params(cfg, jr.PRNGKey(0, device="cpu"), "cpu")
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (2, 300)).astype(np.int32))

@@ -16,6 +16,7 @@ import numpy as np
 
 import repro.sim as jsim
 import repro_torch.sim as tsim
+from torch_parity import one_intra_op_thread
 
 ROUNDS = 300
 TOL = 1e-5
@@ -37,12 +38,15 @@ def runs(tmp_path_factory):
     res = {}
     jspec = jsim.RunSpec.from_json(spec_json).replace(
         metrics_path=str(out / "jax.jsonl"))
-    res["jax"] = (jsim.run_spec(jspec, log_fn=_quiet), _jsonl(out / "jax.jsonl"))
-    for impl in ("xla", "pallas"):
-        tspec = tsim.RunSpec.from_json(spec_json).replace(
-            select_impl=impl, metrics_path=str(out / f"torch_{impl}.jsonl"))
-        res[impl] = (tsim.run_spec(tspec, device="cpu", log_fn=_quiet),
-                     _jsonl(out / f"torch_{impl}.jsonl"))
+    with one_intra_op_thread():
+        res["jax"] = (jsim.run_spec(jspec, log_fn=_quiet),
+                      _jsonl(out / "jax.jsonl"))
+        for impl in ("xla", "pallas"):
+            tspec = tsim.RunSpec.from_json(spec_json).replace(
+                select_impl=impl,
+                metrics_path=str(out / f"torch_{impl}.jsonl"))
+            res[impl] = (tsim.run_spec(tspec, device="cpu", log_fn=_quiet),
+                         _jsonl(out / f"torch_{impl}.jsonl"))
     return res
 
 

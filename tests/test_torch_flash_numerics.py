@@ -12,6 +12,11 @@ lane within one bf16 step of the plain output (2^-7 of its magnitude plus
 single bf16 P, the usual tensor-core design, breaks that check; the last
 test shows it does.
 
+At head_dim 256 the kernel reads Q's fragments from shared memory each
+step rather than holding them in registers: the same products, so the
+same arithmetic, which the cases at gemma-7b's head_dim emulate; a group
+of 5 query heads a KV head (qwen3-14b) is emulated as well.
+
 The kernel skips tiles that the mask hides from every row of a block; the
 emulation visits them.  The result is the same: such a tile's weights are
 exp(-1e30 - m) = 0, or, before a row's first visible key, are rescaled away
@@ -23,6 +28,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ref  # noqa: E402
+from torch_parity import one_intra_op_thread  # noqa: E402
 
 BF16_STEP = 2.0 ** -7       # one bf16 step is at most 2^-7 of the magnitude
 BF16_STEP_ATOL = 1e-5
@@ -35,6 +41,16 @@ MODES = {"causal": dict(causal=True, window=0, softcap=0.0),
 # (B, S, H, KV, hd): tests/test_kernels.py's _ATTN_SHAPES
 SHAPES = [(1, 128, 4, 4, 64), (2, 256, 4, 2, 64), (1, 256, 8, 1, 32),
           (1, 512, 4, 2, 128)]
+# gemma-7b's head_dim (MHA and GQA) and qwen3-14b's group of 5
+WIDE_SHAPES = [(1, 256, 4, 4, 256), (1, 384, 4, 2, 256), (1, 256, 10, 2, 128)]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """The emulation's matmuls on one intra-op thread (test workers share
+    the cores)."""
+    with one_intra_op_thread():
+        yield
 
 
 def _inputs(shape, seed):
@@ -93,7 +109,7 @@ def _lanes_over_one_step(got, want):
 
 
 @pytest.mark.parametrize("mode", list(MODES))
-@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES + WIDE_SHAPES, ids=str)
 def test_split_p_within_one_bf16_step(shape, mode):
     q, k, v = _inputs(shape, sum(shape))
     got = _emulate(q, k, v, **MODES[mode])

@@ -32,7 +32,8 @@ SLICE_MODULES = [
     "repro_torch.data", "repro_torch.models.softmax_reg",
     "repro_torch.optim", "repro_torch.configs",
     "repro_torch.configs.common", "repro_torch.configs.llama3_2_1b",
-    "repro_torch.configs.mamba2_2_7b",
+    "repro_torch.configs.mamba2_2_7b", "repro_torch.configs.qwen3_8b",
+    "repro_torch.configs.qwen3_14b", "repro_torch.configs.gemma_7b",
     "repro_torch.models", "repro_torch.models.layers",
     "repro_torch.models.transformer", "repro_torch.models.ssm",
     "repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd_chunk",
@@ -141,9 +142,12 @@ def _entry_points():
     from repro_torch.models import resnet, rnn, transformer
     from repro_torch.data import SynthTask
     from repro_torch.launch.mesh import ClientMesh
-    from repro_torch.sim import (DeviceEngine, RunSpec, ShardedEngine,
+    from repro_torch.core import topk_strategy
+    from repro_torch.sim import (AsyncEngine, DeviceEngine, RunSpec,
+                                 ShardedEngine, build_engine,
                                  run_cells_vmapped, run_scenario,
-                                 run_scenario_buffered, run_spec, sweep)
+                                 run_scenario_buffered,
+                                 run_scenario_device, run_spec, sweep)
     llama = get_arch("llama3.2-1b").smoke_model
     mamba = get_arch("mamba2-2.7b").smoke_model
     return {
@@ -204,6 +208,13 @@ def _entry_points():
         "ShardedEngine": lambda: ShardedEngine(
             mesh=ClientMesh(), staged=SynthTask(n_clients=64),
             n_clients=64, **_engine_parts()),
+        "build_engine": lambda: build_engine("scarce"),
+        "run_scenario_device": lambda: run_scenario_device("scarce",
+                                                           rounds=1),
+        "topk_strategy": lambda: topk_strategy("toy", None, None, None),
+        "AsyncEngine": lambda: AsyncEngine(staged=None, arrival=None,
+                                           buffer_size=2, **_engine_parts()),
+        "serve(gemma)": lambda: serve("gemma-7b", steps=1, log_fn=None),
     }
 
 
@@ -250,7 +261,9 @@ def _engine_parts():
                                   "run_spec(mesh_shape)",
                                   "sweep.main(mesh_shape)",
                                   "DeviceEngine(SynthTask)",
-                                  "ShardedEngine"])
+                                  "ShardedEngine", "build_engine",
+                                  "run_scenario_device", "topk_strategy",
+                                  "AsyncEngine", "serve(gemma)"])
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device is usable")

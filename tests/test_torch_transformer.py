@@ -1,10 +1,14 @@
-"""The port's dense model zoo against the JAX package at the llama3.2-1b
-smoke config (2 layers, d 256, 8/2 heads, hd 32, vocab 512, f32): configs,
-layers, the whole model (``forward``, ``prefill``, 16 teacher-forced
-``decode_step``s, a sliding-window ring-buffer config), the ``serve``
-prompt, ``convert`` round trips and the deferred parts.  The weights are
-JAX's, carried across with ``repro_torch.convert``; inputs come from numpy
-with a seed.
+"""The port's dense model zoo against the JAX package at the smoke configs
+of its four dense archs: llama3.2-1b (2 layers, d 256, 8/2 heads, hd 32,
+vocab 512, f32), qwen3-8b (the same widths with qk_norm), qwen3-14b
+(d 320, 10/2 heads: a group of 5, qk_norm) and gemma-7b (d 256, 4/4
+heads, hd 64, GeGLU, tied embeddings).  Configs, ``init_params``, the
+whole model (``forward``, ``prefill``, 16 teacher-forced ``decode_step``s,
+a sliding-window ring-buffer config), the ``serve`` prompt and
+``convert`` round trips for each arch; the layers, the prefill step and
+the deferred parts at llama's.  The full configs' parameter counts are
+JAX's, counted on shapes alone.  The weights are JAX's, carried across
+with ``repro_torch.convert``; inputs come from numpy with a seed.
 
 Limits: 1e-4 on logits and 1e-5 on the KV cache in float32 (matmul
 summation order differs between XLA's and torch's CPU kernels).  In
@@ -17,6 +21,7 @@ absolute; the activations are spelled op for op as jax.nn spells them, so
 that each op alone rounds as JAX's does.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -28,6 +33,7 @@ import jax.numpy as jnp  # noqa: E402
 import ml_dtypes  # noqa: E402
 
 import repro.configs as jconfigs  # noqa: E402
+from repro.launch.specs import count_params  # noqa: E402
 from repro.models import get_model_api as jget_model_api  # noqa: E402
 from repro.models import layers as jL  # noqa: E402
 from repro.models import transformer as jT  # noqa: E402
@@ -46,6 +52,11 @@ TSPEC = tconfigs.get_arch("llama3.2-1b")
 SMOKE_J = JSPEC.smoke_model
 SMOKE_T = TSPEC.smoke_model
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the JAX package's dense archs, all ported
+DENSE = ["llama3.2-1b", "qwen3-8b", "qwen3-14b", "gemma-7b"]
+# JAX's parameter counts of the full configs
+FULL_PARAMS = {"llama3.2-1b": 1_235_814_400, "qwen3-8b": 8_190_735_360,
+               "qwen3-14b": 14_768_307_200, "gemma-7b": 8_537_680_896}
 
 
 def _logits_close(got, want, dtype):
@@ -90,10 +101,18 @@ def _one_intra_op_thread():
     torch.set_num_threads(n)
 
 
+@functools.lru_cache(maxsize=None)
+def _smoke_params(arch):
+    """JAX's seed-0 parameters of ``arch``'s smoke config, and the port's
+    copy of them."""
+    jp = jT.init_params(jconfigs.get_arch(arch).smoke_model,
+                        jax.random.PRNGKey(0))
+    return jp, _to_torch(jp)
+
+
 @pytest.fixture(scope="module")
 def smoke_params():
-    jp = jT.init_params(SMOKE_J, jax.random.PRNGKey(0))
-    return jp, _to_torch(jp)
+    return _smoke_params("llama3.2-1b")
 
 
 # ---------------------------------------------------------------------------
@@ -101,26 +120,46 @@ def smoke_params():
 # ---------------------------------------------------------------------------
 
 
-def test_configs_equal_field_by_field():
+@pytest.mark.parametrize("arch", DENSE)
+def test_configs_equal_field_by_field(arch):
+    jspec, tspec = jconfigs.get_arch(arch), tconfigs.get_arch(arch)
     for attr in ("model", "smoke_model"):
-        assert (dataclasses.asdict(getattr(TSPEC, attr))
-                == dataclasses.asdict(getattr(JSPEC, attr)))
+        assert (dataclasses.asdict(getattr(tspec, attr))
+                == dataclasses.asdict(getattr(jspec, attr)))
     for f in ("arch_id", "source", "notes"):
-        assert getattr(TSPEC, f) == getattr(JSPEC, f)
+        assert getattr(tspec, f) == getattr(jspec, f)
     # the ported (prefill) shapes are JAX's, and take the full model as is
     assert set(tconfigs.INPUT_SHAPES) == {"prefill_32k"}
     for shape, spec in tconfigs.INPUT_SHAPES.items():
         assert spec == jconfigs.INPUT_SHAPES[shape]
-        assert (dataclasses.asdict(TSPEC.model)
-                == dataclasses.asdict(JSPEC.model_for_shape(shape)))
+        assert (dataclasses.asdict(tspec.model)
+                == dataclasses.asdict(jspec.model_for_shape(shape)))
     # the defaults of the dataclass too
     assert dataclasses.asdict(tL.ModelConfig()) == dataclasses.asdict(
         jL.ModelConfig())
-    assert TSPEC.model.torch_dtype == torch.bfloat16
+    assert tspec.model.torch_dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_full_config_counts_jax_parameters(arch, monkeypatch):
+    """The full config's tree, counted on shapes alone: every drawn leaf
+    is made empty on the meta device instead of drawn (the norms, zeros,
+    are small), and JAX's count comes from ``eval_shape``."""
+    def shape_only(keys, shape, scale, dtype, *, divide=False):
+        return torch.empty(tuple(keys.shape[:-1]) + tuple(shape),
+                           dtype=dtype, device="meta")
+
+    monkeypatch.setattr(tL, "_normal", shape_only)
+    monkeypatch.setattr(tT, "_normal", shape_only)
+    cfg = tconfigs.get_arch(arch).model
+    p = tT.init_params(cfg, jr.PRNGKey(0, device="cpu"), device="cpu")
+    n = sum(t.numel() for t in jax.tree.leaves(p))
+    assert n == count_params(jconfigs.get_arch(arch).model) \
+        == FULL_PARAMS[arch]
 
 
 def test_deferred_archs_raise_naming_their_item():
-    others = sorted(set(jconfigs.ARCHS) - {"llama3.2-1b", "mamba2-2.7b"})
+    others = sorted(set(jconfigs.ARCHS) - set(DENSE) - {"mamba2-2.7b"})
     assert sorted(tconfigs.DEFERRED_ARCHS) == others
     for arch in others:
         with pytest.raises(NotImplementedError, match="queue 1 item 12"):
@@ -198,11 +237,13 @@ def test_mlp_block_matches_jax(mlp):
 
 
 @pytest.mark.parametrize("seed", (0, 3))
-def test_init_params_has_jax_shapes_dtypes_and_scales(seed):
+@pytest.mark.parametrize("arch", DENSE)
+def test_init_params_has_jax_shapes_dtypes_and_scales(arch, seed):
     """Every leaf, drawn or not, is JAX's byte for byte: the same key tree
     and XLA's normal (float32, and bfloat16 with an untied unembed)."""
-    for jcfg in (SMOKE_J, SMOKE_J.replace(dtype="bfloat16",
-                                          tie_embeddings=False)):
+    smoke = jconfigs.get_arch(arch).smoke_model
+    for jcfg in (smoke, smoke.replace(dtype="bfloat16",
+                                      tie_embeddings=False)):
         jp = jax.tree.map(np.asarray,
                           jT.init_params(jcfg, jax.random.PRNGKey(seed)))
         tp = params_to_numpy(tT.init_params(_tcfg(jcfg),
@@ -217,8 +258,9 @@ def test_init_params_has_jax_shapes_dtypes_and_scales(seed):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_forward_and_prefill_match_jax(dtype):
-    jcfg = SMOKE_J.replace(dtype=dtype)
+@pytest.mark.parametrize("arch", DENSE)
+def test_forward_and_prefill_match_jax(arch, dtype):
+    jcfg = jconfigs.get_arch(arch).smoke_model.replace(dtype=dtype)
     jp = jT.init_params(jcfg, jax.random.PRNGKey(1))
     tp, tcfg = _to_torch(jp), _tcfg(jcfg)
     jt, tt = _tokens(jcfg, 2, 40, 3)
@@ -248,15 +290,17 @@ def _decode_both(jcfg, jp, tp, steps, max_len):
 
 
 @pytest.mark.parametrize("window", [0, 8], ids=["full", "ring8"])
-def test_decode_steps_match_jax(smoke_params, window):
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_steps_match_jax(arch, window):
     """16 teacher-forced steps; with window 8 and max_len 16 the cache is
     an 8-slot ring buffer that wraps twice."""
+    smoke = jconfigs.get_arch(arch).smoke_model
     if window:
-        jcfg = SMOKE_J.replace(sliding_window=window)
+        jcfg = smoke.replace(sliding_window=window)
         jp = jT.init_params(jcfg, jax.random.PRNGKey(2))
         tp = _to_torch(jp)
     else:
-        jcfg, (jp, tp) = SMOKE_J, smoke_params
+        jcfg, (jp, tp) = smoke, _smoke_params(arch)
     for jlog, tlog, jst, tst in _decode_both(jcfg, jp, tp, 16, 16):
         assert _max_err(tlog, jlog) < 1e-4
         assert int(tst["index"]) == int(jst["index"])
@@ -276,14 +320,16 @@ def test_window_forward_matches_jax():
     assert _max_err(tlog, jlog) < 1e-4
 
 
-def test_prefill_matches_decode(smoke_params):
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_matches_decode(arch):
     """prefill's last logits == stepping the prompt through decode_step."""
-    _, tp = smoke_params
-    _, tt = _tokens(SMOKE_J, 1, 24, 7)
-    pre = tT.prefill(SMOKE_T, tp, {"tokens": tt})
-    st = tT.init_decode_state(SMOKE_T, 1, 24, device="cpu")
+    _, tp = _smoke_params(arch)
+    smoke = tconfigs.get_arch(arch).smoke_model
+    _, tt = _tokens(smoke, 1, 24, 7)
+    pre = tT.prefill(smoke, tp, {"tokens": tt})
+    st = tT.init_decode_state(smoke, 1, 24, device="cpu")
     for i in range(24):
-        lg, st = tT.decode_step(SMOKE_T, tp, st, tt[:, i:i + 1])
+        lg, st = tT.decode_step(smoke, tp, st, tt[:, i:i + 1])
     assert _max_err(lg, pre) < 2e-3
 
 
@@ -318,15 +364,17 @@ def test_get_model_api_matches_module(smoke_params):
 
 
 @pytest.mark.parametrize("seed", [0, 7])
-def test_serve_prompt_is_jax_prompt(seed):
+@pytest.mark.parametrize("arch", DENSE)
+def test_serve_prompt_is_jax_prompt(arch, seed):
+    vocab = jconfigs.get_arch(arch).smoke_model.vocab
     _, _, jk = jax.random.split(jax.random.PRNGKey(seed), 3)
-    want = np.asarray(jax.random.randint(jk, (4, 16), 0, SMOKE_J.vocab))
-    res = tserve.serve("llama3.2-1b", steps=3, seed=seed, device="cpu",
+    want = np.asarray(jax.random.randint(jk, (4, 16), 0, vocab))
+    res = tserve.serve(arch, steps=3, seed=seed, device="cpu",
                        log_fn=lambda *a: None)
     assert res.prompt.dtype == want.dtype
     assert res.prompt.tobytes() == want.tobytes()
     assert res.tokens.shape == (4, 3)
-    assert ((res.tokens >= 0) & (res.tokens < SMOKE_J.vocab)).all()
+    assert ((res.tokens >= 0) & (res.tokens < vocab)).all()
 
 
 def test_serve_launches_no_flash_kernel():
@@ -341,8 +389,10 @@ def test_serve_launches_no_flash_kernel():
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-def test_convert_round_trip_nested_byte_for_byte(dtype):
-    jp = jT.init_params(SMOKE_J.replace(dtype=jnp.dtype(dtype).name),
+@pytest.mark.parametrize("arch", DENSE)
+def test_convert_round_trip_nested_byte_for_byte(arch, dtype):
+    smoke = jconfigs.get_arch(arch).smoke_model
+    jp = jT.init_params(smoke.replace(dtype=jnp.dtype(dtype).name),
                         jax.random.PRNGKey(4))
     src = jax.tree.map(np.asarray, jp)
     back = params_to_numpy(params_from_numpy(src, device="cpu"))
@@ -353,7 +403,10 @@ def test_convert_round_trip_nested_byte_for_byte(dtype):
         assert a.dtype == b.dtype and a.shape == b.shape, path
         assert a.tobytes() == b.tobytes(), path
     t = params_from_numpy(src, device="cpu")
-    assert t["blocks"]["attn"]["wq"].shape[0] == SMOKE_J.n_layers
+    assert t["blocks"]["attn"]["wq"].shape[0] == smoke.n_layers
+    if smoke.qk_norm:
+        assert t["blocks"]["attn"]["q_norm"].shape == (smoke.n_layers,
+                                                       smoke.head_dim)
     if dtype == jnp.bfloat16:
         assert t["embed"].dtype == torch.bfloat16
         assert back["embed"].dtype == ml_dtypes.bfloat16
