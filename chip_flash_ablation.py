@@ -176,7 +176,8 @@ def main() -> int:
     def call(fn, q, k, v):
         B, Sq, H, hd = q.shape
         o = torch.empty_like(q)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1,
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 None, 1,
                  B, Sq, k.shape[1], H, k.shape[2], hd, *q.stride()[:3],
                  *k.stride()[:3], *v.stride()[:3], 1, 0, 0.0,
                  ref.attn_scale(hd), torch.cuda.current_stream().cuda_stream)

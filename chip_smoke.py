@@ -44,12 +44,13 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  train loss and delta norm within 1e-4;
 5a. ``scenarios`` the paper's grid on the card: scenarios always, scarce,
                  homedevices, smartphones and uneven × strategies f3ast,
-                 fedavg and fedadam at GRID_ROUNDS (150), every other
+                 fedavg and fedadam at GRID_ROUNDS (100), every other
                  scenario under f3ast and uniform, fedavg_weighted and
                  fixed_f3ast (with an r_target) on homedevices and dropout
-                 at 60 rounds; each cell held to the port's CPU run of the
-                 same spec (run meanwhile in spawned worker processes) as
-                 main_path holds its run, and its launches counted:
+                 at SHORT_ROUNDS (40); each cell held to the port's CPU run
+                 of the same spec (run meanwhile in spawned worker
+                 processes) as main_path holds its run, and its launches
+                 counted:
                  fed_select_mask once a round on dropout and straggler
                  (their completion hook splits the cut from the EMA and
                  weights), fed_select once a round elsewhere,
@@ -83,14 +84,14 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  bitwise the CPU and the main_path device run (masks, K_t,
                  |avail|, r_k), with checkpoints every 100 rounds whose
                  last one, restored onto the CPU, is bitwise the run's
-                 final r_k and parameters; under poc, 300 rounds
+                 final r_k and parameters; under poc, 150 rounds
                  (fed_select_mask twice a round), the fresh losses within
                  1e-5 relative and the masks bitwise in every round whose
                  cut margin clears the card-vs-CPU loss gap (the rounds
                  compared and any round under its margin reported; one
                  pass of fresh losses timed); on dropout, 60 rounds,
                  bitwise the card's device run too; the buffered server
-                 on straggler, device and host executors, 300 rounds,
+                 on straggler, device and host executors, 150 rounds,
                  masks, every async_history field and r_k bitwise the CPU
                  and each other; the Shakespeare (820,522) and CIFAR
                  (310,116) task cells on the host loop and Shakespeare on
@@ -150,6 +151,22 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  beside the bound (the larger of bytes over 3.35 TB/s and
                  the unmasked QK^T + PV flops over 989 TFLOP/s bf16), the
                  bf16 route's TFLOP/s and its share of the bound;
+8a. ``flash_backward`` holds the backward kernel (``flash_attention_bwd``)
+                 against its plain version (``ref.sdpa_bwd``) on the same
+                 q, k, v, do and the plain forward's o and lse: float32 and
+                 bf16, head dims 32, 64, 128 and 256, groups of 1, 4 and 5
+                 query heads a KV head, causal, window 64 and soft-cap 30,
+                 Sq = Skv = 128 (B = 2) and 1000 (ragged), plus head dim
+                 16, a non-causal case and llama3.2-1b's training layer
+                 (1, 4096, 32, 8, 64) in both dtypes: float32 gradients
+                 within 1e-5 of their largest magnitude, bf16 lanes within
+                 one bf16 step plus 1e-5 of it, and every case run twice
+                 bit for bit (the kernel has no atomics);
+8b. ``flash_bwd_timing`` median CUDA-event times of the backward kernel
+                 (bf16 and float32 inputs), its plain version, and SDPA's
+                 backward ((forward + backward) - forward, both recording
+                 a gradient) at llama's training layer, beside the bound
+                 (the five products of the backward over 989 TFLOP/s bf16);
 9. ``serve_path`` drives llama3.2-1b at full width (its ``init_params``
                  timed on the card): (a) one ``prefill``
                  of B = 1, S = 8192 (16 layers, bf16) with the launch count
@@ -180,6 +197,21 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  whole: ``sampled_init_check``), then the card's float32
                  prefill (S = 512, 2 launches) within 1e-4 of the CPU's on
                  the same weights;
+9b. ``zoo_train`` trains llama3.2-1b at full width (16 layers, d 2048,
+                 the tied 128,256-token vocabulary, bf16, random weights)
+                 through ``launch.steps.build_train_step(arch, "train_4k")``
+                 (the arch's FedExec: the parallel round, per-layer remat,
+                 Adam) and ``launch.train.federated_rounds`` (the loop of
+                 ``run_arch_smoke``: f3ast over 16 ``scarce`` clients),
+                 K = 2, E = 2, B = 1, S = 4096 (cut from K = 32, B = 8):
+                 one warm-up round and 3 timed, each launching fed_select
+                 and fed_aggregate once, the flash forward 2 x 16 x E and
+                 its backward 16 x E times, with finite losses; the peak
+                 memory and a profiled round; then one round at the full
+                 widths, depth 2, float32, K = 2, E = 1, B = 1, S = 512 on
+                 the card and in a spawned CPU worker from the card's
+                 parameters: masks bitwise, loss and delta norm within
+                 1e-4 relative;
 10. ``ssd_chunk`` holds the Mamba-2 SSD kernel against its plain version
                  (``ref.ssd_chunk_ref``) in float32 (the CUDA-core route)
                  and with bf16 x, Bm, Cm (the tensor-core route) at the
@@ -227,6 +259,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -691,8 +724,8 @@ BASELINE_ALGORITHMS = ("uniform", "fedavg_weighted", "fixed_f3ast")
 # The paper grid's rounds: RunSpec()'s 300 cut to 150 when the dense
 # archs joined the script (each grid cell took ~13 s of the phase's 262
 # at 300), to keep the script well inside its time limit.
-GRID_ROUNDS = 150
-SHORT_ROUNDS = 60
+GRID_ROUNDS = 100
+SHORT_ROUNDS = 40
 CPU_WORKERS = 4
 # completion processes that split the cut from the EMA and weights, so the
 # round takes fed_select_mask instead of the fused fed_select
@@ -1193,6 +1226,7 @@ def paper_tasks(torch, dev):
 # ---------------------------------------------------------------------------
 
 HOST_ROUNDS = 300
+HOST_POC_BUFFERED_ROUNDS = 150
 HOST_SHORT_ROUNDS = 60
 HOST_TASK_ROUNDS = 10
 HOST_CELLS_SEEDS, HOST_CELLS_CAPS = [0, 1, 2, 3], [3, 5, 10, 10]
@@ -1223,7 +1257,7 @@ def host_async_cells():
                                rounds=HOST_TASK_ROUNDS, eval_every=5), 2,
          sync),
         ("host/poc", RunSpec(strategy="poc", engine="host",
-                             rounds=HOST_ROUNDS), 1,
+                             rounds=HOST_POC_BUFFERED_ROUNDS), 1,
          dict(fed_select=0, fed_select_mask=2, fed_aggregate=1)),
         ("host/f3ast", RunSpec(engine="host", rounds=HOST_ROUNDS), 1, sync),
         ("host/dropout", RunSpec(scenario="dropout", engine="host",
@@ -1231,10 +1265,11 @@ def host_async_cells():
          dict(fed_select=0, fed_select_mask=1, fed_aggregate=1)),
         ("buffered/device", RunSpec(scenario="straggler",
                                     aggregation="buffered",
-                                    rounds=HOST_ROUNDS), 1, sync),
+                                    rounds=HOST_POC_BUFFERED_ROUNDS), 1,
+         sync),
         ("buffered/host", RunSpec(scenario="straggler",
                                   aggregation="buffered", engine="host",
-                                  rounds=HOST_ROUNDS), 1, sync),
+                                  rounds=HOST_POC_BUFFERED_ROUNDS), 1, sync),
     ]
     return [(name, spec.to_json(), threads, want)
             for name, spec, threads, want in cells]
@@ -1795,6 +1830,148 @@ def time_flash_shape(torch, dev, shape):
     row["tflops_per_s"] = flops / row["ms"] / 1e9
     row["bound_share"] = b / row["ms"]
     emit(dict(phase="flash_timing", kernel=row))
+    return row
+
+
+# ---------------------------------------------------------------------------
+# flash_attention's backward
+# ---------------------------------------------------------------------------
+
+BWD_MODES = {"causal": dict(causal=True, window=0, softcap=0.0),
+             "window64": dict(causal=True, window=64, softcap=0.0),
+             "softcap30": dict(causal=True, window=0, softcap=30.0)}
+BWD_HEAD_DIMS = (32, 64, 128, 256)
+BWD_GROUPS = (1, 4, 5)                # query heads a KV head
+BWD_LENGTHS = ((2, 128), (1, 1000))   # (B, Sq = Skv); 1000 is ragged
+LLAMA_TRAIN_ATTN = (1, 4096, 32, 8, 64)   # llama3.2-1b's training layer
+# Kernel and plain backward both form every product and sum in float32, in
+# other orders.  float32: each gradient within BWD_F32_TOL of its largest
+# reference magnitude.  bf16: both round one float32 result once, so a
+# lane may differ by one bf16 step of its magnitude, plus what the float32
+# summation order moves a lane that cancels to near zero (BWD_BF16_ATOL of
+# the largest magnitude).
+BWD_F32_TOL = 1e-5
+BWD_BF16_ATOL = 1e-5
+
+
+def bwd_inputs(torch, dev, shape, dtype, mode, seed):
+    """q, k, v and do of ``shape`` (B, S, H, KV, hd), and the plain
+    forward's o and lse on them."""
+    from repro_torch.kernels import ref
+    q, k, v = attn_inputs(torch, dev, shape, dtype, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+    o, lse = ref.sdpa_lse(q, k, v, **mode)
+    return q, k, v, o, lse, do
+
+
+def bwd_cases(torch):
+    cases = [((B, S, 2 * G, 2, hd), dtype, mode)
+             for dtype in (torch.float32, torch.bfloat16)
+             for hd in BWD_HEAD_DIMS for G in BWD_GROUPS
+             for B, S in BWD_LENGTHS for mode in BWD_MODES]
+    cases += [((2, 256, 4, 2, 16), torch.bfloat16, "causal"),
+              ((1, 1000, 8, 8, 64), torch.float32, "full"),
+              (LLAMA_TRAIN_ATTN, torch.bfloat16, "causal"),
+              (LLAMA_TRAIN_ATTN, torch.float32, "causal")]
+    return cases
+
+
+def check_flash_backward(torch, dev):
+    """The backward kernel against ``ref.sdpa_bwd`` on the same q, k, v,
+    o, lse and do; each case run twice, bitwise."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    modes = dict(BWD_MODES, full=dict(causal=False, window=0, softcap=0.0))
+    rows, max_err = [], {}
+    for i, (shape, dtype, mode) in enumerate(bwd_cases(torch)):
+        q, k, v, o, lse, do = bwd_inputs(torch, dev, shape, dtype,
+                                         modes[mode], 300 + i)
+        got = flash_attention_bwd(q, k, v, o, lse, do, **modes[mode])
+        again = flash_attention_bwd(q, k, v, o, lse, do, **modes[mode])
+        want = ref.sdpa_bwd(q, k, v, o, lse, do, **modes[mode])
+        torch.cuda.synchronize()
+        dname = str(dtype).split(".")[-1]
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok, errs = bitwise, {}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            gf, wf = g.float(), w.float()
+            diff = (gf - wf).abs()
+            scale = float(wf.abs().max())
+            err = float(diff.max())
+            if dtype == torch.bfloat16:
+                over = diff - BF16_STEP * wf.abs() - BWD_BF16_ATOL * scale
+                worst = float(over.max())
+                ok = ok and worst <= 0.0
+            else:
+                worst = err - BWD_F32_TOL * scale
+                ok = ok and worst <= 0.0
+            ok = (ok and g.dtype == dtype and g.shape == w.shape
+                  and bool(torch.isfinite(gf).all()))
+            errs[name] = [err, scale]
+            max_err[dname] = max(max_err.get(dname, 0.0), err)
+        rows.append(dict(shape=list(shape), dtype=dname, mode=mode,
+                         max_abs_err_and_ref_max=errs, bitwise_rerun=bitwise,
+                         ok=ok))
+        if not ok:
+            raise AssertionError(
+                f"flash_attention_bwd {shape} {dtype} {mode}: errors "
+                f"{errs} (max |err|, reference max), bitwise rerun "
+                f"{bitwise}; limits: float32 {BWD_F32_TOL} of the reference "
+                f"max, bf16 one step + {BWD_BF16_ATOL} of it")
+        del q, k, v, o, lse, do, got, again, want
+    emit(dict(phase="flash_backward", cases=len(rows),
+              all_bitwise_rerun=all(r["bitwise_rerun"] for r in rows),
+              max_abs_err_by_dtype=max_err, checks=rows))
+    return max(max_err.values())
+
+
+def time_flash_backward(torch, dev):
+    """The backward at llama's training layer, bf16 (and float32), causal:
+    the kernel, its plain version, and SDPA's backward ((forward +
+    backward) - forward, both recording a gradient), beside the bound (the
+    five products of the backward over 989 TFLOP/s bf16)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    B, S, H, KV, hd = LLAMA_TRAIN_ATTN
+    mode = BWD_MODES["causal"]
+    q, k, v, o, lse, do = bwd_inputs(torch, dev, LLAMA_TRAIN_ATTN,
+                                     torch.bfloat16, mode, 200)
+    pairs = attn_pairs(S, S, True, 0)
+    flops = 10.0 * B * H * hd * pairs        # S, dP, dV, dK, dQ
+    # q, o, do, dq and k, v, dk, dv in bf16, lse in float32
+    nbytes = 2 * 4 * (B * S * H * hd + B * S * KV * hd) + 4 * B * H * S
+    b, by = bound_ms(nbytes, flops, peak=BF16_FLOPS)
+    f32 = [x.float() for x in (q, k, v, o)] + [lse, do.float()]
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    fwd_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qt, kt, vt),
+                                                  dot), warmup=3, runs=15)
+    row = dict(shape=list(LLAMA_TRAIN_ATTN), dtype="bfloat16", mode="causal",
+               ms=cuda_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                      **mode),
+                          warmup=2, runs=9),
+               f32_ms=cuda_ms(lambda: flash_attention_bwd(*f32, **mode),
+                              warmup=1, runs=5),
+               plain_ms=cuda_ms(lambda: ref.sdpa_bwd(q, k, v, o, lse, do,
+                                                     **mode),
+                                warmup=1, runs=5),
+               library_fwd_bwd_ms=fwd_bwd,
+               library_fwd_ms=cuda_ms(sdpa_fwd, warmup=3, runs=15),
+               bound_ms=b, bound_by=by, flops=flops, bytes=nbytes)
+    row["library_ms"] = row["library_fwd_bwd_ms"] - row["library_fwd_ms"]
+    row["tflops_per_s"] = flops / row["ms"] / 1e9
+    row["bound_share"] = b / row["ms"]
+    emit(dict(phase="flash_bwd_timing", kernel=row))
     return row
 
 
@@ -2560,6 +2737,194 @@ def dense_path(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# zoo_train: llama3.2-1b's federated round at full width
+# ---------------------------------------------------------------------------
+
+ZOO_ARCH = "llama3.2-1b"
+ZOO_SHAPE = (2, 2, 1, 4096)         # K, E, B, S; FedExec's K = 32, B = 8
+ZOO_ROUNDS = 4                      # the first is the warm-up
+ZOO_DEPTH2_SHAPE = (2, 1, 1, 512)   # the card-vs-CPU round, float32
+ZOO_CPU_THREADS = 5
+ZOO_TOL = 1e-4                      # loss and delta norm, relative
+
+
+def zoo_depth2_arch():
+    """llama3.2-1b at its full widths, 2 layers, float32, E = 1."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    arch = get_arch(ZOO_ARCH)
+    return dataclasses.replace(
+        arch, model=arch.model.replace(n_layers=2, dtype="float32"),
+        fed=dataclasses.replace(arch.fed, local_steps=ZOO_DEPTH2_SHAPE[1]))
+
+
+def zoo_round_cpu(src: str, path: str, threads: int, results) -> None:
+    """The depth-2 round on the CPU (a spawned worker), from the card's
+    parameters saved at ``path``."""
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import federated_rounds
+
+    torch.set_num_threads(threads)
+    arch = zoo_depth2_arch()
+    fed_round, opt, _ = build_train_step(arch, "train_4k", device="cpu")
+    params = torch.load(path)
+    t0 = time.perf_counter()
+    (_, sel, m), = federated_rounds(fed_round, params, opt.init(params),
+                                    jr.PRNGKey(1, device="cpu"),
+                                    vocab=arch.model.vocab,
+                                    shape=ZOO_DEPTH2_SHAPE, rounds=1)
+    results.put(dict(mask=sel.numpy(), loss=float(m.loss),
+                     delta_norm=float(m.delta_norm),
+                     wall_s=time.perf_counter() - t0))
+
+
+def zoo_launches():
+    from repro_torch.kernels.fed_aggregate import fed_aggregate
+    from repro_torch.kernels.fed_select import fed_select
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    return dict(fed_select=fed_select.launches,
+                fed_aggregate=fed_aggregate.launches,
+                flash_attention=flash_attention.launches,
+                flash_attention_bwd=flash_attention_bwd.launches)
+
+
+def zoo_reset():
+    from repro_torch.kernels.fed_aggregate import fed_aggregate
+    from repro_torch.kernels.fed_select import reset_launches
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    reset_launches()
+    fed_aggregate.launches = flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+
+
+def zoo_train(torch, dev):
+    """llama3.2-1b trained through ``launch.steps.build_train_step`` and the
+    loop of ``launch.train.run_arch_smoke`` (``federated_rounds``) at full
+    width, then the depth-2 float32 round against the CPU's.  Returns the
+    launches of the full-width rounds."""
+    import multiprocessing
+    from repro_torch import random as jr
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import federated_rounds
+    from repro_torch.models import transformer
+
+    # the depth-2 parameters first, so the CPU's round runs meanwhile
+    arch2 = zoo_depth2_arch()
+    key2 = jr.PRNGKey(1, device=dev)
+    p2 = transformer.init_params(arch2.model, key2, dev)
+    path = ROOT / "build" / "zoo_depth2_params.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(_tree_to(p2, "cpu"), path)
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    proc = ctx.Process(target=zoo_round_cpu, args=(
+        str(ROOT / "src"), str(path), ZOO_CPU_THREADS, results), daemon=True)
+    proc.start()
+
+    try:
+        arch = get_arch(ZOO_ARCH)
+        cfg = arch.model
+        fed_round, opt, spec_shapes = build_train_step(arch, "train_4k")
+        K, E, B, S = ZOO_SHAPE
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, init_s = timed_init(torch, transformer, cfg, 0, dev)
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        rounds = federated_rounds(fed_round, params, opt.init(params),
+                                  jr.PRNGKey(0, device=dev),
+                                  vocab=cfg.vocab, shape=ZOO_SHAPE,
+                                  rounds=ZOO_ROUNDS + 1)
+        del params                  # the loop holds them
+        L = cfg.n_layers
+        want = dict(fed_select=1, fed_aggregate=1, flash_attention=2 * L * E,
+                    flash_attention_bwd=L * E)
+        per_round, total = [], dict.fromkeys(want, 0)
+        for _ in range(ZOO_ROUNDS):
+            zoo_reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t, sel, m = next(rounds)
+            loss, dnorm = float(m.loss), float(m.delta_norm)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+            got = zoo_launches()
+            per_round.append(dict(round=t, wall_ms=wall, loss=loss,
+                                  delta_norm=dnorm,
+                                  selected=sel.nonzero().flatten().tolist(),
+                                  launches=got))
+            total = {n: total[n] + got[n] for n in want}
+            if got != want or not all(map(math.isfinite, (loss, dnorm))):
+                raise AssertionError(f"zoo_train round {t}: launches {got} "
+                                     f"(want {want}), loss {loss}, delta "
+                                     f"norm {dnorm}")
+        peak = torch.cuda.max_memory_allocated()
+        profiled = device_profile(torch, lambda: next(rounds),
+                                  kernel_name="flash")[0]
+        del rounds
+        torch.cuda.empty_cache()
+        tokens = K * E * B * S
+        pairs = attn_pairs(S, S, True, 0)
+        attn_flops = L * K * B * E * cfg.n_heads * cfg.head_dim * pairs \
+            * (2 * 4 + 10)          # the forward twice (remat), backward
+        flops = 8.0 * n_params * tokens + attn_flops
+        steady = sum(r["wall_ms"] for r in per_round[1:]) \
+            / (len(per_round) - 1)
+        full = dict(arch=ZOO_ARCH, layers=L, dtype=cfg.dtype,
+                    n_params=n_params, init_params_s=init_s,
+                    spec_batch=[list(x.shape) for x in spec_shapes.values()],
+                    cohort_K_E_B_S=list(ZOO_SHAPE), tokens_per_round=tokens,
+                    remat=arch.fed.remat, mode=arch.fed.cohort_mode,
+                    server_opt=arch.fed.server_opt,
+                    launches_per_round=want, rounds=per_round,
+                    steady_round_ms=steady, peak_memory_gb=peak / 1e9,
+                    flops_per_round=flops,
+                    tflops_per_s=flops / steady / 1e9, profiled=profiled)
+
+        # depth 2, float32: the card's round against the CPU's
+        fed2, opt2, _ = build_train_step(arch2, "train_4k")
+        zoo_reset()
+        (_, sel2, m2), = federated_rounds(fed2, p2, opt2.init(p2), key2,
+                                          vocab=cfg.vocab,
+                                          shape=ZOO_DEPTH2_SHAPE, rounds=1)
+        card = dict(mask=sel2.cpu().numpy(), loss=float(m2.loss),
+                    delta_norm=float(m2.delta_norm))
+        got2 = zoo_launches()
+        del p2
+        cpu = finish_cpu(proc, results, timeout=900)
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join()
+        path.unlink(missing_ok=True)
+    if cpu is None:
+        raise AssertionError("zoo_train: the CPU's depth-2 round gave no "
+                             "result")
+    rel = {f: abs(card[f] - cpu[f]) / abs(cpu[f])
+           for f in ("loss", "delta_norm")}
+    want2 = dict(fed_select=1, fed_aggregate=1, flash_attention=4,
+                 flash_attention_bwd=2)
+    bitwise = card["mask"].tobytes() == cpu["mask"].tobytes()
+    if not (bitwise and got2 == want2 and max(rel.values()) <= ZOO_TOL):
+        raise AssertionError(f"zoo_train depth 2: masks bitwise {bitwise}, "
+                             f"launches {got2} (want {want2}), relative "
+                             f"errors {rel} over {ZOO_TOL}")
+    emit(dict(phase="zoo_train", full_width=full, depth2=dict(
+        shape=list(ZOO_DEPTH2_SHAPE), dtype="float32", launches=got2,
+        mask_bitwise_vs_cpu=bitwise, card_loss=card["loss"],
+        cpu_loss=cpu["loss"], card_delta_norm=card["delta_norm"],
+        cpu_delta_norm=cpu["delta_norm"], relative_errors=rel, tol=ZOO_TOL,
+        cpu_wall_s=cpu["wall_s"], cpu_threads=ZOO_CPU_THREADS)))
+    return total
+
+
+# ---------------------------------------------------------------------------
 # ssd_chunk
 # ---------------------------------------------------------------------------
 
@@ -2884,9 +3249,13 @@ def main(argv) -> int:
     phase("init", check_init, torch, dev)
     attn_err = phase("flash_attention", check_flash_attention, torch, dev)
     t_attn = phase("flash_timing", time_flash_attention, torch, dev)
+    bwd_err = phase("flash_backward", check_flash_backward, torch, dev)
+    t_bwd = phase("flash_bwd_timing", time_flash_backward, torch, dev)
     flash_launches = phase("serve_path", serve_path, torch, dev,
                            t_attn["ms"])
     flash_launches += phase("dense_path", dense_path, torch, dev)
+    zoo = phase("zoo_train", zoo_train, torch, dev)
+    flash_launches += zoo["flash_attention"]
     ssd_err = phase("ssd_chunk", check_ssd_chunk, torch, dev)
     t_ssd = phase("ssd_timing", time_ssd, torch, dev)
     ssd_launches = phase("mamba_path", mamba_path, torch, dev, t_ssd["ms"])
@@ -2902,7 +3271,7 @@ def main(argv) -> int:
              launches=(launches["fed_select"] + grid_launches["fed_select"]
                        + task_launches["fed_select"]
                        + host_launches["fed_select"]
-                       + client_launches["fed_select"]),
+                       + client_launches["fed_select"] + zoo["fed_select"]),
              max_abs_err=sel_err,
              shape=[1 << 20], **{k: t_sel[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
@@ -2923,7 +3292,8 @@ def main(argv) -> int:
                        + grid_launches["fed_aggregate"]
                        + task_launches["fed_aggregate"]
                        + host_launches["fed_aggregate"]
-                       + client_launches["fed_aggregate"]),
+                       + client_launches["fed_aggregate"]
+                       + zoo["fed_aggregate"]),
              max_abs_err=agg_err,
              shape=[10, 1 << 24], **{k: t_agg[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -2942,6 +3312,17 @@ def main(argv) -> int:
                  "library_ms")},
              at_gemma={k: t_attn["at_gemma"][k] for k in (
                  "shape", "ms", "f32_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")}),
+        dict(name="flash_attention_bwd", route="cuda",
+             source=src + "flash_attention_bwd.cu",
+             replaces="src/repro/models/layers.py:157",
+             replaces_note="no Pallas backward exists: JAX trains by "
+                           "jax.grad of the plain sdpa",
+             launches=zoo["flash_attention_bwd"], max_abs_err=bwd_err,
+             routes={"bfloat16": "CUDA cores, float32 arithmetic; ms",
+                     "float32": "CUDA cores; f32_ms"},
+             shape=list(LLAMA_TRAIN_ATTN), **{k: t_bwd[k] for k in (
+                 "ms", "f32_ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms")}),
         dict(name="ssd_chunk", route="cuda", source=src + "ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_chunk.py:52",

@@ -1,7 +1,7 @@
 """mamba2-2.7b [ssm] — 64L d_model=2560 (attention-free) vocab=50280,
 ssm_state=128; SSD state-space duality [arXiv:2405.21060]."""
 from ..models.layers import ModelConfig
-from .common import ArchSpec
+from .common import ArchSpec, FedExec
 
 _FULL = ModelConfig(
     name="mamba2-2.7b", family="ssm",
@@ -17,7 +17,9 @@ SPEC = ArchSpec(
     arch_id="mamba2-2.7b",
     source="arXiv:2405.21060",
     model=_FULL,
+    fed=FedExec(cohort_mode="parallel", cohort_size=32),
     smoke_model=_SMOKE,
+    long_context="native",
     notes="attention-free; decode state is O(1) in sequence length, so "
           "long_500k runs natively (d_inner=5120, 80 SSD heads).",
 )

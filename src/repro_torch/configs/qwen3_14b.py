@@ -1,7 +1,7 @@
 """qwen3-14b [dense] — 40L d_model=5120 40H (GQA kv=8) d_ff=17408
 vocab=151936; qk_norm [hf:Qwen/Qwen3-8B]."""
 from ..models.layers import ModelConfig
-from .common import ArchSpec
+from .common import ArchSpec, FedExec
 
 _FULL = ModelConfig(
     name="qwen3-14b", family="dense",
@@ -17,6 +17,8 @@ SPEC = ArchSpec(
     arch_id="qwen3-14b",
     source="hf:Qwen/Qwen3-8B",
     model=_FULL,
+    fed=FedExec(cohort_mode="sequential", cohort_size=8),
     smoke_model=_SMOKE,
+    long_context="swa_variant",
     notes="qk_norm, GQA 40/8; d_ff=17408 = 17408 (1088 per 16-way shard).",
 )

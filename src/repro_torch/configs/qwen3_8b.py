@@ -1,7 +1,7 @@
 """qwen3-8b [dense] — 36L d_model=4096 32H (GQA kv=8) d_ff=12288
 vocab=151936; qk_norm [hf:Qwen/Qwen3-8B]."""
 from ..models.layers import ModelConfig
-from .common import ArchSpec
+from .common import ArchSpec, FedExec
 
 _FULL = ModelConfig(
     name="qwen3-8b", family="dense",
@@ -17,6 +17,8 @@ SPEC = ArchSpec(
     arch_id="qwen3-8b",
     source="hf:Qwen/Qwen3-8B",
     model=_FULL,
+    fed=FedExec(cohort_mode="sequential", cohort_size=8),
     smoke_model=_SMOKE,
+    long_context="swa_variant",
     notes="qk_norm per-head RMSNorm; GQA 32/8.",
 )

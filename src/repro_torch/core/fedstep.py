@@ -31,10 +31,11 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
-from torch.func import grad_and_value, vjp, vmap
+from torch.func import grad_and_value, vmap
 
 from ..kernels.fed_aggregate import fed_aggregate, fed_aggregate_tree
 from ..optim.optimizers import Optimizer, apply_updates
+from ..remat import checkpoint
 from ..tree import tree_leaves, tree_map
 from .aggregation import streaming_aggregate_add, streaming_aggregate_init
 
@@ -50,41 +51,18 @@ def _sq_norm(tree) -> torch.Tensor:
     return sum(torch.sum(x * x).to(torch.float32) for x in tree_leaves(tree))
 
 
-class _Remat(torch.autograd.Function):
-    """``fn(leaves, batch)`` with nothing of its forward kept for the
-    backward but its inputs: the backward runs the forward again under
-    ``vjp`` (``jax.checkpoint``'s trade of compute for memory).  Works
-    under ``torch.func``'s ``grad`` and ``vmap``."""
-
-    generate_vmap_rule = True
-
-    @staticmethod
-    def forward(fn, batch, *leaves):
-        return fn(leaves, batch)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        fn, batch, *leaves = inputs
-        ctx.fn, ctx.batch = fn, batch
-        ctx.save_for_backward(*leaves)
-
-    @staticmethod
-    def backward(ctx, grad):
-        _, pull = vjp(lambda *ls: ctx.fn(ls, ctx.batch), *ctx.saved_tensors)
-        return (None, None) + tuple(pull(grad))
-
-
 def _rematted(loss_fn: Callable) -> Callable:
     """``loss_fn(params, batch)`` whose activations are recomputed in the
-    backward instead of kept (:class:`_Remat`); the same values."""
+    backward instead of kept (:func:`repro_torch.remat.checkpoint`); the
+    same values."""
 
     def rebuilt(params, leaves, batch):
         it = iter(leaves)
         return loss_fn(tree_map(lambda _: next(it), params), batch)
 
     def loss(params, batch):
-        return _Remat.apply(lambda ls, b: rebuilt(params, ls, b), batch,
-                            *tree_leaves(params))
+        return checkpoint(lambda ls, b: rebuilt(params, ls, b), batch,
+                          *tree_leaves(params))
 
     return loss
 

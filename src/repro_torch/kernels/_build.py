@@ -33,6 +33,7 @@ SOURCES: Dict[str, tuple] = {
     "fed_select": ("fed_select.cu", ("--fmad=false",)),
     "fed_aggregate": ("fed_aggregate.cu", ()),
     "flash_attention": ("flash_attention.cu", ()),
+    "flash_attention_bwd": ("flash_attention_bwd.cu", ()),
     "ssd_chunk": ("ssd_chunk.cu", ()),
 }
 
@@ -122,8 +123,12 @@ _SIGNATURES = {
         "fed_aggregate_bf16": ([_VP, _VP, _VP, _I, _I64, _VP], _I),
     },
     "flash_attention": {
-        "flash_attention_launch": ([_VP] * 4 + [_I] * 7 + [_I64] * 9
+        "flash_attention_launch": ([_VP] * 5 + [_I] * 7 + [_I64] * 9
                                    + [_I, _I, _F, _F, _VP], _I),
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd_launch": ([_VP] * 10 + [_I] * 7 + [_I64] * 9
+                                       + [_I, _I, _F, _F, _VP], _I),
     },
     "ssd_chunk": {
         "ssd_chunk_launch": ([_VP] * 8 + [_I] * 7 + [_I64] * 13 + [_VP], _I),

@@ -8,7 +8,11 @@
 // softcap) when softcap > 0, and the masks causal (j <= i) and window
 // (j > i - window); masked scores take -1e30.  Scores, the running max and
 // sum and the accumulator are float32; o is written in q's dtype (float32
-// or bf16).  The final divide is by max(l, 1e-30).
+// or bf16).  The final divide is by max(l, 1e-30).  Given a non-null lse
+// (float32, (B, H, Sq)), each row's log-sum-exp m + log(l) is written there
+// too: the backward (flash_attention_bwd.cu) rebuilds P = exp(s - lse) from
+// it.  Prefill and serve pass null, and the kernel then does what it did
+// before lse existed, bit for bit.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention.py:77,
 // flash_attention (body _flash_kernel).  The oracle is
@@ -92,6 +96,7 @@ constexpr float kNeg = -1e30f;
 
 struct Args {
   const void* q; const void* k; const void* v; void* o;
+  float* lse;                        // (B, H, Sq) or null
   int Sq, Skv, H, G;
   int64_t qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
   int causal, window;
@@ -305,6 +310,9 @@ flash_kernel(const Args a) {
     if (gr >= n_rows) continue;
     const int pos = gr / G, h = kvh * G + gr % G;
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
+    if (a.lse != nullptr && cg == 0)
+      a.lse[(static_cast<int64_t>(b) * a.H + h) * a.Sq + pos] =
+          m[i] + logf(l[i]);
     float* out = o + ((static_cast<int64_t>(b) * a.Sq + pos) * a.H + h) * HD
                  + cg * kCols;
 #pragma unroll
@@ -611,6 +619,9 @@ flash_kernel_mma(const Args a, int n_tiles, int KV, int B) {
     if (gr >= n_rows) continue;
     const int pos = gr / G, h = kvh * G + gr % G;
     const float d = half ? d_b : d_a;
+    if (a.lse != nullptr && t == 0)
+      a.lse[(static_cast<int64_t>(b) * a.H + h) * a.Sq + pos] =
+          (half ? m_b : m_a) + logf(half ? l_b : l_a);
     __nv_bfloat16* out =
         o + ((static_cast<int64_t>(b) * a.Sq + pos) * a.H + h) * HD + 2 * t;
 #pragma unroll
@@ -669,19 +680,20 @@ extern "C" {
 
 // q (B, Sq, H, hd), k and v (B, Skv, KV, hd), each with unit stride along
 // hd and the given element strides along batch, sequence and head; o is
-// contiguous (B, Sq, H, hd) in q's dtype.  dtype 0 = float32 (CUDA cores),
+// contiguous (B, Sq, H, hd) in q's dtype; lse, when not null, is
+// contiguous float32 (B, H, Sq).  dtype 0 = float32 (CUDA cores),
 // 1 = bf16 (tensor cores; needs 16-byte aligned q, k, v and strides that
 // are multiples of 8); hd in {16, 32, 64, 128, 256}.  Returns a cudaError_t.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int dtype, int B, int Sq, int Skv, int H,
-                           int KV, int hd, int64_t qsb, int64_t qss,
-                           int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
-                           int64_t vsb, int64_t vss, int64_t vsh, int causal,
-                           int window, float softcap, float scale,
+                           void* o, float* lse, int dtype, int B, int Sq,
+                           int Skv, int H, int KV, int hd, int64_t qsb,
+                           int64_t qss, int64_t qsh, int64_t ksb, int64_t kss,
+                           int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh,
+                           int causal, int window, float softcap, float scale,
                            void* stream) {
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, o, Sq, Skv, H, H / KV, qsb, qss, qsh, ksb, kss, ksh,
-               vsb, vss, vsh, causal, window, softcap, scale};
+  const Args a{q, k, v, o, lse, Sq, Skv, H, H / KV, qsb, qss, qsh, ksb, kss,
+               ksh, vsb, vss, vsh, causal, window, softcap, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch(false, a, B, KV, hd, s);
   if (dtype == 1) {

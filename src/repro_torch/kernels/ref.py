@@ -133,14 +133,15 @@ def attn_scale(hd: int) -> float:
 
 
 def sdpa(q, k, v, *, causal: bool, window: int = 0, softcap: float = 0.0,
-         q_offset=0, kv_valid_len=None):
+         q_offset=0, kv_valid_len=None, with_lse: bool = False):
     """Grouped-query scaled dot-product attention (``layers.sdpa``).
 
     q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd); query head h reads KV head
     h // (H // KV).  ``q_offset`` is the absolute position of q[0] relative
     to k[0]; ``kv_valid_len`` masks cache slots >= it.  Above 2048² score
     elements (and Sq a multiple of 1024) the chunked online softmax runs,
-    never materialising the (Sq, Skv) scores."""
+    never materialising the (Sq, Skv) scores.  ``with_lse`` also returns
+    each row's log-sum-exp (:func:`sdpa_lse`)."""
     Sq, Skv = q.shape[1], k.shape[1]
     if (Sq * Skv > _CHUNKED_THRESHOLD and Sq % _Q_CHUNK == 0
             and kv_valid_len is None):
@@ -152,22 +153,25 @@ def sdpa(q, k, v, *, causal: bool, window: int = 0, softcap: float = 0.0,
             v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
             kv_len = Skv
         return _chunked_sdpa(q, k, v, causal=causal, window=window,
-                             softcap=softcap, q_offset=q_offset, kv_len=kv_len)
+                             softcap=softcap, q_offset=q_offset, kv_len=kv_len,
+                             with_lse=with_lse)
     return _dense_sdpa(q, k, v, causal=causal, window=window, softcap=softcap,
-                       q_offset=q_offset, kv_valid_len=kv_valid_len)
+                       q_offset=q_offset, kv_valid_len=kv_valid_len,
+                       with_lse=with_lse)
 
 
 def _chunked_sdpa(q, k, v, *, causal: bool, window: int, softcap: float,
-                  q_offset=0, kv_len=None):
+                  q_offset=0, kv_len=None, with_lse: bool = False):
     """Blockwise attention: a loop over q chunks and, inside, over kv
     chunks, with the exact online softmax (running max, rescaled sum and
-    accumulator) of ``layers._chunked_sdpa``."""
+    accumulator) of ``layers._chunked_sdpa``.  ``with_lse`` also returns
+    each row's log-sum-exp, m + log(sum), (B, H, Sq) float32."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     g = H // KV
     dev = q.device
     scale = attn_scale(hd)
-    outs = []
+    outs, lses = [], []
     for qi in range(Sq // _Q_CHUNK):
         qc = q[:, qi * _Q_CHUNK:(qi + 1) * _Q_CHUNK].reshape(
             B, _Q_CHUNK, KV, g, hd).to(torch.float32)
@@ -203,11 +207,16 @@ def _chunked_sdpa(q, k, v, *, causal: bool, window: int, softcap: float,
             m = m_new
         out = acc / torch.clamp_min(denom[..., None], 1e-30)
         outs.append(out.permute(0, 3, 1, 2, 4))        # (B, Qc, KV, g, hd)
-    return torch.cat(outs, dim=1).reshape(B, Sq, H, hd).to(q.dtype)
+        lses.append(m + torch.log(denom))              # (B, KV, g, Qc)
+    out = torch.cat(outs, dim=1).reshape(B, Sq, H, hd).to(q.dtype)
+    if with_lse:
+        return out, torch.cat(lses, dim=-1).reshape(B, H, Sq)
+    return out
 
 
 def _dense_sdpa(q, k, v, *, causal: bool, window: int = 0,
-                softcap: float = 0.0, q_offset=0, kv_valid_len=None):
+                softcap: float = 0.0, q_offset=0, kv_valid_len=None,
+                with_lse: bool = False):
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     g = H // KV
@@ -229,7 +238,77 @@ def _dense_sdpa(q, k, v, *, causal: bool, window: int = 0,
     logits = torch.where(mask, logits, torch.full_like(logits, ATTN_NEG))
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", w, v.to(torch.float32))
-    return out.reshape(B, Sq, H, hd).to(q.dtype)
+    out = out.reshape(B, Sq, H, hd).to(q.dtype)
+    if with_lse:
+        return out, torch.logsumexp(logits, dim=-1).reshape(B, H, Sq)
+    return out
+
+
+def sdpa_lse(q, k, v, *, causal: bool, window: int = 0,
+             softcap: float = 0.0):
+    """``(o, lse)``: :func:`sdpa`'s output (the same function, on the same
+    dense or chunked path) and each row's log-sum-exp of its masked scores
+    (B, H, Sq) float32, the forward that a backward reads.  The plain
+    version of the flash_attention kernel with a non-null ``lse``."""
+    return sdpa(q, k, v, causal=causal, window=window, softcap=softcap,
+                with_lse=True)
+
+
+def sdpa_bwd(q, k, v, o, lse, do, *, causal: bool, window: int = 0,
+             softcap: float = 0.0):
+    """The gradient of :func:`sdpa` (the plain version of the
+    flash_attention_bwd kernel), in the FlashAttention-2 form, from the
+    forward's output ``o`` and row log-sum-exp ``lse`` (B, H, Sq):
+
+        D = rowsum(do * o),  P = exp(s - lse),  dV = P^T do,
+        dP = do V^T,  dS = P * (dP - D)  (times 1 - tanh^2 under the
+        soft-cap),  dQ = dS K / sqrt(hd),  dK = dS^T Q / sqrt(hd),
+
+    dK and dV summed over the query heads of each KV group.  float32
+    throughout, one query chunk of at most 1024 rows at a time (so no
+    (Sq, Skv) tensor is formed above that); returns (dq, dk, dv) in the
+    dtypes of q, k and v."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    dev = q.device
+    f32 = torch.float32
+    scale = attn_scale(hd)
+    qf = q.to(f32).reshape(B, Sq, KV, g, hd)
+    dof = do.to(f32).reshape(B, Sq, KV, g, hd)
+    kf, vf = k.to(f32), v.to(f32)
+    delta = (dof * o.to(f32).reshape(B, Sq, KV, g, hd)).sum(-1)
+    delta = delta.permute(0, 2, 3, 1)                    # (B, KV, g, Sq)
+    lse = lse.reshape(B, KV, g, Sq)
+    kpos = torch.arange(Skv, device=dev)[None, :]
+    dq = torch.empty(B, Sq, KV, g, hd, dtype=f32, device=dev)
+    dk = torch.zeros(B, Skv, KV, hd, dtype=f32, device=dev)
+    dv = torch.zeros(B, Skv, KV, hd, dtype=f32, device=dev)
+    for a in range(0, Sq, _Q_CHUNK):
+        b = min(a + _Q_CHUNK, Sq)
+        qc, doc = qf[:, a:b], dof[:, a:b]
+        s = torch.einsum("bqkgh,bskh->bkgqs", qc, kf) * scale
+        if softcap > 0:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+        qpos = torch.arange(a, b, device=dev)[:, None]
+        mask = torch.ones(b - a, Skv, dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kpos <= qpos
+        if window > 0:
+            mask &= kpos > qpos - window
+        p = torch.where(mask, torch.exp(s - lse[..., a:b, None]),
+                        torch.zeros((), dtype=f32, device=dev))
+        dv += torch.einsum("bkgqs,bqkgh->bskh", p, doc)
+        dp = torch.einsum("bqkgh,bskh->bkgqs", doc, vf)
+        ds = p * (dp - delta[..., a:b, None])
+        if softcap > 0:
+            ds = ds * (1.0 - t * t)
+        ds = ds * scale
+        dq[:, a:b] = torch.einsum("bkgqs,bskh->bqkgh", ds, kf)
+        dk += torch.einsum("bkgqs,bqkgh->bskh", ds, qc)
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
@@ -249,14 +328,19 @@ def ssd_chunk_ref(x, dt, A, Bm, Cm):
 
     x: (B, nc, Q, H, P); dt: (B, nc, Q, H) float32; A: (H,) float32;
     Bm, Cm: (B, nc, Q, N).  Returns float32 (y_intra (B, nc, Q, H, P),
-    states (B, nc, H, N, P), decays (B, nc, H))."""
+    states (B, nc, H, N, P), decays (B, nc, H)).
+
+    L is masked before the exp, as ``ssd_ref`` masks it: the same values
+    as JAX's exp-then-mask (exp(-1e30) is 0), and a finite gradient, where
+    exp of the upper triangle's positive differences would overflow and
+    give 0 * inf in the backward."""
     a = dt * A[None, None, None, :]                       # (B, nc, Q, H)
     cum = torch.cumsum(a, dim=2)
     Q = x.shape[2]
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
     tri = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
-    L = torch.where(tri[None, None, :, :, None], torch.exp(diff),
-                    torch.zeros((), device=x.device))
+    L = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                              torch.full((), -1e30, device=x.device)))
     scores = torch.einsum("bcin,bcjn->bcij", Cm.to(torch.float32),
                           Bm.to(torch.float32))
     M = scores[..., None] * L

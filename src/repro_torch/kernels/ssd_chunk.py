@@ -101,7 +101,8 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     x: (B, S, H, P); dt: (B, S, H) float32; A: (H,); Bm, Cm: (B, S, N).
     Returns y (B, S, H, P) in x's dtype.  The recurrence h <- h * decay +
     state runs as one ``addcmul`` per chunk (nc - 1 launches), emitting the
-    state from before each chunk; y_inter = exp(cum) * (C h_prev) is one
+    state from before each chunk, out of place so that autograd can
+    differentiate it on the CPU; y_inter = exp(cum) * (C h_prev) is one
     batched matmul."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
@@ -116,12 +117,11 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y_intra, states, decays = ssd_chunk(xr, dtr, A, Br, Cr)
 
     # h_prev[c] is the state before chunk c: (nc, B, H, N, P)
-    h_prev = torch.empty(nc, Bsz, H, N, P, dtype=torch.float32,
-                         device=x.device)
-    h_prev[0].zero_()
+    h = [torch.zeros(Bsz, H, N, P, dtype=torch.float32, device=x.device)]
     for c in range(nc - 1):
-        torch.addcmul(states[:, c], h_prev[c], decays[:, c, :, None, None],
-                      out=h_prev[c + 1])
+        h.append(torch.addcmul(states[:, c], h[c],
+                               decays[:, c, :, None, None]))
+    h_prev = torch.stack(h)
     cum = torch.cumsum(dtr * A[None, None, None, :], dim=2)   # (B, nc, Q, H)
     # (B, nc, 1, Q, N) @ (B, nc, H, N, P) -> (B, nc, H, Q, P)
     ch = torch.matmul(Cr.to(torch.float32)[:, :, None],

@@ -19,10 +19,18 @@ package's CLI.  ``--engine host`` runs the reference host loop,
 ``--buffer-size``, ``--staleness-power``, ``--staleness-discount``),
 ``--ckpt-dir`` writes checkpoints and ``--algo poc`` runs Power-of-Choice
 (on the host loop).  ``--mesh-shape C`` runs the client-sharded engine
-over C ranks (``--dist-backend`` gloo or nccl).  What the port lacks fails
-before anything runs, with ``NotImplementedError`` naming its ROADMAP.md
-queue 1 item: ``--arch`` (the model zoo's federated round, item 12) and
-``--mesh-shape C,M`` (the (clients, model) mesh, item 11).
+over C ranks (``--dist-backend`` gloo or nccl).
+
+``--arch X [--smoke]`` runs a few federated rounds of an assigned
+architecture's smoke config (:func:`run_arch_smoke`, as the JAX CLI does;
+``--smoke`` is accepted for its spelling and is the only mode):
+
+  python -m repro_torch.launch.train --arch llama3.2-1b --smoke --device cpu
+
+What the port lacks fails before anything runs, with
+``NotImplementedError`` naming its ROADMAP.md queue 1 item: the
+architectures not ported yet (item 12), the ssm family's training on CUDA
+(item 15) and ``--mesh-shape C,M`` (the (clients, model) mesh, item 11).
 """
 from __future__ import annotations
 
@@ -30,15 +38,26 @@ import argparse
 import json
 from typing import Callable, Optional
 
-from ..configs import PAPER_TASKS
-from ..core.strategies import STRATEGY_ALIASES, list_strategies
+import numpy as np
+import torch
+
+from .. import random as jr
+from ..configs import PAPER_TASKS, get_arch
+from ..core.availability import make_availability
+from ..core.fedstep import make_fed_round
+from ..core.strategies import STRATEGY_ALIASES, list_strategies, make_strategy
+from ..device import resolve_device
+from ..models import get_model_api
+from ..optim import make_optimizer
 from ..sim.completion import COMPLETION_REGISTRY
 from ..sim.runner import (TrainResult, _legacy_server_lr, run_spec,
                           run_spec_dist)
 from ..sim.scenario import Scenario, list_scenarios
 from ..sim.spec import RunSpec
+from .steps import check_trainable
 
-__all__ = ["TrainResult", "run_federated", "main"]
+__all__ = ["TrainResult", "run_federated", "federated_rounds",
+           "run_arch_smoke", "main"]
 
 
 def run_federated(task_id: str = "synthetic11", algo_name: str = "f3ast",
@@ -74,12 +93,73 @@ def run_federated(task_id: str = "synthetic11", algo_name: str = "f3ast",
     return run_spec(spec, device=device, log_fn=log_fn)
 
 
+def federated_rounds(fed_round, params, opt_state, key, *, vocab: int,
+                     shape, rounds: int, n_clients: int = 16,
+                     client_lr: float = 1e-2):
+    """The round loop of :func:`run_arch_smoke`: f3ast over ``n_clients``
+    equally weighted ``scarce`` (q = 0.5) clients with K_t = K, a
+    ``randint`` cohort batch of ``shape`` = (K, E, B, S) tokens a round and
+    the key split five ways a round, as JAX's loop.  ``key`` is the key
+    the parameters were drawn from.  Yields ``(t, mask, metrics)`` after
+    each round (the selection mask and the round's ``RoundMetrics``); the
+    parameters and optimizer state are carried inside."""
+    device = key.device
+    K = shape[0]
+    p = np.full(n_clients, 1.0 / n_clients, np.float32)
+    strategy = make_strategy("f3ast", n_clients, p, clients_per_round=K,
+                             device=device)
+    algo_state = strategy.init(n_clients)
+    avail_proc = make_availability("scarce", n_clients, q=0.5, device=device)
+    k_t = torch.tensor(K, dtype=torch.int32, device=device)
+    for t in range(rounds):
+        key, k1, k2, kb, _ = jr.split(key, 5)
+        avail = avail_proc.sample(k1, t)
+        sel, w_full, algo_state = strategy.select(algo_state, k2, avail, k_t,
+                                                  None)
+        sel_ids = np.flatnonzero(sel.cpu().numpy())
+        ids = (list(sel_ids) + [int(sel_ids[0])] * K)[:K]
+        batch = {"tokens": jr.randint(kb, tuple(shape), 0, vocab)}
+        w = w_full[torch.as_tensor(ids, device=device)]
+        params, opt_state, m = fed_round(params, opt_state, batch, w,
+                                         client_lr)
+        yield t, sel, m
+
+
+def run_arch_smoke(arch_id: str, rounds: int = 3, seed: int = 0,
+                   log_fn: Callable = print, device=None):
+    """Few federated rounds of the REDUCED assigned-arch model, line for
+    line JAX's ``run_arch_smoke``: its smoke config from ``PRNGKey(seed)``,
+    Adam at lr 1e-3, the parallel round with client lr 1e-2, K = 4, E = 2,
+    B = 2, S = 64 (:func:`federated_rounds`).  On ``device`` (default
+    CUDA).  Returns the round losses."""
+    arch = get_arch(arch_id)
+    cfg = arch.smoke_model
+    check_trainable(cfg, device)
+    device = resolve_device(device)
+    api = get_model_api(cfg)
+    key = jr.PRNGKey(seed, device=device)
+    params = api.init_params(key, device)
+    opt = make_optimizer("adam", lr=1e-3)
+    fed_round = make_fed_round(api.loss_fn, opt, mode="parallel")
+    losses = []
+    for t, _, m in federated_rounds(fed_round, params, opt.init(params), key,
+                                    vocab=cfg.vocab, shape=(4, 2, 2, 64),
+                                    rounds=rounds):
+        losses.append(float(m.loss))
+        log_fn(f"[{arch_id}-smoke] round {t} loss={losses[-1]:.4f}")
+    assert all(np.isfinite(losses)), losses
+    return losses
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", default=None, choices=list(PAPER_TASKS))
     ap.add_argument("--arch", default=None,
-                    help="not ported: the model zoo's federated round is "
-                         "ROADMAP.md queue 1 item 12")
+                    help="a few federated rounds of the architecture's "
+                         "smoke config (run_arch_smoke)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="with --arch: the smoke config (the only mode, "
+                         "as in the JAX CLI)")
     ap.add_argument("--scenario", default=None, choices=list_scenarios(),
                     help="registered scenario key (overrides "
                          "--availability)")
@@ -122,9 +202,9 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     if args.arch:
-        raise NotImplementedError(
-            f"--arch {args.arch}: the model zoo's federated round is not "
-            f"ported to repro_torch yet (ROADMAP.md queue 1 item 12)")
+        run_arch_smoke(args.arch, rounds=args.rounds or 3, seed=args.seed,
+                       device=args.device)
+        return
     if args.spec:
         spec = RunSpec.load(args.spec)
     else:

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import types
 
-from . import resnet, rnn, softmax_reg, ssm, transformer
+from . import losses, resnet, rnn, softmax_reg, ssm, transformer
 from .layers import ModelConfig
 
 
@@ -21,6 +21,7 @@ def get_model_api(cfg: ModelConfig):
     return types.SimpleNamespace(
         init_params=lambda key, device=None: T.init_params(cfg, key, device),
         forward=lambda params, batch: T.forward(cfg, params, batch),
+        loss_fn=lambda params, batch: T.loss_fn(cfg, params, batch),
         prefill=lambda params, batch: T.prefill(cfg, params, batch),
         init_decode_state=lambda batch, max_len, device=None:
             T.init_decode_state(cfg, batch, max_len, device),
@@ -30,5 +31,5 @@ def get_model_api(cfg: ModelConfig):
     )
 
 
-__all__ = ["ModelConfig", "get_model_api", "resnet", "rnn", "softmax_reg",
-           "ssm", "transformer"]
+__all__ = ["ModelConfig", "get_model_api", "losses", "resnet", "rnn",
+           "softmax_reg", "ssm", "transformer"]

@@ -5,11 +5,13 @@ and for one decode step against a KV cache, and the gated MLPs.
 
 Layers are plain functions over nested dicts of tensors.  The sharding
 annotations of the JAX package (``hooks.constrain``) are identity on one
-card and are left out (ROADMAP.md queue 1 item 11); so is ``remat``, which
-only training uses.  MoE blocks are ROADMAP.md queue 1 item 12.
+card and are left out (ROADMAP.md queue 1 item 11).  ``remat`` is applied
+per layer by ``transformer.backbone``.  MoE blocks are ROADMAP.md queue 1
+item 12.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -132,6 +134,19 @@ def rotary(x: torch.Tensor, positions: torch.Tensor,
 
 
 _DRAW_CHUNK = 1 << 24
+_SHAPES_ONLY = [False]
+
+
+@contextlib.contextmanager
+def shapes_only():
+    """Inside it, :func:`_normal` draws nothing and returns an empty tensor
+    on the meta device: ``init_params`` then gives the tree's shapes and
+    dtypes at no cost (``launch.specs.param_specs``)."""
+    _SHAPES_ONLY[0] = True
+    try:
+        yield
+    finally:
+        _SHAPES_ONLY[0] = False
 
 
 def inv_sqrt(n: int, device) -> torch.Tensor:
@@ -155,6 +170,8 @@ def _normal(keys: torch.Tensor, shape, scale: torch.Tensor, dtype, *,
     Each draw is made in chunks of at most 2^24 lanes, the same bits, so a
     large leaf needs no multi-GB temporaries."""
     lead = tuple(keys.shape[:-1])
+    if _SHAPES_ONLY[0]:
+        return torch.empty(lead + tuple(shape), dtype=dtype, device="meta")
     out = torch.empty(lead + tuple(shape), dtype=dtype, device=keys.device)
     n = math.prod(shape)
     rows = out.view(-1, n)
@@ -205,7 +222,8 @@ def _qkv(p, x, cfg: ModelConfig, positions):
 def attention_block(p, x, cfg: ModelConfig, positions, *, window: int):
     """Full-sequence causal attention (prefill / training): the
     flash_attention kernel on a CUDA tensor, the plain ``sdpa`` on a CPU
-    tensor (the wrapper dispatches by device)."""
+    tensor (the wrapper dispatches by device).  Its gradient is the
+    flash_attention_bwd kernel (``ref.sdpa_bwd`` on the CPU)."""
     q, k, v = _qkv(p, x, cfg, positions)
     out = flash_attention(q, k, v, causal=True, window=window,
                           softcap=cfg.attn_softcap)

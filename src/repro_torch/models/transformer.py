@@ -6,6 +6,7 @@ the decode path: a KV cache (dense) or an O(1) recurrent state (ssm).
 
     init_params(cfg, key, device=None)            -> params
     forward(cfg, params, batch)                   -> (logits, aux)
+    loss_fn(cfg, params, batch)                   -> next-token CE
     init_decode_state(cfg, batch, max_len, device=None) -> state
     decode_step(cfg, params, state, tok_t)        -> (logits, state)
     prefill(cfg, params, batch)                   -> last-position logits
@@ -22,10 +23,13 @@ import torch
 from .. import random as jr
 from ..device import resolve_device
 from ..registry import lookup
+from ..remat import checkpoint
+from ..tree import tree_leaves, tree_map
 from . import ssm as ssm_lib
 from .layers import (ModelConfig, _normal, attention_block, attention_decode,
                      init_attention, init_mlp, init_rms, inv_sqrt, mlp_block,
                      rms_norm)
+from .losses import fused_unembed_xent
 
 # the JAX package's other families: ROADMAP.md queue 1 item 12
 DEFERRED_FAMILIES = ("moe", "hybrid", "vlm", "audio")
@@ -139,18 +143,33 @@ def _embed_inputs(cfg: ModelConfig, params, batch):
     return x, torch.ones(tokens.shape, dtype=torch.bool, device=x.device)
 
 
+def _rematted_block(block, p, x):
+    """``block(p, x)`` with its activations recomputed in the backward
+    (``jax.checkpoint`` of the JAX package's scanned layer body)."""
+    def run(tensors, _):
+        it = iter(tensors[1:])
+        return block(tree_map(lambda _: next(it), p), tensors[0])
+    return checkpoint(run, None, x, *tree_leaves(p))
+
+
 def backbone(cfg: ModelConfig, params, x):
-    """Run the stacked blocks over embeddings x: (B, S, d)."""
-    B, S, _ = x.shape
+    """Run the stacked blocks over embeddings x: (B, S, d); with
+    ``cfg.remat`` each layer keeps only its input for the backward."""
     if cfg.family == "ssm":
-        for i in range(cfg.n_layers):
-            x = _ssm_block(_layer(params["blocks"], i), x, cfg)
+        def block(p, h):
+            return _ssm_block(p, h, cfg)
     else:
-        positions = torch.arange(S, device=x.device).expand(B, S)
         w = _window(cfg)
-        for i in range(cfg.n_layers):
-            x = _dense_block(_layer(params["blocks"], i), x, cfg, positions,
-                             w)
+
+        def block(p, h):
+            # made here, not closed over: a checkpointed block may take no
+            # tensor from outside under torch.func's transforms
+            B, S, _ = h.shape
+            positions = torch.arange(S, device=h.device).expand(B, S)
+            return _dense_block(p, h, cfg, positions, w)
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)
+        x = _rematted_block(block, p, x) if cfg.remat else block(p, x)
     return x, {"lb_loss": torch.zeros((), dtype=torch.float32,
                                       device=x.device)}
 
@@ -167,6 +186,24 @@ def forward(cfg: ModelConfig, params, batch):
     logits = unembed(cfg, params, x)
     aux["text_mask"] = tmask
     return logits, aux
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """Next-token CE over text positions (+ 0.01 * the MoE load-balance
+    loss, 0 in the dense and ssm families), with the unembedding fused
+    into the chunked CE (``losses.fused_unembed_xent``): the (B, T, V)
+    logits are never formed.  ``batch["loss_mask"]``, when present, masks
+    targets as the JAX package's does."""
+    x, tmask = _embed_inputs(cfg, params, batch)
+    x, aux = backbone(cfg, params, x)
+    xn = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    proj = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    tokens = batch["tokens"]
+    mask = tmask[:, 1:]
+    if "loss_mask" in batch:
+        mask = mask & batch["loss_mask"][:, 1:]
+    ce = fused_unembed_xent(xn[:, :-1, :], proj, tokens[:, 1:], mask)
+    return ce + 0.01 * aux["lb_loss"]
 
 
 def prefill(cfg: ModelConfig, params, batch):

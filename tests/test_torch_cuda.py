@@ -257,6 +257,63 @@ def test_llama_smoke_prefill_card_matches_cpu(dev, arch):
                                atol=1e-4)
 
 
+# (B, S, H, KV, hd): groups of 1, 4 and 5, head dims 16-256, a ragged S
+BWD_SHAPES = [(2, 128, 2, 2, 32), (1, 1000, 8, 2, 64), (1, 300, 10, 2, 128),
+              (1, 200, 4, 2, 256), (2, 96, 4, 1, 16)]
+BWD_MODES = {"causal": dict(causal=True, window=0, softcap=0.0),
+             "window64": dict(causal=True, window=64, softcap=0.0),
+             "softcap30": dict(causal=True, window=0, softcap=30.0)}
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("mode", list(BWD_MODES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_kernel_allclose(dev, shape, mode, dtype):
+    """The backward kernel against ``ref.sdpa_bwd`` on the same q, k, v,
+    o, lse and do (one launch, bitwise on a rerun): float32 within 1e-5 of
+    each gradient's largest magnitude; bf16 within one bf16 step of each
+    lane plus 1e-5 of that magnitude (chip_smoke.py's limits)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    B, S, H, KV, hd = shape
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(S + hd)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(B, S, n, hd))
+                                    .astype(np.float32)).to(dev).to(dt)
+                   for n in (H, KV, KV, H))
+    m = BWD_MODES[mode]
+    o, lse = ref.sdpa_lse(q, k, v, **m)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, **m)
+    assert flash_attention_bwd.launches == before + 1
+    again = flash_attention_bwd(q, k, v, o, lse, do, **m)
+    want = ref.sdpa_bwd(q, k, v, o, lse, do, **m)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dt and torch.equal(g, a)
+        g, w = g.float(), w.float()
+        scale = float(w.abs().max())
+        if dtype == "float32":
+            assert float((g - w).abs().max()) <= 1e-5 * scale
+        else:
+            over = (g - w).abs() - 2.0 ** -7 * w.abs() - 1e-5 * scale
+            assert float(over.max()) <= 0.0
+
+
+def test_llama_smoke_training_card_matches_cpu(dev):
+    """``run_arch_smoke`` (3 rounds, the smoke config) on the card, through
+    the forward and backward kernels, against the CPU: within 1e-5
+    relative."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.launch.train import run_arch_smoke
+    before = flash_attention_bwd.launches
+    card = run_arch_smoke("llama3.2-1b", log_fn=lambda *a: None, device=dev)
+    assert flash_attention_bwd.launches > before
+    cpu = run_arch_smoke("llama3.2-1b", log_fn=lambda *a: None,
+                         device="cpu")
+    np.testing.assert_allclose(card, cpu, rtol=1e-5, atol=0)
+
+
 # (B, nc, Q, H, P, N): the shapes of tests/test_kernels.py's SSD test, the
 # mamba2 smoke config, the ssm case of tests/test_models_consistency.py, a
 # ragged one (no dimension a multiple of 4) and two chunks of mamba2-2.7b's

@@ -42,7 +42,9 @@ SLICE_MODULES = [
     "repro_torch.core.bitmask", "repro_torch.core.blockrng",
     "repro_torch.data.synthetic", "repro_torch.data.pipeline",
     "repro_torch.sharding", "repro_torch.sharding.rules",
-    "repro_torch.launch.mesh", "repro_torch.sim.engine_sharded"]
+    "repro_torch.launch.mesh", "repro_torch.sim.engine_sharded",
+    "repro_torch.remat", "repro_torch.models.losses",
+    "repro_torch.launch.specs"]
 
 
 def test_import_pulls_in_no_jax_and_no_repro():
@@ -215,6 +217,10 @@ def _entry_points():
         "AsyncEngine": lambda: AsyncEngine(staged=None, arrival=None,
                                            buffer_size=2, **_engine_parts()),
         "serve(gemma)": lambda: serve("gemma-7b", steps=1, log_fn=None),
+        "run_arch_smoke": lambda: train.run_arch_smoke("llama3.2-1b",
+                                                       rounds=1),
+        "train.main(arch)": lambda: train.main(["--arch", "qwen3-8b",
+                                                "--rounds", "1"]),
     }
 
 
@@ -263,7 +269,8 @@ def _engine_parts():
                                   "DeviceEngine(SynthTask)",
                                   "ShardedEngine", "build_engine",
                                   "run_scenario_device", "topk_strategy",
-                                  "AsyncEngine", "serve(gemma)"])
+                                  "AsyncEngine", "serve(gemma)",
+                                  "run_arch_smoke", "train.main(arch)"])
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device is usable")

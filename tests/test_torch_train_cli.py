@@ -1,9 +1,9 @@
 """The port's training CLI, ``python -m repro_torch.launch.train``: a paper
 task runs on the CPU from ``--task`` and from a ``--spec`` file, the spec it
 saves is the one the JAX package's CLI builds from the same flags, the
-host loop, buffered, checkpoint and poc flags run, and the flags the port
-lacks raise ``NotImplementedError`` naming their ROADMAP.md queue 1 item
-before anything runs."""
+host loop, buffered, checkpoint and poc flags run, ``--arch`` trains a
+smoke config, and the flags the port lacks raise ``NotImplementedError``
+naming their ROADMAP.md queue 1 item before anything runs."""
 import json
 import os
 import subprocess
@@ -11,6 +11,7 @@ import sys
 import warnings
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -62,12 +63,28 @@ def test_spec_file_runs(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--arch", "llama3.2-1b"], 12), (["--mesh-shape", "2,2"], 11)])
+    (["--arch", "mixtral-8x22b"], 12), (["--mesh-shape", "2,2"], 11)])
 def test_unported_flags_raise_naming_their_item(flags, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
         train.main(["--task", "cifar", "--device", "cpu",
                     "--save-spec", str(tmp_path / "s.json")] + flags)
     assert not (tmp_path / "s.json").exists()
+
+
+def test_arch_runs_two_rounds_on_the_cpu(capsys):
+    """``--arch llama3.2-1b --smoke --device cpu --rounds 2``: two rounds
+    of the smoke config, each with a finite loss."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        train.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+                    "--rounds", "2"])
+    finally:
+        torch.set_num_threads(n)
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("[llama3.2-1b-smoke] round")]
+    assert len(lines) == 2
+    assert all(np.isfinite(float(ln.split("loss=")[1])) for ln in lines)
 
 
 @pytest.mark.parametrize("flags,engine", [

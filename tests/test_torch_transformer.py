@@ -128,8 +128,9 @@ def test_configs_equal_field_by_field(arch):
                 == dataclasses.asdict(getattr(jspec, attr)))
     for f in ("arch_id", "source", "notes"):
         assert getattr(tspec, f) == getattr(jspec, f)
-    # the ported (prefill) shapes are JAX's, and take the full model as is
-    assert set(tconfigs.INPUT_SHAPES) == {"prefill_32k"}
+    # the ported (train and prefill) shapes are JAX's, and take the full
+    # model as is
+    assert set(tconfigs.INPUT_SHAPES) == {"prefill_32k", "train_4k"}
     for shape, spec in tconfigs.INPUT_SHAPES.items():
         assert spec == jconfigs.INPUT_SHAPES[shape]
         assert (dataclasses.asdict(tspec.model)
