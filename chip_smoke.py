@@ -161,7 +161,13 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  (1, 4096, 32, 8, 64) in both dtypes: float32 gradients
                  within 1e-5 of their largest magnitude, bf16 lanes within
                  one bf16 step plus 1e-5 of it, and every case run twice
-                 bit for bit (the kernel has no atomics);
+                 bit for bit (the kernel has no atomics); at zoo_train's
+                 folded layer (2, 4096, 32, 8, 64), causal, in both dtypes
+                 the forward kernel's o and lse (``flash_attention_lse``)
+                 are held against the plain forward's (lse within 1e-5)
+                 and fed to both backwards, and ``vmap(grad)`` through
+                 ``flash_attention`` must equal the kernel's gradient bit
+                 for bit with one backward launch;
 8b. ``flash_bwd_timing`` median CUDA-event times of the backward kernel
                  (bf16 and float32 inputs), its plain version, and SDPA's
                  backward ((forward + backward) - forward, both recording
@@ -211,7 +217,10 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  widths, depth 2, float32, K = 2, E = 1, B = 1, S = 512 on
                  the card and in a spawned CPU worker from the card's
                  parameters: masks bitwise, loss and delta norm within
-                 1e-4 relative;
+                 ZOO_TOL relative, and the delta leaf by leaf (Adam's
+                 first moment, (1 - b1) delta; each stacked block leaf per
+                 layer) within ZOO_LEAF_NORM_TOL in norm and
+                 ZOO_LEAF_MAX_TOL of its largest lane;
 10. ``ssd_chunk`` holds the Mamba-2 SSD kernel against its plain version
                  (``ref.ssd_chunk_ref``) in float32 (the CUDA-core route)
                  and with bf16 x, Bm, Cm (the tensor-core route) at the
@@ -721,9 +730,9 @@ OTHER_SCENARIOS = ("bernoulli", "markov", "gilbert_elliott", "diurnal",
                    "straggler")
 BASELINE_SCENARIOS = ("homedevices", "dropout")
 BASELINE_ALGORITHMS = ("uniform", "fedavg_weighted", "fixed_f3ast")
-# The paper grid's rounds: RunSpec()'s 300 cut to 150 when the dense
-# archs joined the script (each grid cell took ~13 s of the phase's 262
-# at 300), to keep the script well inside its time limit.
+# The paper grid's rounds: RunSpec()'s 300 cut to 100, so that the script,
+# with the dense archs and the zoo's training round, stays well inside its
+# 1,200 s limit.
 GRID_ROUNDS = 100
 SHORT_ROUNDS = 40
 CPU_WORKERS = 4
@@ -1365,23 +1374,28 @@ def cpu_cells(src: str) -> dict:
                              rounds=HOST_SHORT_ROUNDS, device="cpu")
 
 
-def counted(torch, fn):
-    """``fn()`` with the three simulation kernels' launch counts set to 0
-    just before and read just after; returns (result, launches, wall)."""
+def counted(torch, fn, extra=()):
+    """``fn()`` with the three simulation kernels' launch counts, and those
+    of the wrappers in ``extra``, set to 0 just before and read just after;
+    returns (result, launches by wrapper name, wall)."""
     from repro_torch.kernels.fed_aggregate import fed_aggregate
     from repro_torch.kernels.fed_select import (fed_select, fed_select_mask,
                                                 reset_launches)
 
     reset_launches()
     fed_aggregate.launches = 0
+    for f in extra:
+        f.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return out, dict(fed_select=fed_select.launches,
-                     fed_select_mask=fed_select_mask.launches,
-                     fed_aggregate=fed_aggregate.launches), wall
+    launches = dict(fed_select=fed_select.launches,
+                    fed_select_mask=fed_select_mask.launches,
+                    fed_aggregate=fed_aggregate.launches)
+    launches.update((f.__name__, f.launches) for f in extra)
+    return out, launches, wall
 
 
 def same_bits(a, b, fields) -> dict:
@@ -1844,6 +1858,13 @@ BWD_HEAD_DIMS = (32, 64, 128, 256)
 BWD_GROUPS = (1, 4, 5)                # query heads a KV head
 BWD_LENGTHS = ((2, 128), (1, 1000))   # (B, Sq = Skv); 1000 is ragged
 LLAMA_TRAIN_ATTN = (1, 4096, 32, 8, 64)   # llama3.2-1b's training layer
+# zoo_train's layer as the kernels take it: vmap folds the K = 2 clients'
+# B = 1 into the batch
+ZOO_TRAIN_ATTN = (2, 4096, 32, 8, 64)
+# the forward's lse against the plain forward's: both sum the same float32
+# exponentials of scores formed in other orders (values near 9 at S = 4096,
+# where a float32 step is 9.5e-7)
+LSE_ATOL = 1e-5
 # Kernel and plain backward both form every product and sum in float32, in
 # other orders.  float32: each gradient within BWD_F32_TOL of its largest
 # reference magnitude.  bf16: both round one float32 result once, so a
@@ -1874,20 +1895,72 @@ def bwd_cases(torch):
               ((1, 1000, 8, 8, 64), torch.float32, "full"),
               (LLAMA_TRAIN_ATTN, torch.bfloat16, "causal"),
               (LLAMA_TRAIN_ATTN, torch.float32, "causal")]
-    return cases
+    return [(*c, False) for c in cases] + [
+        (ZOO_TRAIN_ATTN, dtype, "causal", True)
+        for dtype in (torch.bfloat16, torch.float32)]
+
+
+def check_forward_lse(torch, q, k, v, o, lse, mode):
+    """The forward kernel's (o, lse), as the gradient's forward makes them,
+    against the plain forward's ``o`` and ``lse``: o within ATTN_TOL (bf16:
+    one step of the plain output, as ``check_flash_attention``), lse within
+    LSE_ATOL.  Returns the kernel's (o, lse) and the errors."""
+    from repro_torch.kernels.flash_attention import flash_attention_lse
+
+    got_o, got_lse = flash_attention_lse(q, k, v, **mode)
+    torch.cuda.synchronize()
+    diff = (got_o.float() - o.float()).abs()
+    o_err = float(diff.max())
+    lse_err = float((got_lse - lse).abs().max())
+    tol = ATTN_TOL[str(q.dtype).split(".")[-1]]
+    ok = (got_o.dtype == q.dtype and got_lse.shape == lse.shape
+          and bool(torch.isfinite(got_lse).all()) and lse_err <= LSE_ATOL
+          and bool(torch.allclose(got_o.float(), o.float(), rtol=tol,
+                                  atol=tol)))
+    if q.dtype == torch.bfloat16:
+        over = diff - BF16_STEP * o.float().abs() - BF16_STEP_ATOL
+        ok = ok and float(over.max()) <= 0.0
+    if not ok:
+        raise AssertionError(
+            f"flash_attention_lse {tuple(q.shape)} {q.dtype}: o max |err| "
+            f"{o_err} (limit {tol}, bf16 one step), lse max |err| {lse_err} "
+            f"(limit {LSE_ATOL})")
+    return got_o, got_lse, dict(o_max_abs_err=o_err, lse_max_abs_err=lse_err)
+
+
+def grad_through_op(torch, q, k, v, do, mode):
+    """(dq, dk, dv) of sum(flash_attention(q, k, v) * do) through the
+    autograd Functions as the parallel round takes them: ``torch.func.vmap``
+    of ``grad`` over the batch, one row a client, which the vmap rules fold
+    back into one forward and one backward launch."""
+    from torch.func import grad, vmap
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    def loss(q, k, v, do):
+        o = flash_attention(q[None], k[None], v[None], **mode)[0]
+        return (o.float() * do.float()).sum()
+
+    return vmap(grad(loss, argnums=(0, 1, 2)))(q, k, v, do)
 
 
 def check_flash_backward(torch, dev):
     """The backward kernel against ``ref.sdpa_bwd`` on the same q, k, v,
-    o, lse and do; each case run twice, bitwise."""
+    o, lse and do; each case run twice, bitwise.  At zoo_train's layer
+    both are given the forward kernel's o and lse (held first against the
+    plain forward's), and the gradient through the autograd Functions
+    under vmap must equal the kernel's bit for bit."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_bwd
 
     modes = dict(BWD_MODES, full=dict(causal=False, window=0, softcap=0.0))
     rows, max_err = [], {}
-    for i, (shape, dtype, mode) in enumerate(bwd_cases(torch)):
+    for i, (shape, dtype, mode, own) in enumerate(bwd_cases(torch)):
         q, k, v, o, lse, do = bwd_inputs(torch, dev, shape, dtype,
                                          modes[mode], 300 + i)
+        fwd = {}
+        if own:
+            o, lse, fwd = check_forward_lse(torch, q, k, v, o, lse,
+                                            modes[mode])
         got = flash_attention_bwd(q, k, v, o, lse, do, **modes[mode])
         again = flash_attention_bwd(q, k, v, o, lse, do, **modes[mode])
         want = ref.sdpa_bwd(q, k, v, o, lse, do, **modes[mode])
@@ -1911,15 +1984,25 @@ def check_flash_backward(torch, dev):
                   and bool(torch.isfinite(gf).all()))
             errs[name] = [err, scale]
             max_err[dname] = max(max_err.get(dname, 0.0), err)
+        if own:
+            before = flash_attention_bwd.launches
+            chain = grad_through_op(torch, q, k, v, do, modes[mode])
+            fwd["autograd_launches"] = flash_attention_bwd.launches - before
+            fwd["autograd_bitwise"] = all(
+                torch.equal(a, b) for a, b in zip(chain, got))
+            ok = (ok and fwd["autograd_bitwise"]
+                  and fwd["autograd_launches"] == 1)
         rows.append(dict(shape=list(shape), dtype=dname, mode=mode,
+                         o_lse="kernel" if own else "plain",
                          max_abs_err_and_ref_max=errs, bitwise_rerun=bitwise,
-                         ok=ok))
+                         ok=ok, **fwd))
         if not ok:
             raise AssertionError(
                 f"flash_attention_bwd {shape} {dtype} {mode}: errors "
                 f"{errs} (max |err|, reference max), bitwise rerun "
-                f"{bitwise}; limits: float32 {BWD_F32_TOL} of the reference "
-                f"max, bf16 one step + {BWD_BF16_ATOL} of it")
+                f"{bitwise}, {fwd}; limits: float32 {BWD_F32_TOL} of the "
+                f"reference max, bf16 one step + {BWD_BF16_ATOL} of it; the "
+                f"autograd chain one launch, bitwise")
         del q, k, v, o, lse, do, got, again, want
     emit(dict(phase="flash_backward", cases=len(rows),
               all_bitwise_rerun=all(r["bitwise_rerun"] for r in rows),
@@ -2745,7 +2828,15 @@ ZOO_SHAPE = (2, 2, 1, 4096)         # K, E, B, S; FedExec's K = 32, B = 8
 ZOO_ROUNDS = 4                      # the first is the warm-up
 ZOO_DEPTH2_SHAPE = (2, 1, 1, 512)   # the card-vs-CPU round, float32
 ZOO_CPU_THREADS = 5
-ZOO_TOL = 1e-4                      # loss and delta norm, relative
+# The depth-2 round, card against CPU.  The loss and the delta norm,
+# relative: measured equal in every bit (NVIDIA H100 80GB HBM3, 700 W).
+# Each leaf of the delta, a stacked block leaf per layer: its norm,
+# relative (measured at most 3.2e-7), and its largest lane gap over its
+# largest lane (measured at most 5.0e-4, in wq of the last layer, where
+# dS = P (dP - D) cancels).  chip_grad_sensitivity.py shows what they fail.
+ZOO_TOL = 1e-6
+ZOO_LEAF_NORM_TOL = 1e-6
+ZOO_LEAF_MAX_TOL = 2e-3
 
 
 def zoo_depth2_arch():
@@ -2760,7 +2851,8 @@ def zoo_depth2_arch():
 
 def zoo_round_cpu(src: str, path: str, threads: int, results) -> None:
     """The depth-2 round on the CPU (a spawned worker), from the card's
-    parameters saved at ``path``."""
+    parameters saved at ``path``; Adam's first moment after it, (1 - b1)
+    times the round's delta, is saved at ``path`` with ``.m`` added."""
     if src not in sys.path:
         sys.path.insert(0, src)
     import torch
@@ -2773,34 +2865,28 @@ def zoo_round_cpu(src: str, path: str, threads: int, results) -> None:
     fed_round, opt, _ = build_train_step(arch, "train_4k", device="cpu")
     params = torch.load(path)
     t0 = time.perf_counter()
-    (_, sel, m), = federated_rounds(fed_round, params, opt.init(params),
-                                    jr.PRNGKey(1, device="cpu"),
-                                    vocab=arch.model.vocab,
-                                    shape=ZOO_DEPTH2_SHAPE, rounds=1)
+    (_, sel, m, state), = federated_rounds(
+        fed_round, params, opt.init(params), jr.PRNGKey(1, device="cpu"),
+        vocab=arch.model.vocab, shape=ZOO_DEPTH2_SHAPE, rounds=1)
+    wall = time.perf_counter() - t0
+    torch.save(state.m, path + ".m")
     results.put(dict(mask=sel.numpy(), loss=float(m.loss),
-                     delta_norm=float(m.delta_norm),
-                     wall_s=time.perf_counter() - t0))
+                     delta_norm=float(m.delta_norm), wall_s=wall))
 
 
-def zoo_launches():
-    from repro_torch.kernels.fed_aggregate import fed_aggregate
-    from repro_torch.kernels.fed_select import fed_select
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
-    return dict(fed_select=fed_select.launches,
-                fed_aggregate=fed_aggregate.launches,
-                flash_attention=flash_attention.launches,
-                flash_attention_bwd=flash_attention_bwd.launches)
-
-
-def zoo_reset():
-    from repro_torch.kernels.fed_aggregate import fed_aggregate
-    from repro_torch.kernels.fed_select import reset_launches
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
-    reset_launches()
-    fed_aggregate.launches = flash_attention.launches = 0
-    flash_attention_bwd.launches = 0
+def delta_leaf_gaps(torch, card, cpu):
+    """{leaf (a stacked block leaf per layer): [relative error of its norm,
+    max |card - cpu| over max |cpu|]} of two trees of one shape."""
+    gaps = {}
+    for (name, a), (_, b) in zip(tree_items(card), tree_items(cpu)):
+        a = a.cpu()
+        layers = ([(f"{name}[{i}]", a[i], b[i]) for i in range(a.shape[0])]
+                  if name.startswith("blocks/") else [(name, a, b)])
+        for n, x, y in layers:
+            ny, my = float(y.norm()), float(y.abs().max())
+            gaps[n] = [abs(float(x.norm()) - ny) / ny,
+                       float((x - y).abs().max()) / my]
+    return gaps
 
 
 def zoo_train(torch, dev):
@@ -2811,10 +2897,13 @@ def zoo_train(torch, dev):
     import multiprocessing
     from repro_torch import random as jr
     from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.launch.steps import build_train_step
     from repro_torch.launch.train import federated_rounds
     from repro_torch.models import transformer
 
+    flash = (flash_attention, flash_attention_bwd)
     # the depth-2 parameters first, so the CPU's round runs meanwhile
     arch2 = zoo_depth2_arch()
     key2 = jr.PRNGKey(1, device=dev)
@@ -2843,19 +2932,14 @@ def zoo_train(torch, dev):
                                   rounds=ZOO_ROUNDS + 1)
         del params                  # the loop holds them
         L = cfg.n_layers
-        want = dict(fed_select=1, fed_aggregate=1, flash_attention=2 * L * E,
-                    flash_attention_bwd=L * E)
+        want = dict(fed_select=1, fed_select_mask=0, fed_aggregate=1,
+                    flash_attention=2 * L * E, flash_attention_bwd=L * E)
         per_round, total = [], dict.fromkeys(want, 0)
         for _ in range(ZOO_ROUNDS):
-            zoo_reset()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            t, sel, m = next(rounds)
+            (t, sel, m, _), got, wall = counted(torch, lambda: next(rounds),
+                                                flash)
             loss, dnorm = float(m.loss), float(m.delta_norm)
-            torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t0)
-            got = zoo_launches()
-            per_round.append(dict(round=t, wall_ms=wall, loss=loss,
+            per_round.append(dict(round=t, wall_ms=1e3 * wall, loss=loss,
                                   delta_norm=dnorm,
                                   selected=sel.nonzero().flatten().tolist(),
                                   launches=got))
@@ -2889,38 +2973,45 @@ def zoo_train(torch, dev):
 
         # depth 2, float32: the card's round against the CPU's
         fed2, opt2, _ = build_train_step(arch2, "train_4k")
-        zoo_reset()
-        (_, sel2, m2), = federated_rounds(fed2, p2, opt2.init(p2), key2,
-                                          vocab=cfg.vocab,
-                                          shape=ZOO_DEPTH2_SHAPE, rounds=1)
+        (_, sel2, m2, st2), got2, _ = counted(torch, lambda: next(
+            federated_rounds(fed2, p2, opt2.init(p2), key2, vocab=cfg.vocab,
+                             shape=ZOO_DEPTH2_SHAPE, rounds=1)), flash)
         card = dict(mask=sel2.cpu().numpy(), loss=float(m2.loss),
                     delta_norm=float(m2.delta_norm))
-        got2 = zoo_launches()
         del p2
         cpu = finish_cpu(proc, results, timeout=900)
+        if cpu is None:
+            raise AssertionError("zoo_train: the CPU's depth-2 round gave "
+                                 "no result")
+        gaps = delta_leaf_gaps(torch, st2.m, torch.load(str(path) + ".m"))
     finally:
         if proc.is_alive():
             proc.terminate()
             proc.join()
         path.unlink(missing_ok=True)
-    if cpu is None:
-        raise AssertionError("zoo_train: the CPU's depth-2 round gave no "
-                             "result")
+        Path(str(path) + ".m").unlink(missing_ok=True)
     rel = {f: abs(card[f] - cpu[f]) / abs(cpu[f])
            for f in ("loss", "delta_norm")}
-    want2 = dict(fed_select=1, fed_aggregate=1, flash_attention=4,
-                 flash_attention_bwd=2)
+    worst = [max(g[i] for g in gaps.values()) for i in (0, 1)]
+    want2 = dict(want, flash_attention=4, flash_attention_bwd=2)
     bitwise = card["mask"].tobytes() == cpu["mask"].tobytes()
-    if not (bitwise and got2 == want2 and max(rel.values()) <= ZOO_TOL):
-        raise AssertionError(f"zoo_train depth 2: masks bitwise {bitwise}, "
-                             f"launches {got2} (want {want2}), relative "
-                             f"errors {rel} over {ZOO_TOL}")
+    if not (bitwise and got2 == want2 and max(rel.values()) <= ZOO_TOL
+            and worst[0] <= ZOO_LEAF_NORM_TOL
+            and worst[1] <= ZOO_LEAF_MAX_TOL):
+        raise AssertionError(
+            f"zoo_train depth 2: masks bitwise {bitwise}, launches {got2} "
+            f"(want {want2}), relative errors {rel} (limit {ZOO_TOL}), the "
+            f"delta's leaves {gaps} (limits {ZOO_LEAF_NORM_TOL} on the "
+            f"norm, {ZOO_LEAF_MAX_TOL} of the leaf's largest lane)")
     emit(dict(phase="zoo_train", full_width=full, depth2=dict(
         shape=list(ZOO_DEPTH2_SHAPE), dtype="float32", launches=got2,
         mask_bitwise_vs_cpu=bitwise, card_loss=card["loss"],
         cpu_loss=cpu["loss"], card_delta_norm=card["delta_norm"],
         cpu_delta_norm=cpu["delta_norm"], relative_errors=rel, tol=ZOO_TOL,
-        cpu_wall_s=cpu["wall_s"], cpu_threads=ZOO_CPU_THREADS)))
+        delta_leaf_gaps=gaps, worst_leaf_norm_gap=worst[0],
+        worst_leaf_max_gap=worst[1], leaf_norm_tol=ZOO_LEAF_NORM_TOL,
+        leaf_max_tol=ZOO_LEAF_MAX_TOL, cpu_wall_s=cpu["wall_s"],
+        cpu_threads=ZOO_CPU_THREADS)))
     return total
 
 

@@ -33,7 +33,8 @@ import torch
 from . import _build
 from . import ref as _ref
 
-__all__ = ["flash_attention", "flash_attention_bwd", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_lse", "flash_attention_bwd",
+           "HEAD_DIMS"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -102,6 +103,14 @@ def _forward(q, k, v, causal, window, softcap, with_lse):
     _build.check(err, "flash_attention kernel launch")
     flash_attention.launches += 1
     return out, lse
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0):
+    """(o, lse) of :func:`flash_attention` as its gradient's forward makes
+    them: ``o`` and each row's log-sum-exp ``lse`` (B, H, Sq) float32, the
+    pair :func:`flash_attention_bwd` reads.  Records no gradient."""
+    return _forward(q, k, v, causal, window, softcap, True)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,

@@ -100,9 +100,11 @@ def federated_rounds(fed_round, params, opt_state, key, *, vocab: int,
     equally weighted ``scarce`` (q = 0.5) clients with K_t = K, a
     ``randint`` cohort batch of ``shape`` = (K, E, B, S) tokens a round and
     the key split five ways a round, as JAX's loop.  ``key`` is the key
-    the parameters were drawn from.  Yields ``(t, mask, metrics)`` after
-    each round (the selection mask and the round's ``RoundMetrics``); the
-    parameters and optimizer state are carried inside."""
+    the parameters were drawn from.  Yields ``(t, mask, metrics,
+    opt_state)`` after each round: the selection mask, the round's
+    ``RoundMetrics`` and the server optimizer's new state (Adam's first
+    moment after the first round is (1 - b1) times the round's delta); the
+    parameters are carried inside."""
     device = key.device
     K = shape[0]
     p = np.full(n_clients, 1.0 / n_clients, np.float32)
@@ -122,7 +124,7 @@ def federated_rounds(fed_round, params, opt_state, key, *, vocab: int,
         w = w_full[torch.as_tensor(ids, device=device)]
         params, opt_state, m = fed_round(params, opt_state, batch, w,
                                          client_lr)
-        yield t, sel, m
+        yield t, sel, m, opt_state
 
 
 def run_arch_smoke(arch_id: str, rounds: int = 3, seed: int = 0,
@@ -142,9 +144,10 @@ def run_arch_smoke(arch_id: str, rounds: int = 3, seed: int = 0,
     opt = make_optimizer("adam", lr=1e-3)
     fed_round = make_fed_round(api.loss_fn, opt, mode="parallel")
     losses = []
-    for t, _, m in federated_rounds(fed_round, params, opt.init(params), key,
-                                    vocab=cfg.vocab, shape=(4, 2, 2, 64),
-                                    rounds=rounds):
+    loop = federated_rounds(fed_round, params, opt.init(params), key,
+                            vocab=cfg.vocab, shape=(4, 2, 2, 64),
+                            rounds=rounds)
+    for t, _, m, _ in loop:
         losses.append(float(m.loss))
         log_fn(f"[{arch_id}-smoke] round {t} loss={losses[-1]:.4f}")
     assert all(np.isfinite(losses)), losses

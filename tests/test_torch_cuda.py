@@ -300,6 +300,37 @@ def test_flash_attention_bwd_kernel_allclose(dev, shape, mode, dtype):
             assert float(over.max()) <= 0.0
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_grad_through_vmap_reads_kernel_lse(dev, dtype):
+    """The forward kernel's lse within 1e-5 of ``ref.sdpa_lse``, and
+    ``vmap(grad)`` over the batch through ``flash_attention`` (as the
+    parallel round takes it) equal, bit for bit and in one backward
+    launch, to the backward kernel fed the forward kernel's o and lse."""
+    from torch.func import grad, vmap
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_lse)
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(7)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(2, 256, n, 64))
+                                    .astype(np.float32)).to(dev).to(dt)
+                   for n in (8, 2, 2, 8))
+    o, lse = flash_attention_lse(q, k, v, causal=True)
+    _, want_lse = ref.sdpa_lse(q, k, v, causal=True)
+    assert float((lse - want_lse).abs().max()) <= 1e-5
+    want = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+
+    def loss(q, k, v, do):
+        out = flash_attention(q[None], k[None], v[None], causal=True)[0]
+        return (out.float() * do.float()).sum()
+
+    before = flash_attention_bwd.launches
+    got = vmap(grad(loss, argnums=(0, 1, 2)))(q, k, v, do)
+    assert flash_attention_bwd.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def test_llama_smoke_training_card_matches_cpu(dev):
     """``run_arch_smoke`` (3 rounds, the smoke config) on the card, through
     the forward and backward kernels, against the CPU: within 1e-5

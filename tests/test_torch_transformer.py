@@ -142,18 +142,14 @@ def test_configs_equal_field_by_field(arch):
 
 
 @pytest.mark.parametrize("arch", DENSE)
-def test_full_config_counts_jax_parameters(arch, monkeypatch):
-    """The full config's tree, counted on shapes alone: every drawn leaf
-    is made empty on the meta device instead of drawn (the norms, zeros,
-    are small), and JAX's count comes from ``eval_shape``."""
-    def shape_only(keys, shape, scale, dtype, *, divide=False):
-        return torch.empty(tuple(keys.shape[:-1]) + tuple(shape),
-                           dtype=dtype, device="meta")
-
-    monkeypatch.setattr(tL, "_normal", shape_only)
-    monkeypatch.setattr(tT, "_normal", shape_only)
+def test_full_config_counts_jax_parameters(arch):
+    """The full config's tree, counted on shapes alone: under
+    ``shapes_only`` every drawn leaf is made empty on the meta device
+    instead of drawn (the norms, zeros, are small), and JAX's count comes
+    from ``eval_shape``."""
     cfg = tconfigs.get_arch(arch).model
-    p = tT.init_params(cfg, jr.PRNGKey(0, device="cpu"), device="cpu")
+    with tL.shapes_only():
+        p = tT.init_params(cfg, jr.PRNGKey(0, device="cpu"), device="cpu")
     n = sum(t.numel() for t in jax.tree.leaves(p))
     assert n == count_params(jconfigs.get_arch(arch).model) \
         == FULL_PARAMS[arch]
