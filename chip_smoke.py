@@ -157,8 +157,11 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  bf16, head dims 32, 64, 128 and 256, groups of 1, 4 and 5
                  query heads a KV head, causal, window 64 and soft-cap 30,
                  Sq = Skv = 128 (B = 2) and 1000 (ragged), plus head dim
-                 16, a non-causal case and llama3.2-1b's training layer
-                 (1, 4096, 32, 8, 64) in both dtypes: float32 gradients
+                 16, a non-causal case and the training layers of
+                 llama3.2-1b (1, 4096, 32, 8, 64), qwen3-8b (1, 4096, 32,
+                 8, 128) and gemma-7b (1, 4096, 16, 16, 256), causal, in
+                 both dtypes (bf16 is the tensor-core route, float32 the
+                 CUDA-core one): float32 gradients
                  within 1e-5 of their largest magnitude, bf16 lanes within
                  one bf16 step plus 1e-5 of it, and every case run twice
                  bit for bit (the kernel has no atomics); at zoo_train's
@@ -169,10 +172,13 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  ``flash_attention`` must equal the kernel's gradient bit
                  for bit with one backward launch;
 8b. ``flash_bwd_timing`` median CUDA-event times of the backward kernel
-                 (bf16 and float32 inputs), its plain version, and SDPA's
-                 backward ((forward + backward) - forward, both recording
-                 a gradient) at llama's training layer, beside the bound
-                 (the five products of the backward over 989 TFLOP/s bf16);
+                 (bf16 inputs: the tensor-core route; float32 inputs: the
+                 CUDA-core route), its plain version, and SDPA's backward
+                 (``torch.autograd.grad`` of one recorded forward, the
+                 graph retained) at llama's training layer, zoo_train's
+                 folded layer (2, 4096, 32, 8, 64) and the qwen3-8b and
+                 gemma-7b training layers, causal, beside the bound (the
+                 five products of the backward over 989 TFLOP/s bf16);
 9. ``serve_path`` drives llama3.2-1b at full width (its ``init_params``
                  timed on the card): (a) one ``prefill``
                  of B = 1, S = 8192 (16 layers, bf16) with the launch count
@@ -213,7 +219,8 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  one warm-up round and 3 timed, each launching fed_select
                  and fed_aggregate once, the flash forward 2 x 16 x E and
                  its backward 16 x E times, with finite losses; the peak
-                 memory and a profiled round; then one round at the full
+                 memory and a profiled round, whose backward kernels must
+                 all be the tensor-core route's; then one round at the full
                  widths, depth 2, float32, K = 2, E = 1, B = 1, S = 512 on
                  the card and in a spawned CPU worker from the card's
                  parameters: masks bitwise, loss and delta norm within
@@ -1858,6 +1865,8 @@ BWD_HEAD_DIMS = (32, 64, 128, 256)
 BWD_GROUPS = (1, 4, 5)                # query heads a KV head
 BWD_LENGTHS = ((2, 128), (1, 1000))   # (B, Sq = Skv); 1000 is ragged
 LLAMA_TRAIN_ATTN = (1, 4096, 32, 8, 64)   # llama3.2-1b's training layer
+QWEN8_TRAIN_ATTN = (1, 4096, 32, 8, 128)  # qwen3-8b's, B = 1
+GEMMA_TRAIN_ATTN = (1, 4096, 16, 16, 256)  # gemma-7b's, B = 1
 # zoo_train's layer as the kernels take it: vmap folds the K = 2 clients'
 # B = 1 into the batch
 ZOO_TRAIN_ATTN = (2, 4096, 32, 8, 64)
@@ -1892,9 +1901,11 @@ def bwd_cases(torch):
              for hd in BWD_HEAD_DIMS for G in BWD_GROUPS
              for B, S in BWD_LENGTHS for mode in BWD_MODES]
     cases += [((2, 256, 4, 2, 16), torch.bfloat16, "causal"),
-              ((1, 1000, 8, 8, 64), torch.float32, "full"),
-              (LLAMA_TRAIN_ATTN, torch.bfloat16, "causal"),
-              (LLAMA_TRAIN_ATTN, torch.float32, "causal")]
+              ((1, 1000, 8, 8, 64), torch.float32, "full")]
+    cases += [(shape, dtype, "causal")
+              for shape in (LLAMA_TRAIN_ATTN, QWEN8_TRAIN_ATTN,
+                            GEMMA_TRAIN_ATTN)
+              for dtype in (torch.bfloat16, torch.float32)]
     return [(*c, False) for c in cases] + [
         (ZOO_TRAIN_ATTN, dtype, "causal", True)
         for dtype in (torch.bfloat16, torch.float32)]
@@ -2011,18 +2022,29 @@ def check_flash_backward(torch, dev):
 
 
 def time_flash_backward(torch, dev):
-    """The backward at llama's training layer, bf16 (and float32), causal:
-    the kernel, its plain version, and SDPA's backward ((forward +
-    backward) - forward, both recording a gradient), beside the bound (the
-    five products of the backward over 989 TFLOP/s bf16)."""
+    """The backward at llama's training layer, zoo_train's folded layer
+    and the qwen3-8b and gemma-7b training layers, causal: one row each;
+    returns llama's with the others under ``at``."""
+    rows = [time_bwd_shape(torch, dev, shape) for shape in (
+        LLAMA_TRAIN_ATTN, ZOO_TRAIN_ATTN, QWEN8_TRAIN_ATTN, GEMMA_TRAIN_ATTN)]
+    rows[0]["at"] = rows[1:]
+    return rows[0]
+
+
+def time_bwd_shape(torch, dev, shape):
+    """The kernel on bf16 inputs (the tensor-core route, ``ms``) and on
+    float32 inputs (the CUDA-core route, ``f32_ms``), its plain version,
+    and SDPA's backward alone (``torch.autograd.grad`` of one recorded
+    forward, the graph retained), beside the bound: the five products of
+    the backward over 989 TFLOP/s bf16, or its bytes, the larger."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_bwd
 
-    B, S, H, KV, hd = LLAMA_TRAIN_ATTN
+    B, S, H, KV, hd = shape
     mode = BWD_MODES["causal"]
-    q, k, v, o, lse, do = bwd_inputs(torch, dev, LLAMA_TRAIN_ATTN,
-                                     torch.bfloat16, mode, 200)
+    q, k, v, o, lse, do = bwd_inputs(torch, dev, shape, torch.bfloat16,
+                                     mode, 200)
     pairs = attn_pairs(S, S, True, 0)
     flops = 10.0 * B * H * hd * pairs        # S, dP, dV, dK, dQ
     # q, o, do, dq and k, v, dk, dv in bf16, lse in float32
@@ -2032,14 +2054,9 @@ def time_flash_backward(torch, dev):
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
-
-    def sdpa_fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
-
-    fwd_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qt, kt, vt),
-                                                  dot), warmup=3, runs=15)
-    row = dict(shape=list(LLAMA_TRAIN_ATTN), dtype="bfloat16", mode="causal",
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    row = dict(shape=list(shape), dtype="bfloat16", mode="causal",
                ms=cuda_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
                                                       **mode),
                           warmup=2, runs=9),
@@ -2048,13 +2065,15 @@ def time_flash_backward(torch, dev):
                plain_ms=cuda_ms(lambda: ref.sdpa_bwd(q, k, v, o, lse, do,
                                                      **mode),
                                 warmup=1, runs=5),
-               library_fwd_bwd_ms=fwd_bwd,
-               library_fwd_ms=cuda_ms(sdpa_fwd, warmup=3, runs=15),
+               library_ms=cuda_ms(lambda: torch.autograd.grad(
+                   out, (qt, kt, vt), dot, retain_graph=True),
+                   warmup=3, runs=15),
                bound_ms=b, bound_by=by, flops=flops, bytes=nbytes)
-    row["library_ms"] = row["library_fwd_bwd_ms"] - row["library_fwd_ms"]
     row["tflops_per_s"] = flops / row["ms"] / 1e9
     row["bound_share"] = b / row["ms"]
+    row["f32_over_bf16"] = row["f32_ms"] / row["ms"]
     emit(dict(phase="flash_bwd_timing", kernel=row))
+    del q, k, v, o, lse, do, f32, qt, kt, vt, dot, out
     return row
 
 
@@ -2951,6 +2970,15 @@ def zoo_train(torch, dev):
         peak = torch.cuda.max_memory_allocated()
         profiled = device_profile(torch, lambda: next(rounds),
                                   kernel_name="flash")[0]
+        # bf16: the backward runs D, then the tensor-core dK/dV and dQ
+        bwd_names = [n for n in profiled["kernel_names"] if "flash_bwd" in n]
+        if not (any("flash_bwd_dkdv_mma" in n for n in bwd_names)
+                and any("flash_bwd_dq_mma" in n for n in bwd_names)
+                and all("_mma" in n or "flash_bwd_delta" in n
+                        for n in bwd_names)):
+            raise AssertionError(f"zoo_train: the profiled round's backward "
+                                 f"kernels are {bwd_names}, not the "
+                                 f"tensor-core route's")
         del rounds
         torch.cuda.empty_cache()
         tokens = K * E * B * S
@@ -3410,11 +3438,17 @@ def main(argv) -> int:
              replaces_note="no Pallas backward exists: JAX trains by "
                            "jax.grad of the plain sdpa",
              launches=zoo["flash_attention_bwd"], max_abs_err=bwd_err,
-             routes={"bfloat16": "CUDA cores, float32 arithmetic; ms",
+             routes={"bfloat16": "tensor cores (mma.sync m16n8k16, P and "
+                                 "dS split into bf16 hi + lo, two "
+                                 "deterministic passes: dK/dV, then dQ); "
+                                 "ms",
                      "float32": "CUDA cores; f32_ms"},
              shape=list(LLAMA_TRAIN_ATTN), **{k: t_bwd[k] for k in (
                  "ms", "f32_ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms")}),
+                 "library_ms")},
+             at=[{k: r[k] for k in (
+                 "shape", "ms", "f32_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")} for r in t_bwd["at"]]),
         dict(name="ssd_chunk", route="cuda", source=src + "ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_chunk.py:52",
              launches=ssd_launches, max_abs_err=ssd_err,

@@ -356,21 +356,6 @@ __device__ __forceinline__ float exp_sfu(float x) {
   return y;
 }
 
-// A tile of rows of HD bf16 values in shared memory, in 16-byte chunks.
-// Chunk c of row r is stored at chunk (c ^ f(r)), f chosen so that the 8
-// rows one ldmatrix phase reads at one column chunk fall in 8 different
-// 16-byte bank groups (rows of 64 or 32 bytes share a 128-byte line).
-template <int HD>
-struct Swizzle {
-  static constexpr int kChunks = HD / 8;
-  static constexpr int kRowsPerLine = kChunks >= 8 ? 1 : 8 / kChunks;
-  static constexpr int kMask = (kChunks >= 8 ? 8 : kChunks) - 1;
-  __device__ static __forceinline__ uint32_t off(int r, int c) {
-    return static_cast<uint32_t>(
-        (r * kChunks + (c ^ ((r / kRowsPerLine) & kMask))) * 16);
-  }
-};
-
 template <int HD>
 constexpr int smem_bytes() {
   return (kRows + 4 * kKeys) * HD * 2;   // Q; K and V, two buffers each

@@ -1,6 +1,7 @@
 // PTX helpers shared by the tensor-core kernels (sm_90a): shared-memory
-// addresses, 16-byte cp.async copies, ldmatrix and mma.sync m16n8k16 with
-// bf16 operands and float32 accumulators.
+// addresses, cp.async copies, ldmatrix and mma.sync m16n8k16 with bf16
+// operands and float32 accumulators; the swizzled tile layout that the
+// flash kernels read with ldmatrix.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,6 +15,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+// 4-byte copy; src_bytes = 0 writes a zero and reads nothing.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -60,3 +67,18 @@ __device__ __forceinline__ void split(float p0, float p1, uint32_t* hi,
   *lo = as_u32(__floats2bfloat162_rn(p0 - __low2float(h),
                                      p1 - __high2float(h)));
 }
+
+// A tile of rows of HD bf16 values in shared memory, in 16-byte chunks.
+// Chunk c of row r is stored at chunk (c ^ f(r)), f chosen so that the 8
+// rows one ldmatrix phase reads at one column chunk fall in 8 different
+// 16-byte bank groups (rows of 64 or 32 bytes share a 128-byte line).
+template <int HD>
+struct Swizzle {
+  static constexpr int kChunks = HD / 8;
+  static constexpr int kRowsPerLine = kChunks >= 8 ? 1 : 8 / kChunks;
+  static constexpr int kMask = (kChunks >= 8 ? 8 : kChunks) - 1;
+  __device__ static __forceinline__ uint32_t off(int r, int c) {
+    return static_cast<uint32_t>(
+        (r * kChunks + (c ^ ((r / kRowsPerLine) & kMask))) * 16);
+  }
+};

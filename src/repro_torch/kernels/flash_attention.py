@@ -11,8 +11,9 @@ float32 on the CUDA cores.  On a CPU tensor it runs the plain version,
 The gradient: the TPU kernel has none (the JAX package differentiates the
 plain ``sdpa``).  Here ``flash_attention`` is a ``torch.autograd.Function``
 whose backward is a second Function around ``flash_attention_bwd``: the
-kernel of ``csrc/flash_attention_bwd.cu`` on a CUDA tensor (counted by
-``flash_attention_bwd.launches``), ``ref.sdpa_bwd`` on a CPU tensor.  When
+kernels of ``csrc/flash_attention_bwd.cu`` on a CUDA tensor (counted by
+``flash_attention_bwd.launches``; bfloat16 on the tensor cores, float32 on
+the CUDA cores), ``ref.sdpa_bwd`` on a CPU tensor.  When
 a gradient is recorded the forward also returns each row's log-sum-exp,
 which the backward reads; where none is (prefill, serve) the kernel writes
 none and runs as before.  Both Functions carry a ``vmap`` rule that folds
@@ -21,10 +22,10 @@ cohort launches one kernel a call for the whole cohort.
 
 Unlike the TPU kernel, any Sq and Skv are taken (the kernel masks the
 ragged edge), and q, k and v are read through their strides in the
-(B, S, heads, hd) layout.  The bfloat16 forward copies 16 bytes at a time,
-so it needs each of q, k and v 16-byte aligned with its batch, sequence
-and head strides multiples of 8 elements; a view that breaks this raises
-``ValueError``.
+(B, S, heads, hd) layout.  The bfloat16 kernels copy 16 bytes at a time,
+so they need each of q, k and v (and the backward's do) 16-byte aligned
+with its batch, sequence and head strides multiples of 8 elements; a view
+that breaks this raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -66,6 +67,20 @@ def _check(q, k, v, window, softcap, name):
         raise ValueError(f"window {window} and softcap {softcap} must be >= 0")
 
 
+def _check_aligned(**tensors):
+    """The bfloat16 kernels copy 16 bytes at a time: each tensor 16-byte
+    aligned, its strides along batch, sequence and head multiples of 8."""
+    for name, t in tensors.items():
+        if t.dtype != torch.bfloat16:
+            continue
+        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+            raise ValueError(
+                f"bfloat16 {name} must be 16-byte aligned with strides "
+                f"along batch, sequence and head that are multiples of "
+                f"8, got address {t.data_ptr():#x} and strides "
+                f"{t.stride()}")
+
+
 def _forward(q, k, v, causal, window, softcap, with_lse):
     """(o, lse): lse (B, H, Sq) float32 when ``with_lse``, else an empty
     tensor (the kernel is given a null pointer)."""
@@ -76,14 +91,7 @@ def _forward(q, k, v, causal, window, softcap, with_lse):
         o = _ref.sdpa(q, k, v, causal=causal, window=window, softcap=softcap)
         return o, q.new_empty(0, dtype=torch.float32)
     _check(q, k, v, window, softcap, "flash_attention")
-    if q.dtype == torch.bfloat16:
-        for name, t in zip("qkv", (q, k, v)):
-            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
-                raise ValueError(
-                    f"bfloat16 {name} must be 16-byte aligned with strides "
-                    f"along batch, sequence and head that are multiples of "
-                    f"8, got address {t.data_ptr():#x} and strides "
-                    f"{t.stride()}")
+    _check_aligned(q=q, k=k, v=v)
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     out = torch.empty(B, Sq, H, hd, dtype=q.dtype, device=q.device)
@@ -136,6 +144,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                          f"{tuple(lse.shape)} {lse.dtype}")
     if any(t.device != q.device for t in (o, lse, do)):
         raise ValueError("o, lse and do must lie on q's device")
+    _check_aligned(q=q, k=k, v=v, do=do)
     dq = torch.empty(B, Sq, H, hd, dtype=q.dtype, device=q.device)
     dk = torch.empty(B, Skv, KV, hd, dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)

@@ -273,6 +273,16 @@ def test_flash_attention_bwd_kernel_allclose(dev, shape, mode, dtype):
     o, lse and do (one launch, bitwise on a rerun): float32 within 1e-5 of
     each gradient's largest magnitude; bf16 within one bf16 step of each
     lane plus 1e-5 of that magnitude (chip_smoke.py's limits)."""
+    _check_bwd(dev, shape, mode, dtype)
+
+
+def test_flash_attention_bwd_llama_training_layer_bf16(dev):
+    """The bf16 (tensor-core) route at llama3.2-1b's training layer,
+    (1, 4096, 32, 8, 64) causal, under the same limits."""
+    _check_bwd(dev, (1, 4096, 32, 8, 64), "causal", "bfloat16")
+
+
+def _check_bwd(dev, shape, mode, dtype):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     B, S, H, KV, hd = shape
