@@ -44,10 +44,10 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  train loss and delta norm within 1e-4;
 5a. ``scenarios`` the paper's grid on the card: scenarios always, scarce,
                  homedevices, smartphones and uneven × strategies f3ast,
-                 fedavg and fedadam at GRID_ROUNDS (100), every other
+                 fedavg and fedadam at GRID_ROUNDS (60), every other
                  scenario under f3ast and uniform, fedavg_weighted and
                  fixed_f3ast (with an r_target) on homedevices and dropout
-                 at SHORT_ROUNDS (40); each cell held to the port's CPU run
+                 at SHORT_ROUNDS (30); each cell held to the port's CPU run
                  of the same spec (run meanwhile in spawned worker
                  processes) as main_path holds its run, and its launches
                  counted:
@@ -59,7 +59,7 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
 5b. ``paper_tasks`` the paper's Shakespeare and CIFAR tasks at their task
                  configs (the LSTM, 820,522 parameters; the reduced ResNet,
                  310,116) in the cell ``launch.train --task X`` builds
-                 (homedevices), under f3ast and fedadam, 10 rounds each on
+                 (homedevices), under f3ast and fedadam, 6 rounds each on
                  the card, each held to its CPU run (spawned workers, two
                  threads each): masks, K_t, |avail| and final r_k bitwise,
                  train loss and delta norm within PAPER_TASK_LOSS_TOL
@@ -95,7 +95,7 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  masks, every async_history field and r_k bitwise the CPU
                  and each other; the Shakespeare (820,522) and CIFAR
                  (310,116) task cells on the host loop and Shakespeare on
-                 the buffered server with deadline latencies, 10 rounds
+                 the buffered server with deadline latencies, 6 rounds
                  each (losses at the paper_tasks tolerances);
                  ``run_cells_vmapped`` over seeds 0-3 with caps 3, 5, 10,
                  10, 60 rounds, bitwise the CPU and each cell's single run
@@ -142,12 +142,20 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  (1, 512, 4, 2, 256) case in both dtypes and every mode and
                  window 32, gemma-7b's prefill layer (1, 8192, 16, 16, 256)
                  and qwen3-14b's group of 5, (1, 2048, 40, 8, 128), causal
-                 in both dtypes; it reports each reference's RMS;
+                 in both dtypes, and the moe archs' prefill layer (1, 8192,
+                 48, 8, 128) in bf16 with mixtral's window of 4096 and
+                 with grok's soft-cap of 30; it reports each reference's
+                 RMS;
 8. ``flash_timing`` median CUDA-event times of the kernel (its bf16 route,
                  on the tensor cores, and its float32 route, on the CUDA
                  cores), its plain version and
                  ``scaled_dot_product_attention`` at llama's and gemma's
-                 prefill shapes,
+                 prefill shapes (causal), and ``torch.compile`` of
+                 ``flex_attention`` (its output held to the kernel's) at
+                 mixtral's (a causal block mask with the window of 4096;
+                 SDPA with the window as a boolean mask, on the first
+                 backend that takes it, named, beside it) and grok's (a
+                 tanh soft-cap score_mod of 30),
                  beside the bound (the larger of bytes over 3.35 TB/s and
                  the unmasked QK^T + PV flops over 989 TFLOP/s bf16), the
                  bf16 route's TFLOP/s and its share of the bound;
@@ -193,12 +201,14 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  float32, S = 128, the card's prefill within 2e-3 of
                  stepping the same prompt through ``decode_step`` (the
                  limit of ``tests/test_models_consistency.py``);
-9a. ``dense_path`` drives qwen3-8b, qwen3-14b and gemma-7b at full width,
+9a. ``dense_path`` drives qwen3-8b, qwen3-14b and gemma-7b at full width
+                 and half their depth (DENSE_DEPTH: 18, 20 and 14
+                 layers),
                  one after another, each freed before the next: (a) the
                  weights ``launch.serve`` draws (``serve_params``, timed on
                  the card), one ``prefill`` of B = 1, S = 8192 with the
                  launch count set to 0 just before, which must launch the
-                 kernel once a layer (36, 40, 28) and give finite logits,
+                 kernel once a layer and give finite logits,
                  the median of 3 and a profiled run whose flash kernels
                  must all be the tensor-core route's; (b) 8 decode steps
                  through ``serve`` on those weights (batch 4), with no
@@ -209,7 +219,31 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  whole: ``sampled_init_check``), then the card's float32
                  prefill (S = 512, 2 launches) within 1e-4 of the CPU's on
                  the same weights;
-9b. ``zoo_train`` trains llama3.2-1b at full width (16 layers, d 2048,
+9b. ``moe_path`` drives mixtral-8x22b (4 of its 56 layers) and
+                 grok-1-314b (2 of 64) at full width, one after the other:
+                 (a) ``serve_params`` at the cut depth (timed), one
+                 ``prefill`` of B = 1, S = 8192 (two routing groups of
+                 4096, capacity 1,280) with the launch count set to 0 just
+                 before, which must launch the kernel once a layer and give
+                 finite (1, 1, V) logits, the median of 3, the peak memory,
+                 a profiled run whose flash kernels must all be
+                 ``flash_kernel_mma``, the share of (token, choice) pairs
+                 capacity dropped in each layer and what the router's
+                 input shares across positions (its rows' mean cosine);
+                 (b) 8 decode steps through ``serve`` on those weights
+                 (batch 4), with no flash launch; (c) on the same drawn
+                 weights: the draw by ``init_windows_check``'s windows of
+                 every row; the first MOE_F32_LAYERS (mixtral 2, grok 1)
+                 layers cast to float32 on the card and, in a spawned CPU
+                 worker (from their bf16 copy saved under ``build/``),
+                 prefill at S = 512 within 1e-4 with
+                 every layer's chosen experts equal (the smallest gap
+                 between the 2nd and 3rd probability reported),
+                 ``moe_block`` alone on layer 0 at S = 300 in groups of
+                 256 (a padded group) with y within 1e-4 of its largest
+                 lane, lb_loss within 1e-6 relative, the experts and slots
+                 equal, and ``top_k`` of tied rows bitwise;
+9c. ``zoo_train`` trains llama3.2-1b at full width (16 layers, d 2048,
                  the tied 128,256-token vocabulary, bf16, random weights)
                  through ``launch.steps.build_train_step(arch, "train_4k")``
                  (the arch's FedExec: the parallel round, per-layer remat,
@@ -737,11 +771,11 @@ OTHER_SCENARIOS = ("bernoulli", "markov", "gilbert_elliott", "diurnal",
                    "straggler")
 BASELINE_SCENARIOS = ("homedevices", "dropout")
 BASELINE_ALGORITHMS = ("uniform", "fedavg_weighted", "fixed_f3ast")
-# The paper grid's rounds: RunSpec()'s 300 cut to 100, so that the script,
-# with the dense archs and the zoo's training round, stays well inside its
-# 1,200 s limit.
-GRID_ROUNDS = 100
-SHORT_ROUNDS = 40
+# The paper grid's rounds: RunSpec()'s 300 cut to 60 (and the other cells'
+# to 30), so that the script, with the zoo's archs and training round,
+# stays inside its 1,200 s limit.
+GRID_ROUNDS = 60
+SHORT_ROUNDS = 30
 CPU_WORKERS = 4
 # completion processes that split the cut from the EMA and weights, so the
 # round takes fed_select_mask instead of the fused fed_select
@@ -895,12 +929,12 @@ def check_cell(torch, cell, card, ref, phase: str, loss_tol: float,
 # ---------------------------------------------------------------------------
 
 PAPER_TASKS = ("shakespeare", "cifar")
-# cut from 20 when the dense archs joined the script: the phase waits
-# for the CPU's Shakespeare runs (~5.6 s a round); evaluated every
-# PAPER_TASK_EVAL rounds, so the runs after the first chunk give the
-# steady round
-PAPER_TASK_ROUNDS = 10
-PAPER_TASK_EVAL = 5
+# cut from 20 when the dense archs joined the script and to 6 when the moe
+# archs did: the phase waits for the CPU's Shakespeare runs (~10 s a round
+# beside the other workers); evaluated every PAPER_TASK_EVAL rounds, so
+# the runs after the first chunk give the steady round
+PAPER_TASK_ROUNDS = 6
+PAPER_TASK_EVAL = 3
 PAPER_TASK_CPU_THREADS = 2
 PAPER_TASK_STRATEGIES = ("f3ast", "fedadam")
 # card vs the CPU, train loss each round.  The LSTM's rounds stay within
@@ -1244,7 +1278,7 @@ def paper_tasks(torch, dev):
 HOST_ROUNDS = 300
 HOST_POC_BUFFERED_ROUNDS = 150
 HOST_SHORT_ROUNDS = 60
-HOST_TASK_ROUNDS = 10
+HOST_TASK_ROUNDS = 6         # with PAPER_TASK_EVAL: two chunks
 HOST_CELLS_SEEDS, HOST_CELLS_CAPS = [0, 1, 2, 3], [3, 5, 10, 10]
 # PoC's fresh losses, card vs CPU, each round (relative)
 POC_LOSS_RTOL = 1e-5
@@ -1263,15 +1297,15 @@ def host_async_cells():
     sync = dict(fed_select=1, fed_select_mask=0, fed_aggregate=1)
     cells = [
         ("host/shakespeare", RunSpec(scenario=shakespeare, engine="host",
-                                     rounds=HOST_TASK_ROUNDS, eval_every=5),
-         2, sync),
+                                     rounds=HOST_TASK_ROUNDS,
+                                     eval_every=PAPER_TASK_EVAL), 2, sync),
         ("buffered/shakespeare", RunSpec(
             scenario=shakespeare, aggregation="buffered",
-            completion="deadline", rounds=HOST_TASK_ROUNDS, eval_every=5),
-         2, sync),
+            completion="deadline", rounds=HOST_TASK_ROUNDS,
+            eval_every=PAPER_TASK_EVAL), 2, sync),
         ("host/cifar", RunSpec(scenario=cifar, engine="host",
-                               rounds=HOST_TASK_ROUNDS, eval_every=5), 2,
-         sync),
+                               rounds=HOST_TASK_ROUNDS,
+                               eval_every=PAPER_TASK_EVAL), 2, sync),
         ("host/poc", RunSpec(strategy="poc", engine="host",
                              rounds=HOST_POC_BUFFERED_ROUNDS), 1,
          dict(fed_select=0, fed_select_mask=2, fed_aggregate=1)),
@@ -1733,9 +1767,14 @@ HD128_ATTN = (1, 4096, 32, 8, 128)  # two KV tiles a row at head dim 128
 HD256_ATTN = (1, 512, 4, 2, 256)    # gemma's head dim, GQA
 GEMMA_ATTN = (1, 8192, 16, 16, 256)  # gemma-7b prefill layer, B = 1
 QWEN14_ATTN = (1, 2048, 40, 8, 128)  # qwen3-14b's group of 5 heads a KV head
+# mixtral-8x22b's and grok-1-314b's prefill layer, B = 1: mixtral's with
+# its sliding window of 4096, grok's with its logit soft-cap of 30
+MOE_ATTN = (1, 8192, 48, 8, 128)
 # a window smaller than the kernel's 64-key tile: every visited tile is an
 # edge tile, and a row's first visited tile can hide all its keys
 WINDOW32 = dict(causal=True, window=32, softcap=0.0)
+SWA4096 = dict(causal=True, window=4096, softcap=0.0)    # mixtral's
+MOE_MODES = {"mixtral-8x22b": "window4096", "grok-1-314b": "softcap30"}
 
 
 def attn_inputs(torch, dev, shape, dtype, seed):
@@ -1774,8 +1813,9 @@ def check_flash_attention(torch, dev):
               for mode in (*ATTN_MODES, "window32")]
     cases += [(shape, dtype, "causal") for shape in (GEMMA_ATTN, QWEN14_ATTN)
               for dtype in (torch.bfloat16, torch.float32)]
-    modes = dict(ATTN_MODES, window32=WINDOW32)
-    rows, max_err, llama, gemma = [], {}, {}, {}
+    cases += [(MOE_ATTN, torch.bfloat16, mode) for mode in MOE_MODES.values()]
+    modes = dict(ATTN_MODES, window32=WINDOW32, window4096=SWA4096)
+    rows, max_err, llama, gemma, moe = [], {}, {}, {}, {}
     for i, (shape, dtype, mode) in enumerate(cases):
         q, k, v = attn_inputs(torch, dev, shape, dtype, i)
         got = flash_attention(q, k, v, **modes[mode])
@@ -1800,6 +1840,9 @@ def check_flash_attention(torch, dev):
         if shape in (LLAMA_ATTN, GEMMA_ATTN) and mode == "causal":
             (llama if shape == LLAMA_ATTN else gemma)[dname] = dict(
                 max_abs_err=err, ref_rms=rms, err_over_rms=err / rms)
+        if shape == MOE_ATTN:
+            moe[mode] = dict(max_abs_err=err, ref_rms=rms,
+                             err_over_rms=err / rms)
         if not ok:
             raise AssertionError(
                 f"flash_attention {shape} {dtype} {mode}: max |err| {err} "
@@ -1809,44 +1852,126 @@ def check_flash_attention(torch, dev):
         del q, k, v, got, want, diff
     emit(dict(phase="flash_attention", checks=rows,
               max_abs_err_by_dtype=max_err, llama_shape=llama,
-              gemma_shape=gemma))
+              gemma_shape=gemma, moe_shape=moe))
     return llama["bfloat16"]["max_abs_err"]
 
 
 def time_flash_attention(torch, dev):
-    """The llama and gemma prefill layers' rows; returns llama's with
-    gemma's under ``at_gemma``."""
+    """The llama, gemma, mixtral and grok prefill layers' rows; returns
+    llama's with the others' under ``at_gemma``, ``at_mixtral`` and
+    ``at_grok``."""
     llama = time_flash_shape(torch, dev, LLAMA_ATTN)
     llama["at_gemma"] = time_flash_shape(torch, dev, GEMMA_ATTN)
+    llama["at_mixtral"] = time_flash_shape(torch, dev, MOE_ATTN,
+                                           "window4096")
+    llama["at_grok"] = time_flash_shape(torch, dev, MOE_ATTN, "softcap30")
     return llama
 
 
-def time_flash_shape(torch, dev, shape):
+def sdpa_library_call(torch, qt, kt, vt, **kw):
+    """The first SDPA backend (flash, memory-efficient, cuDNN, math) that
+    takes these (B, heads, S, hd) inputs: (its name, the call)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      enable_gqa=True, **kw)
+        try:
+            call()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return backend.name, call
+    raise AssertionError(f"no SDPA backend takes {kw}")
+
+
+def flex_library_call(torch, qt, kt, vt, *, causal, window, softcap):
+    """``torch.compile(flex_attention)`` of these (B, heads, S, hd)
+    inputs: a block mask for causal and the window (its fully masked
+    tiles skipped) and a score_mod for the soft-cap, on the scaled score
+    as the kernel applies it."""
+    import torch._inductor.config as inductor_config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    assert causal
+    # compile in this process: no pool of workers left behind
+    inductor_config.compile_threads = 1
+    S = qt.shape[2]
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        keep = kv_idx <= q_idx
+        return keep & (q_idx - kv_idx < window) if window > 0 else keep
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+    block_mask = create_block_mask(mask_mod, None, None, S, S,
+                                   device=qt.device)
+    flex = torch.compile(flex_attention)
+    mod = score_mod if softcap > 0 else None
+    return lambda: flex(qt, kt, vt, score_mod=mod, block_mask=block_mask,
+                        enable_gqa=True)
+
+
+def time_flash_shape(torch, dev, shape, mode="causal"):
+    """bf16 (the tensor cores) and float32 (the CUDA cores) through the
+    kernel, the plain version and the library beside the bound.  The
+    library: SDPA, causal (its default backend); a window or a soft-cap,
+    which no SDPA call skips tiles for or has, takes the compiled
+    ``flex_attention`` (held to the kernel's output), and a window is
+    also timed as SDPA with a boolean mask."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
 
+    kw = dict(ATTN_MODES, window4096=SWA4096)[mode]
     B, S, H, KV, hd = shape
     q, k, v = attn_inputs(torch, dev, shape, torch.bfloat16, 100)
     # the library yardstick takes (B, heads, S, hd); its copies are made
     # here, outside the timed calls
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    pairs = attn_pairs(S, S, True, 0)
+    pairs = attn_pairs(S, S, kw["causal"], kw["window"])
     flops = 4.0 * B * H * hd * pairs          # QK^T and PV, 2 flops a MAC
     nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)  # q, o, k, v
     b, by = bound_ms(nbytes, flops, peak=BF16_FLOPS)
     q32, k32, v32 = (x.float() for x in (q, k, v))
-    row = dict(shape=list(shape), dtype="bfloat16", mode="causal",
-               ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True),
+    extra = {}
+    if kw["window"] > 0 or kw["softcap"] > 0:
+        call = flex_library_call(torch, qt, kt, vt, **kw)
+        library = ("torch.compile(flex_attention), causal block mask"
+                   + (f" with the window of {kw['window']}" if kw["window"]
+                      else f", tanh soft-cap {kw['softcap']:g} score_mod"))
+        want = flash_attention(q, k, v, **kw).transpose(1, 2)
+        extra["library_vs_kernel_max_abs"] = float(
+            (call().float() - want.float()).abs().max())
+        del want
+        if kw["window"] > 0:
+            # SDPA with the window as a dense boolean mask: it visits every
+            # tile, a weaker yardstick kept beside the compiled one
+            i = torch.arange(S, device=dev)
+            mask = (i[None, :] <= i[:, None]) \
+                & (i[None, :] > i[:, None] - kw["window"])
+            name, sdpa = sdpa_library_call(torch, qt, kt, vt, attn_mask=mask)
+            extra.update(sdpa_mask_backend=name,
+                         sdpa_mask_ms=cuda_ms(sdpa, warmup=3, runs=15))
+            del mask, sdpa
+    else:
+        def call():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        library = "SDPA, is_causal"
+    lib_ms = cuda_ms(call, warmup=3, runs=15)
+    row = dict(shape=list(shape), dtype="bfloat16", mode=mode,
+               ms=cuda_ms(lambda: flash_attention(q, k, v, **kw),
                           warmup=2, runs=15),
-               f32_ms=cuda_ms(lambda: flash_attention(q32, k32, v32,
-                                                      causal=True),
+               f32_ms=cuda_ms(lambda: flash_attention(q32, k32, v32, **kw),
                               warmup=1, runs=9),
-               plain_ms=cuda_ms(lambda: ref.sdpa(q, k, v, causal=True),
+               plain_ms=cuda_ms(lambda: ref.sdpa(q, k, v, **kw),
                                 warmup=2, runs=9),
-               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, is_causal=True, enable_gqa=True),
-                   warmup=3, runs=15),
+               library_ms=lib_ms, library=library, **extra,
                bound_ms=b, bound_by=by, flops=flops, bytes=nbytes)
     row["tflops_per_s"] = flops / row["ms"] / 1e9
     row["bound_share"] = b / row["ms"]
@@ -2192,13 +2317,17 @@ def start_cpu(ctx, *args):
 
 
 def finish_cpu(proc, results, timeout):
-    """The worker's result, or None (the worker stopped) after
-    ``timeout`` s."""
+    """The worker's result, or None after ``timeout`` s or as soon as the
+    worker has exited without one."""
     import queue
-    try:
-        out = results.get(timeout=timeout)
-    except queue.Empty:
-        out = None
+    deadline, out = time.perf_counter() + timeout, None
+    while out is None and time.perf_counter() < deadline:
+        alive = proc.is_alive()
+        try:
+            out = results.get(timeout=5)
+        except queue.Empty:
+            if not alive:
+                break
     if out is None:
         proc.terminate()
     proc.join()
@@ -2544,10 +2673,11 @@ def timed_init(torch, transformer, cfg, seed, dev):
 # serve path: llama3.2-1b at full width
 # ---------------------------------------------------------------------------
 
-def _tree_to(tree, device):
+def _tree_to(tree, to):
+    """Every leaf ``.to(to)``: a device or a dtype."""
     if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+        return {k: _tree_to(v, to) for k, v in tree.items()}
+    return tree.to(to)
 
 
 def serve_path(torch, dev, flash_ms: float):
@@ -2650,6 +2780,9 @@ def serve_path(torch, dev, flash_ms: float):
 # ---------------------------------------------------------------------------
 
 DENSE_ARCHS = ("qwen3-8b", "qwen3-14b", "gemma-7b")
+# every width, half the depth (of 36, 40 and 28 layers): cut when the moe
+# archs joined the script, to keep it inside its 1,200 s limit
+DENSE_DEPTH = {"qwen3-8b": 18, "qwen3-14b": 20, "gemma-7b": 14}
 INIT_WINDOW = 4096          # lanes of each drawn row re-drawn on the CPU
 
 
@@ -2662,20 +2795,32 @@ class DrawWindows:
 
 
 def sampled_init_check(torch, cfg, seed, dev):
-    """The card's ``init_params`` of ``cfg`` against the CPU's, without
-    drawing the full widths on the CPU: the CPU walks the same key tree
-    (``init_params`` with ``layers._normal`` replaced) and re-draws, for
-    each drawn leaf and each layer's row of it, the first and the last
-    INIT_WINDOW lanes and the window that straddles the draw's first
-    2^24-lane chunk boundary, with the same ``random.normal(start=)``;
-    every undrawn leaf (the norms) is compared whole.  Returns (the card's
-    parameters, the windows and leaves compared, the paths that differ)."""
+    """The card's ``init_params`` of ``cfg`` at ``seed`` against the CPU's
+    (:func:`init_windows_check`).  Returns (the card's parameters, the
+    windows and leaves compared, the paths that differ)."""
+    from repro_torch import random as jr
+    from repro_torch.models import transformer
+
+    card = transformer.init_params(cfg, jr.PRNGKey(seed, device=dev), dev)
+    return (card,) + init_windows_check(
+        torch, cfg, jr.PRNGKey(seed, device="cpu"), card)
+
+
+def init_windows_check(torch, cfg, key, card):
+    """``card``, drawn on the card by ``init_params(cfg, key)``, against
+    the CPU's draw from ``key`` (on the CPU), without drawing the full
+    widths on the CPU: the CPU walks the same key tree (``init_params``
+    with ``layers._normal`` replaced) and re-draws, for each drawn leaf and
+    each layer's row of it, the first and the last INIT_WINDOW lanes and
+    the window that straddles the draw's first 2^24-lane chunk boundary,
+    with the same ``random.normal(start=)``; every undrawn leaf (the norms)
+    is compared whole.  Returns (the windows and leaves compared, the
+    paths that differ)."""
     import math
 
     from repro_torch import random as jr
     from repro_torch.models import layers, transformer
 
-    card = transformer.init_params(cfg, jr.PRNGKey(seed, device=dev), dev)
     chunk = layers._DRAW_CHUNK
 
     def windows(keys, shape, scale, dtype, *, divide=False):
@@ -2693,8 +2838,7 @@ def sampled_init_check(torch, cfg, seed, dev):
     saved = (layers._normal, transformer._normal)
     layers._normal = transformer._normal = windows
     try:
-        cpu = transformer.init_params(cfg, jr.PRNGKey(seed, device="cpu"),
-                                      "cpu")
+        cpu = transformer.init_params(cfg, key, "cpu")
     finally:
         layers._normal, transformer._normal = saved
     compared, differ = 0, []
@@ -2712,7 +2856,7 @@ def sampled_init_check(torch, cfg, seed, dev):
             compared += 1
             if not same_tensor_bits(torch, got.cpu(), want):
                 differ.append(path)
-    return card, compared, differ
+    return compared, differ
 
 
 def same_tensor_bits(torch, a, b) -> bool:
@@ -2725,20 +2869,22 @@ def same_tensor_bits(torch, a, b) -> bool:
 
 
 def dense_path(torch, dev):
-    """Each dense arch at full width through ``launch.serve``'s entry
-    points; returns the flash launches of their prefills."""
-    from repro_torch.configs import get_arch
+    """Each dense arch at full width and DENSE_DEPTH through
+    ``launch.serve``'s entry points; returns the flash launches of their
+    prefills."""
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch.serve import serve, serve_params
+    from repro_torch.launch.serve import serve, serve_config, serve_params
     from repro_torch.models import transformer
 
     total = 0
     for name in DENSE_ARCHS:
         torch.cuda.empty_cache()
-        cfg = get_arch(name).model
+        depth = DENSE_DEPTH[name]
+        cfg = serve_config(name, smoke=False, n_layers=depth)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params = serve_params(name, 0, smoke=False, device=dev)
+        params = serve_params(name, 0, smoke=False, device=dev,
+                              n_layers=depth)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         n_params = sum(x.numel() for x in tree_leaves(params))
@@ -2780,6 +2926,7 @@ def dense_path(torch, dev):
             raise AssertionError(f"{name}: profiled flash kernels "
                                  f"{prof['kernel_names']}")
         prefill = dict(batch=1, seq_len=8192, layers=cfg.n_layers,
+                       of_layers=serve_config(name, smoke=False).n_layers,
                        head_dim=cfg.head_dim, dtype=cfg.dtype,
                        n_params=n_params, init_params_s=init_s,
                        flash_launches=launches, logits_finite=finite,
@@ -2793,7 +2940,7 @@ def dense_path(torch, dev):
         # (b) a few decode tokens through serve, on the same weights
         flash_attention.launches = 0
         res = serve(name, steps=8, smoke=False, device=dev, params=params,
-                    log_fn=lambda *a: None)
+                    n_layers=depth, log_fn=lambda *a: None)
         if flash_attention.launches != 0 or res.tokens.shape != (4, 8):
             raise AssertionError(f"{name} serve: {flash_attention.launches} "
                                  f"flash launches, tokens "
@@ -2834,6 +2981,330 @@ def dense_path(torch, dev):
         emit(dict(phase="dense_path", arch=name, prefill=prefill,
                   serve=served, depth2_init=init_rows,
                   depth2_f32_card_vs_cpu_max_abs_err=card_vs_cpu))
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# moe path: mixtral-8x22b and grok-1-314b at full width, cut in depth
+# ---------------------------------------------------------------------------
+
+# Every width kept, the depth cut to what one card holds: mixtral's layer
+# is 2.504 B parameters (5.0 GB in bf16), grok's 4.920 B (9.84 GB)
+MOE_DEPTH = {"mixtral-8x22b": 4, "grok-1-314b": 2}
+# the first layers cast to float32 for the card-vs-CPU prefill: grok's
+# layer is 9.84 GB in bf16, so one (its bf16 copy written for the CPU and
+# its float32 copy on the card each half of two layers')
+MOE_F32_LAYERS = {"mixtral-8x22b": 2, "grok-1-314b": 1}
+MOE_F32_SEQ = 512
+# moe_block alone at S = 300, groups of 256: the second group padded with
+# 212 zero rows, whose router probabilities tie exactly
+MOE_BLOCK_SEQ, MOE_BLOCK_GROUP = 300, 256
+MOE_BLOCK_RTOL = 1e-4       # y's largest gap over y's largest lane
+MOE_LB_RTOL = 1e-6          # lb_loss: a mean over tokens, summed in
+#                             another order on the card
+MOE_CPU_THREADS = 6
+TIED_ROWS = [[0.125] * 8, [0.1, 0.3, 0.3, 0.3, 0, 0, 0, 0],
+             [0.25, 0.25, 0, 0, 0.25, 0.25, 0, 0], [0] * 7 + [1]]
+
+
+def moe_f32_config(name: str):
+    from repro_torch.configs import get_arch
+    return get_arch(name).model.replace(n_layers=MOE_F32_LAYERS[name],
+                                        dtype="float32")
+
+
+def moe_inputs(torch, cfg):
+    """The card-vs-CPU check's prompt and moe_block input, drawn on the
+    CPU from a seed (the same in the main process and the worker)."""
+    gen = torch.Generator().manual_seed(11)
+    toks = torch.randint(0, cfg.vocab, (1, MOE_F32_SEQ), generator=gen,
+                         dtype=torch.int32)
+    x = torch.randn(1, MOE_BLOCK_SEQ, cfg.d_model, generator=gen)
+    return toks, x
+
+
+@contextlib.contextmanager
+def recorded_routing(log, summary):
+    """Inside it, each ``moe_block`` call of the model also appends
+    ``summary(routing, x)`` to ``log`` (``layers.moe_routing`` of the same
+    input ``x``, the router's, recomputed)."""
+    from repro_torch.models import layers, transformer
+    block = transformer.moe_block
+
+    def rec(p, x, cfg):
+        log.append(summary(layers.moe_routing(p, x, cfg), x))
+        return block(p, x, cfg)
+    transformer.moe_block = rec
+    try:
+        yield
+    finally:
+        transformer.moe_block = block
+
+
+def drop_summary(r, x) -> dict:
+    """The share of the real tokens' (token, choice) pairs that capacity
+    dropped, and what the router's input ``x`` (B, S, d) shares across
+    positions: the mean cosine between two positions' rows, and the norm
+    of the rows' mean over their mean norm."""
+    B, S = x.shape[:2]
+    nG, G, k, E = r.keep.shape[1:]
+    kept = r.keep.reshape(B, nG * G, k, E)[:, :S].any(-1)
+    x = x.float()
+    unit = x / x.norm(dim=-1, keepdim=True)
+    total = unit.sum(1).norm(dim=-1) ** 2          # sum over pairs, i = j too
+    return dict(dropped_share=1.0 - float(kept.sum()) / kept.numel(),
+                input_mean_cosine=float(((total - S) / (S * (S - 1))).mean()),
+                input_mean_over_norm=float(
+                    (x.mean(1).norm(dim=-1) / x.norm(dim=-1).mean(1)).mean()))
+
+
+def route_summary(r, x):
+    """The real tokens' chosen experts (B, S, k) and their three largest
+    router probabilities (B, S, 3), on the CPU."""
+    B, nG, G, k = r.idx.shape
+    S = x.shape[1]
+    top3 = r.probs.sort(dim=-1, descending=True).values[..., :3]
+    return (r.idx.reshape(B, nG * G, k)[:, :S].cpu(),
+            top3.reshape(B, nG * G, 3)[:, :S].cpu())
+
+
+def moe_cpu_side(torch, name, params):
+    """What the card's side of the check is held to, computed with
+    ``params`` (float32) on their device: the depth-cut prefill with each
+    layer's routing, moe_block alone on layer 0 (y, lb_loss, the experts
+    and slots of every row, padded ones included) and ``top_k`` of the
+    tied rows."""
+    from repro_torch.models import layers, transformer
+    cfg = moe_f32_config(name)
+    dev = params["embed"].device
+    toks, x = (t.to(dev) for t in moe_inputs(torch, cfg))
+    routes = []
+    with recorded_routing(routes, route_summary):
+        logits = transformer.prefill(cfg, params, {"tokens": toks})
+    bcfg = cfg.replace(moe_group_size=MOE_BLOCK_GROUP)
+    p0 = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+    y, aux = layers.moe_block(p0, x, bcfg)
+    r = layers.moe_routing(p0, x, bcfg)
+    tv, ti = layers.top_k(torch.tensor(TIED_ROWS, device=dev), 2)
+    return dict(logits=logits.cpu(), routes=routes, y=y.cpu(),
+                lb=aux["lb_loss"].cpu(), idx=r.idx.cpu(), slot=r.slot.cpu(),
+                top_k=(tv.cpu(), ti.cpu()))
+
+
+def moe_cpu(src: str, name: str, path: str, threads: int, results) -> None:
+    """:func:`moe_cpu_side` on the CPU (a spawned worker), from the card's
+    first layers saved at ``path`` in bfloat16 and cast here; the result
+    goes back as numpy arrays."""
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    params = _tree_to(torch.load(path, mmap=True), torch.float32)
+    out = moe_cpu_side(torch, name, params)
+
+    def to_np(x):
+        if isinstance(x, (list, tuple)):
+            return [to_np(v) for v in x]
+        if isinstance(x, dict):
+            return {k: to_np(v) for k, v in x.items()}
+        return x.numpy()
+    out = to_np(out)
+    out["wall_s"] = time.perf_counter() - t0
+    results.put(out)
+
+
+def first_layers(params, n: int):
+    """The embeddings, the final norm and the first n stacked layers."""
+    def cut(tree):
+        return ({k: cut(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else tree[:n])
+    return dict({k: v for k, v in params.items() if k != "blocks"},
+                blocks=cut(params["blocks"]))
+
+
+def moe_compare(torch, card, cpu) -> dict:
+    """The card's side against the CPU's (numpy) on the same weights."""
+    import numpy as np
+    flips, gaps = [], []
+    for (ci, cp), (pi, pp) in zip(card["routes"], cpu["routes"]):
+        flips.append(int((ci.numpy() != pi).any(-1).sum()))
+        gaps.append(float((pp[..., 1] - pp[..., 2]).min()))
+    y, y_cpu = card["y"].numpy(), cpu["y"]
+    lb, lb_cpu = float(card["lb"]), float(cpu["lb"])
+    tv, ti = card["top_k"]
+    return dict(
+        prefill_max_abs_err=float(np.abs(card["logits"].numpy()
+                                         - cpu["logits"]).max()),
+        logit_scale=float(np.abs(cpu["logits"]).max()),
+        routing_layers=len(flips), tokens_with_other_experts=flips,
+        smallest_2nd_3rd_prob_gap=gaps,
+        block_y_rel_err=float(np.abs(y - y_cpu).max() / np.abs(y_cpu).max()),
+        block_lb_loss=[lb, lb_cpu], block_lb_rel_err=abs(lb - lb_cpu)
+        / abs(lb_cpu), block_lb_bitwise=lb == lb_cpu,
+        block_experts_equal=bool((card["idx"].numpy() == cpu["idx"]).all()),
+        block_slots_equal=bool((card["slot"].numpy() == cpu["slot"]).all()),
+        top_k_tied_bitwise=bool(
+            ti.numpy().tobytes() == cpu["top_k"][1].tobytes()
+            and tv.numpy().tobytes() == cpu["top_k"][0].tobytes()))
+
+
+def moe_path(torch, dev):
+    """Each moe arch at full width and cut depth through ``launch.serve``'s
+    entry points, then the card against the CPU on the same drawn weights;
+    returns the flash launches of the full-width prefills."""
+    import multiprocessing
+    from repro_torch import random as jr
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import serve, serve_config, serve_params
+    from repro_torch.models import transformer
+
+    ctx = multiprocessing.get_context("spawn")
+    total = 0
+    for name, depth in MOE_DEPTH.items():
+        torch.cuda.empty_cache()
+        cfg = serve_config(name, smoke=False, n_layers=depth)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = serve_params(name, 0, smoke=False, device=dev,
+                              n_layers=depth)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        # the CPU's side runs meanwhile, from the first layers' bf16 weights
+        t0 = time.perf_counter()
+        path = ROOT / "build" / f"moe_{name}.pt"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(_tree_to(first_layers(params, MOE_F32_LAYERS[name]),
+                            "cpu"), path)
+        save_s = time.perf_counter() - t0
+        results = ctx.Queue()
+        proc = ctx.Process(target=moe_cpu, args=(
+            str(ROOT / "src"), name, str(path), MOE_CPU_THREADS, results),
+            daemon=True)
+        proc.start()
+        try:
+            gen = torch.Generator(device=dev).manual_seed(2)
+            batch = {"tokens": torch.randint(0, cfg.vocab, (1, 8192),
+                                             generator=gen, device=dev,
+                                             dtype=torch.int32)}
+
+            # (a) prefill, B = 1, S = 8192 (two routing groups of 4096),
+            # one flash launch a layer
+            flash_attention.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = transformer.prefill(cfg, params, batch)
+            torch.cuda.synchronize()
+            first_ms = 1e3 * (time.perf_counter() - t0)
+            launches = flash_attention.launches
+            finite = bool(torch.isfinite(logits).all())
+            if (launches != depth or not finite
+                    or tuple(logits.shape) != (1, 1, cfg.vocab)):
+                raise AssertionError(
+                    f"{name} prefill: {launches} flash launches (want "
+                    f"{depth}), finite {finite}, shape "
+                    f"{tuple(logits.shape)}")
+            total += launches
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                transformer.prefill(cfg, params, batch)
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.reset_peak_memory_stats()
+            prof = device_profile(
+                torch, lambda: transformer.prefill(cfg, params, batch),
+                kernel_name="flash_kernel")[0]
+            peak = torch.cuda.max_memory_allocated()
+            if not prof["kernel_names"] or any(
+                    "flash_kernel_mma" not in n
+                    for n in prof["kernel_names"]):
+                raise AssertionError(f"{name}: profiled flash kernels "
+                                     f"{prof['kernel_names']}")
+            drops = []
+            with recorded_routing(drops, drop_summary):
+                transformer.prefill(cfg, params, batch)
+            prefill = dict(batch=1, seq_len=8192, layers=depth,
+                           of_layers=serve_config(name, smoke=False).n_layers,
+                           dtype=cfg.dtype, n_params=n_params,
+                           init_params_s=init_s, cpu_copy_save_s=save_s,
+                           flash_launches=launches, logits_finite=finite,
+                           first_call_ms=first_ms,
+                           wall_ms_median_of_3=sorted(walls)[1],
+                           wall_ms_runs=walls, peak_gb=peak / 1e9,
+                           capacity_dropped_share_by_layer=[
+                               d["dropped_share"] for d in drops],
+                           router_input_mean_cosine_by_layer=[
+                               d["input_mean_cosine"] for d in drops],
+                           router_input_mean_over_norm_by_layer=[
+                               d["input_mean_over_norm"] for d in drops],
+                           profiled=prof)
+            del logits
+
+            # (b) decode through serve on the same weights: no flash
+            flash_attention.launches = 0
+            res = serve(name, steps=8, smoke=False, device=dev,
+                        params=params, n_layers=depth,
+                        log_fn=lambda *a: None)
+            if flash_attention.launches != 0 or res.tokens.shape != (4, 8):
+                raise AssertionError(
+                    f"{name} serve: {flash_attention.launches} flash "
+                    f"launches, tokens {res.tokens.shape}")
+            served = dict(batch=4, prompt_len=16, steps=8,
+                          tokens_per_s=res.tokens_per_s,
+                          decode_s=res.decode_s,
+                          first_tokens=res.tokens[0].tolist())
+
+            # (c) 1. the draw, by windows of every row against the CPU's
+            compared, differ = init_windows_check(
+                torch, cfg, jr.split(jr.PRNGKey(0, device="cpu"), 3)[0],
+                params)
+            if differ:
+                raise AssertionError(f"{name} init: card differs in "
+                                     f"{differ}")
+            # 2.-4. the first layers in float32, card against CPU
+            p32 = _tree_to(first_layers(params, MOE_F32_LAYERS[name]),
+                           torch.float32)
+            del params
+            torch.cuda.empty_cache()
+            flash_attention.launches = 0
+            card = moe_cpu_side(torch, name, p32)
+            card_launches = flash_attention.launches
+            del p32
+            torch.cuda.empty_cache()
+            cpu = finish_cpu(proc, results, timeout=900)
+            if cpu is None:
+                raise AssertionError(f"{name}: the CPU's side gave no "
+                                     f"result")
+        finally:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+            path.unlink(missing_ok=True)
+        check = moe_compare(torch, card, cpu)
+        ok = (card_launches == MOE_F32_LAYERS[name]
+              and check["prefill_max_abs_err"] <= 1e-4
+              and not any(check["tokens_with_other_experts"])
+              and check["block_y_rel_err"] <= MOE_BLOCK_RTOL
+              and check["block_lb_rel_err"] <= MOE_LB_RTOL
+              and check["block_experts_equal"] and check["block_slots_equal"]
+              and check["top_k_tied_bitwise"])
+        emit(dict(phase="moe_path", arch=name, prefill=prefill,
+                  serve=served, init=dict(seed=0, key="serve_params",
+                                          compared=compared, not_bitwise=[]),
+                  f32_check=dict(layers=MOE_F32_LAYERS[name],
+                                 seq_len=MOE_F32_SEQ,
+                                 block_seq_group=[MOE_BLOCK_SEQ,
+                                                  MOE_BLOCK_GROUP],
+                                 flash_launches=card_launches,
+                                 cpu_wall_s=cpu["wall_s"],
+                                 cpu_threads=MOE_CPU_THREADS, **check)))
+        if not ok:
+            raise AssertionError(f"{name} card vs CPU: {check} "
+                                 f"({card_launches} launches)")
     torch.cuda.empty_cache()
     return total
 
@@ -3373,6 +3844,7 @@ def main(argv) -> int:
     flash_launches = phase("serve_path", serve_path, torch, dev,
                            t_attn["ms"])
     flash_launches += phase("dense_path", dense_path, torch, dev)
+    flash_launches += phase("moe_path", moe_path, torch, dev)
     zoo = phase("zoo_train", zoo_train, torch, dev)
     flash_launches += zoo["flash_attention"]
     ssd_err = phase("ssd_chunk", check_ssd_chunk, torch, dev)
@@ -3429,9 +3901,11 @@ def main(argv) -> int:
              shape=list(LLAMA_ATTN), **{k: t_attn[k] for k in (
                  "ms", "f32_ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms")},
-             at_gemma={k: t_attn["at_gemma"][k] for k in (
-                 "shape", "ms", "f32_ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms")}),
+             **{f"at_{a}": {k: t_attn[f"at_{a}"][k] for k in (
+                 "shape", "mode", "ms", "f32_ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms", "library", "sdpa_mask_ms")
+                 if k in t_attn[f"at_{a}"]}
+                for a in ("gemma", "mixtral", "grok")}),
         dict(name="flash_attention_bwd", route="cuda",
              source=src + "flash_attention_bwd.cu",
              replaces="src/repro/models/layers.py:157",

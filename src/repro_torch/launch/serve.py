@@ -7,12 +7,19 @@ architecture — the deployment path of the federated global model (port of
   python -m repro_torch.launch.serve --arch qwen3-14b [--full]
   python -m repro_torch.launch.serve --arch gemma-7b [--full]
   python -m repro_torch.launch.serve --arch mamba2-2.7b [--full]
+  python -m repro_torch.launch.serve --arch mixtral-8x22b [--full]
+  python -m repro_torch.launch.serve --arch grok-1-314b [--full]
 
-Runs on CUDA unless ``--device cpu`` is given.  The prompt is drawn with
+The smoke config is the default (``--smoke`` spells it out); ``--full``
+serves the full-width config (mixtral-8x22b's 281 GB and grok-1-314b's
+633 GB of bf16 weights are more than one card holds; :func:`serve`'s
+``n_layers`` cuts the depth and keeps every width).  Runs on CUDA
+unless ``--device cpu`` is given.  The prompt is drawn with
 the port's threefry, so it is the JAX package's prompt for the same seed;
 the weights are random from the same seed (``transformer.init_params``).
-Decode steps a KV cache (dense) or the O(1) recurrent state (mamba2); no
-full-sequence kernel (flash attention, ssd_chunk) runs.
+Decode steps a KV cache (dense, moe: each token routed to its experts) or
+the O(1) recurrent state (mamba2); no full-sequence kernel (flash
+attention, ssd_chunk) runs.
 """
 from __future__ import annotations
 
@@ -37,24 +44,32 @@ class ServeResult:
     tokens_per_s: float       # steps * batch / decode_s
 
 
+def serve_config(arch_id: str, smoke: bool = True, n_layers=None):
+    """The config :func:`serve` runs: the arch's smoke or full config, cut
+    to its first ``n_layers`` layers when given."""
+    arch = get_arch(arch_id)
+    cfg = arch.smoke_model if smoke else arch.model
+    return cfg.replace(n_layers=n_layers) if n_layers else cfg
+
+
 def serve(arch_id: str, batch: int = 4, prompt_len: int = 16,
           steps: int = 32, max_len: int = 128, seed: int = 0,
           smoke: bool = True, log_fn=print, device=None,
-          params=None) -> ServeResult:
+          params=None, n_layers=None) -> ServeResult:
     """Step the prompt through ``decode_step``, then decode ``steps``
     greedy tokens (``max_len`` sizes the KV cache; mamba2's state does not
     grow with it).  The loop keeps the tokens on the device and waits for
     it once, at the end.  ``params`` are weights already on ``device``
     for this config (e.g. :func:`serve_params`' for this seed); None
-    draws them."""
+    draws them.  ``n_layers`` cuts the config's depth
+    (:func:`serve_config`)."""
     device = resolve_device(device)
-    arch = get_arch(arch_id)
-    cfg = arch.smoke_model if smoke else arch.model
+    cfg = serve_config(arch_id, smoke, n_layers)
     api = get_model_api(cfg)
     # (params, audio frames, prompt) keys, as the JAX package splits them
     _, _, k_prompt = jr.split(jr.PRNGKey(seed, device=device), 3)
     if params is None:
-        params = serve_params(arch_id, seed, smoke, device)
+        params = serve_params(arch_id, seed, smoke, device, n_layers)
     state = api.init_decode_state(batch, max_len, device)
     prompt = jr.randint(k_prompt, (batch, prompt_len), 0, cfg.vocab)
 
@@ -81,12 +96,11 @@ def serve(arch_id: str, batch: int = 4, prompt_len: int = 16,
 
 
 def serve_params(arch_id: str, seed: int = 0, smoke: bool = True,
-                 device=None):
+                 device=None, n_layers=None):
     """The weights :func:`serve` draws for ``arch_id`` at ``seed``: from
     the first of the seed key's three (params, audio frames, prompt)."""
     device = resolve_device(device)
-    arch = get_arch(arch_id)
-    cfg = arch.smoke_model if smoke else arch.model
+    cfg = serve_config(arch_id, smoke, n_layers)
     key = jr.split(jr.PRNGKey(seed, device=device), 3)[0]
     return get_model_api(cfg).init_params(key, device)
 
@@ -96,8 +110,11 @@ def main(argv=None):
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--steps", type=int, default=32)
-    ap.add_argument("--full", action="store_true",
-                    help="the full-width config (default: the smoke config)")
+    size = ap.add_mutually_exclusive_group()
+    size.add_argument("--full", action="store_true",
+                      help="the full-width config")
+    size.add_argument("--smoke", action="store_true",
+                      help="the smoke config (the default)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)

@@ -1,6 +1,6 @@
 """Shapes and dtypes of every program input, without allocation (port of
-``repro.launch.specs`` for the train and prefill programs of the dense and
-ssm families).
+``repro.launch.specs`` for the train and prefill programs of the dense,
+moe and ssm families).
 
 ``jax.ShapeDtypeStruct`` becomes :class:`ShapeDtype`, a (shape, dtype)
 named tuple.  ``param_specs`` walks ``init_params`` with the parameter

@@ -1,19 +1,20 @@
-"""Shared transformer layers, dense part (port of ``repro.models.layers``):
-the model config, RMS norm, rotary embeddings, GQA attention (causal /
+"""Shared transformer layers (port of ``repro.models.layers``): the
+model config, RMS norm, rotary embeddings, GQA attention (causal /
 sliding-window, optional qk-norm and logit soft-cap) for the full sequence
-and for one decode step against a KV cache, and the gated MLPs.
+and for one decode step against a KV cache, the gated MLPs and the top-k
+routed Mixture-of-Experts block.
 
 Layers are plain functions over nested dicts of tensors.  The sharding
 annotations of the JAX package (``hooks.constrain``) are identity on one
 card and are left out (ROADMAP.md queue 1 item 11).  ``remat`` is applied
-per layer by ``transformer.backbone``.  MoE blocks are ROADMAP.md queue 1
-item 12.
+per layer by ``transformer.backbone``.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -26,7 +27,7 @@ from ..kernels.ref import ATTN_NEG, sdpa, sqrt_hd
 
 __all__ = ["ModelConfig", "rms_norm", "init_rms", "rotary", "init_attention",
            "sdpa", "attention_block", "attention_decode", "init_mlp",
-           "mlp_block"]
+           "mlp_block", "init_moe", "top_k", "moe_routing", "moe_block"]
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -336,3 +337,110 @@ def mlp_block(p, x, cfg: ModelConfig):
         return _gelu(x @ p["w1"]) @ p["w2"]
     act = _gelu if cfg.mlp == "geglu" else _silu
     return (act(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts (top-k, capacity-based dispatch/combine)
+# ---------------------------------------------------------------------------
+
+
+def init_moe(key: torch.Tensor, cfg: ModelConfig):
+    """MoE weights from ``key`` as the JAX package draws them
+    (``split(key, 4)``: the router, float32 whatever the model's dtype;
+    w1 and w3 (E, d, f) scaled by 1/sqrt(d); w2 (E, f, d) by 1/sqrt(f));
+    ``key`` may be a stack of keys, as in :func:`init_attention`."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    k = jr.split(key, 4)
+    s_in, s_out = inv_sqrt(d, key.device), inv_sqrt(f, key.device)
+    dt = cfg.torch_dtype
+    return {"router": _normal(k[..., 0, :], (d, E), s_in, torch.float32),
+            "w1": _normal(k[..., 1, :], (E, d, f), s_in, dt),
+            "w3": _normal(k[..., 2, :], (E, d, f), s_in, dt),
+            "w2": _normal(k[..., 3, :], (E, f, d), s_out, dt)}
+
+
+def top_k(x: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis: (values, int64 indices), the
+    larger value first and, among equal values, the lower index first
+    (``torch.topk`` orders ties otherwise).  k passes of ``argmax``, which
+    returns the first maximal index; the values must be above -inf (the
+    router's probabilities are)."""
+    cols = torch.arange(x.shape[-1], device=x.device)
+    taken = torch.zeros_like(x, dtype=torch.bool)
+    vals, idxs = [], []
+    for _ in range(k):
+        i = torch.argmax(torch.where(taken, float("-inf"), x), dim=-1,
+                         keepdim=True)
+        vals.append(torch.gather(x, -1, i))
+        idxs.append(i)
+        taken = taken | (cols == i)
+    return torch.cat(vals, dim=-1), torch.cat(idxs, dim=-1)
+
+
+class Routing(NamedTuple):
+    """What :func:`moe_routing` decides for x (B, S, d), over the groups
+    (B, nG, G) of the padded sequence."""
+    xg: torch.Tensor        # (B, nG, G, d) the padded tokens
+    probs: torch.Tensor     # (B, nG, G, E) float32 router softmax
+    gates: torch.Tensor     # (B, nG, G, k) float32, renormalised
+    idx: torch.Tensor       # (B, nG, G, k) the chosen experts
+    onehot: torch.Tensor    # (B, nG, G, k, E) int32
+    keep: torch.Tensor      # (B, nG, G, k, E) within the expert's capacity
+    slot: torch.Tensor      # (B, nG, G, E) buffer slot, -1 if none
+    cap: int                # each expert's slots per group
+
+
+def moe_routing(p, x: torch.Tensor, cfg: ModelConfig) -> Routing:
+    """The routing of :func:`moe_block`, step by step as the JAX package's:
+    the sequence padded with zero rows to a multiple of the group length
+    G = min(moe_group_size, S); float32 router logits and softmax; the
+    top-k, renormalised by max(sum, 1e-9); capacity
+    max(int(cf * G * k / E), 1) a group; each (token, choice)'s place in
+    its expert's buffer by a cumsum over the group's G * k pairs in
+    token-then-choice order, kept if below capacity."""
+    B, S, d = x.shape
+    E, k_top = cfg.n_experts, cfg.moe_top_k
+    G = min(cfg.moe_group_size or 4096, S)
+    pad = (-S) % G
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    nG = (S + pad) // G
+    xg = x.reshape(B, nG, G, d)
+    probs = torch.softmax(xg.to(torch.float32) @ p["router"], dim=-1)
+    gates, idx = top_k(probs, k_top)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    cap = max(int(cfg.capacity_factor * G * k_top / E), 1)
+    onehot = (idx[..., None] == torch.arange(E, device=x.device)).to(
+        torch.int32)
+    flat = onehot.reshape(B, nG, G * k_top, E)
+    pos = (torch.cumsum(flat, dim=2) * flat - 1).reshape(onehot.shape)
+    keep = (pos >= 0) & (pos < cap)
+    slot = torch.where(keep, pos, -1).amax(dim=3)
+    return Routing(xg, probs, gates, idx, onehot, keep, slot, cap)
+
+
+def moe_block(p, x: torch.Tensor, cfg: ModelConfig):
+    """Top-k routed MoE with grouped capacity dispatch and combine
+    einsums (``repro.models.layers.moe_block``): returns (y, {"lb_loss"}),
+    the Switch-style load-balancing loss over the padded groups.  The
+    expert products are plain large products (the JAX package runs them
+    outside any kernel too), one spelling on the CPU and the card."""
+    S = x.shape[1]
+    r = moe_routing(p, x, cfg)
+    xg = r.xg
+    B, nG, G, d = xg.shape
+    # one-hot of the slot, with -1 giving a zero row
+    dispatch = (r.slot[..., None] == torch.arange(r.cap, device=x.device)
+                ).to(xg.dtype)                          # (B, nG, G, E, C)
+    # each expert's gate: at most one choice of a token is that expert
+    gates_e = (r.onehot.to(torch.float32) * r.gates[..., None]).sum(3)
+    combine = dispatch * gates_e.to(xg.dtype)[..., None]
+    xe = torch.einsum("bgtd,bgtec->begcd", xg, dispatch)
+    h = _silu(torch.einsum("begcd,edf->begcf", xe, p["w1"])) \
+        * torch.einsum("begcd,edf->begcf", xe, p["w3"])
+    ye = torch.einsum("begcf,efd->begcd", h, p["w2"])
+    y = torch.einsum("begcd,bgtec->bgtd", ye, combine).reshape(B, nG * G, d)
+    frac_tokens = r.onehot[..., 0, :].to(torch.float32).mean(dim=(0, 1, 2))
+    frac_probs = r.probs.mean(dim=(0, 1, 2))
+    lb = cfg.n_experts * torch.sum(frac_tokens * frac_probs)
+    return y[:, :S].to(x.dtype), {"lb_loss": lb}

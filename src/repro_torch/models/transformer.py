@@ -1,8 +1,10 @@
-"""Decoder-only model assembly, dense and ssm families (port of
+"""Decoder-only model assembly, dense, moe and ssm families (port of
 ``repro.models.transformer``).  One nested dict of parameters with the
 blocks stacked along a leading layer axis; a Python loop over that axis
 takes the place of ``lax.scan``.  Full-sequence forward and prefill, and
-the decode path: a KV cache (dense) or an O(1) recurrent state (ssm).
+the decode path: a KV cache (dense, moe) or an O(1) recurrent state (ssm).
+A block with ``mlp="moe"`` routes its tokens to experts
+(``layers.moe_block``) and adds its load-balancing loss to ``aux``.
 
     init_params(cfg, key, device=None)            -> params
     forward(cfg, params, batch)                   -> (logits, aux)
@@ -11,8 +13,8 @@ the decode path: a KV cache (dense) or an O(1) recurrent state (ssm).
     decode_step(cfg, params, state, tok_t)        -> (logits, state)
     prefill(cfg, params, batch)                   -> last-position logits
 
-The other families (moe, hybrid, vlm, audio) raise
-``NotImplementedError`` naming their ROADMAP.md item.
+The other families (hybrid, vlm, audio) raise ``NotImplementedError``
+naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -27,20 +29,21 @@ from ..remat import checkpoint
 from ..tree import tree_leaves, tree_map
 from . import ssm as ssm_lib
 from .layers import (ModelConfig, _normal, attention_block, attention_decode,
-                     init_attention, init_mlp, init_rms, inv_sqrt, mlp_block,
-                     rms_norm)
+                     init_attention, init_mlp, init_moe, init_rms, inv_sqrt,
+                     mlp_block, moe_block, rms_norm)
 from .losses import fused_unembed_xent
 
 # the JAX package's other families: ROADMAP.md queue 1 item 12
-DEFERRED_FAMILIES = ("moe", "hybrid", "vlm", "audio")
-_MLPS = ("swiglu", "geglu", "gelu")
+DEFERRED_FAMILIES = ("hybrid", "vlm", "audio")
+_MLPS = ("swiglu", "geglu", "gelu", "moe")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port does not run yet:
-    any family but dense and ssm, and MoE blocks."""
-    lookup("family", cfg.family, ("dense", "ssm"), DEFERRED_FAMILIES, 12)
-    lookup("mlp", cfg.mlp, _MLPS, ("moe",), 12)
+    any family but dense, moe and ssm."""
+    lookup("family", cfg.family, ("dense", "moe", "ssm"), DEFERRED_FAMILIES,
+           12)
+    lookup("mlp", cfg.mlp, _MLPS, (), 12)
 
 
 # ---------------------------------------------------------------------------
@@ -48,18 +51,29 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _ffn(p, z, cfg: ModelConfig):
+    """The block's feed-forward: (y, the MoE load-balancing loss or None)."""
+    if cfg.mlp == "moe":
+        y, aux = moe_block(p["moe"], z, cfg)
+        return y, aux["lb_loss"]
+    return mlp_block(p["mlp"], z, cfg), None
+
+
 def _dense_block(p, x, cfg: ModelConfig, positions, window: int):
+    """(h, lb): lb is the MoE block's load-balancing loss, None without
+    one (the JAX package's constant 0)."""
     h = x + attention_block(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
                             cfg, positions, window=window)
-    return h + mlp_block(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps), cfg)
+    y, lb = _ffn(p, rms_norm(h, p["ln2"], cfg.norm_eps), cfg)
+    return h + y, lb
 
 
 def _dense_block_decode(p, x, cfg: ModelConfig, cache, index, window: int):
     a, cache = attention_decode(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
                                 cfg, cache, index, window=window)
     h = x + a
-    return h + mlp_block(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps),
-                         cfg), cache
+    y, _ = _ffn(p, rms_norm(h, p["ln2"], cfg.norm_eps), cfg)
+    return h + y, cache
 
 
 def _ssm_block(p, x, cfg: ModelConfig):
@@ -92,7 +106,8 @@ def init_params(cfg: ModelConfig, key: torch.Tensor, device=None
     from the same key: the same tree, shapes and dtypes, and the same
     ``jax.random.normal`` draws down the same key tree (``split(key, 8)``:
     embed, unembed, then ``split(keys[2], n_layers)``, one key per stacked
-    layer; each dense block splits its key in two, attention then MLP),
+    layer; each dense or moe block splits its key in two, attention then
+    the MLP or the MoE weights),
     scaled in float32 before the cast; norms at zero.  On ``device``
     (default CUDA); the key is moved there."""
     check_supported(cfg)
@@ -120,8 +135,11 @@ def init_params(cfg: ModelConfig, key: torch.Tensor, device=None
         "ln1": init_rms(cfg.d_model, dt, device, lead),
         "ln2": init_rms(cfg.d_model, dt, device, lead),
         "attn": init_attention(block_keys[:, 0], cfg),
-        "mlp": init_mlp(block_keys[:, 1], cfg),
     }
+    if cfg.mlp == "moe":
+        params["blocks"]["moe"] = init_moe(block_keys[:, 1], cfg)
+    else:
+        params["blocks"]["mlp"] = init_mlp(block_keys[:, 1], cfg)
     return params
 
 
@@ -154,7 +172,10 @@ def _rematted_block(block, p, x):
 
 def backbone(cfg: ModelConfig, params, x):
     """Run the stacked blocks over embeddings x: (B, S, d); with
-    ``cfg.remat`` each layer keeps only its input for the backward."""
+    ``cfg.remat`` each layer keeps only its input for the backward.
+    Returns (x, {"lb_loss"}): the MoE blocks' load-balancing losses
+    summed over the layers, 0 without MoE blocks."""
+    moe = cfg.family != "ssm" and cfg.mlp == "moe"
     if cfg.family == "ssm":
         def block(p, h):
             return _ssm_block(p, h, cfg)
@@ -166,12 +187,18 @@ def backbone(cfg: ModelConfig, params, x):
             # tensor from outside under torch.func's transforms
             B, S, _ = h.shape
             positions = torch.arange(S, device=h.device).expand(B, S)
-            return _dense_block(p, h, cfg, positions, w)
+            h, lb = _dense_block(p, h, cfg, positions, w)
+            return (h, lb) if moe else h
+    lbs = []
     for i in range(cfg.n_layers):
         p = _layer(params["blocks"], i)
         x = _rematted_block(block, p, x) if cfg.remat else block(p, x)
-    return x, {"lb_loss": torch.zeros((), dtype=torch.float32,
-                                      device=x.device)}
+        if moe:
+            x, lb = x
+            lbs.append(lb)
+    lb_loss = (torch.stack(lbs).sum() if lbs else
+               torch.zeros((), dtype=torch.float32, device=x.device))
+    return x, {"lb_loss": lb_loss}
 
 
 def unembed(cfg: ModelConfig, params, x):
@@ -190,7 +217,7 @@ def forward(cfg: ModelConfig, params, batch):
 
 def loss_fn(cfg: ModelConfig, params, batch):
     """Next-token CE over text positions (+ 0.01 * the MoE load-balance
-    loss, 0 in the dense and ssm families), with the unembedding fused
+    loss, 0 without MoE blocks), with the unembedding fused
     into the chunked CE (``losses.fused_unembed_xent``): the (B, T, V)
     logits are never formed.  ``batch["loss_mask"]``, when present, masks
     targets as the JAX package's does."""
@@ -234,7 +261,7 @@ def _kv_cache_init(cfg: ModelConfig, batch: int, max_len: int, window: int,
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device=None):
     """{"index": int32 scalar, "caches": stacked over layers}: the KV
-    caches {"k", "v"} (dense), or the recurrent state {"ssm", "conv"}
+    caches {"k", "v"} (dense, moe), or the recurrent state {"ssm", "conv"}
     (ssm; O(1) in the sequence length, so ``max_len`` is not read)."""
     check_supported(cfg)
     device = resolve_device(device)

@@ -3,13 +3,14 @@
 * Configs: ``FedExec``, ``INPUT_SHAPES["train_4k"]`` and each ported
   arch's ``fed=`` and long-context fields are JAX's field for field; the
   decode shapes raise naming their ROADMAP.md item.
-* ``launch.specs``: ``count_params`` of the five full configs and
+* ``launch.specs``: ``count_params`` of the seven full configs and
   ``param_specs`` of the smoke configs are JAX's, and so are the batch
   specs.
 * ``loss_fn`` (fused unembedding CE, per-layer remat) and its gradient for
   the smoke configs of llama3.2-1b, qwen3-8b, qwen3-14b, gemma-7b and
   mamba2-2.7b, from JAX's weights, within 1e-5.
-* ``run_arch_smoke``: 3 rounds on the CPU against JAX's, masks bitwise and
+* ``run_arch_smoke`` (llama3.2-1b, mamba2-2.7b, mixtral-8x22b,
+  grok-1-314b): 3 rounds on the CPU against JAX's, masks bitwise and
   losses within 1e-5 relative.  The losses depart by ~2e-7 relative after
   Adam's first server step, which moves coordinates whose Δ is within
   rounding of 0 by up to ±lr (ROADMAP.md queue 3, "FedAdam's first server
@@ -47,6 +48,8 @@ from repro_torch.models import get_model_api  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 ARCHS = ["llama3.2-1b", "qwen3-8b", "qwen3-14b", "gemma-7b", "mamba2-2.7b"]
+# the moe archs: their loss_fn and gradient are held in test_torch_moe.py
+MOE = ["mixtral-8x22b", "grok-1-314b"]
 TOL = 1e-5
 LOSS_RTOL = 1e-5
 
@@ -72,7 +75,7 @@ def _close(got, want, tol=TOL):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE)
 def test_fed_exec_and_train_shape_field_for_field(arch):
     jspec, tspec = jconfigs.get_arch(arch), tconfigs.get_arch(arch)
     assert dataclasses.asdict(tspec.fed) == dataclasses.asdict(jspec.fed)
@@ -97,7 +100,7 @@ def test_fed_exec_defaults_are_jax():
         == [f.name for f in dataclasses.fields(JFedExec)]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE)
 def test_specs_match_jax(arch):
     jspec, tspec = jconfigs.get_arch(arch), tconfigs.get_arch(arch)
     assert (tspecs.count_params(tspec.model)
@@ -171,7 +174,7 @@ def _recording(make_strategy, masks):
     return make
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b", *MOE])
 def test_run_arch_smoke_matches_jax(arch, monkeypatch):
     jmasks, tmasks = [], []
     monkeypatch.setattr(jtrain, "make_strategy",

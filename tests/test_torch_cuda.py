@@ -257,6 +257,39 @@ def test_llama_smoke_prefill_card_matches_cpu(dev, arch):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "grok-1-314b"])
+def test_moe_block_and_top_k_card_match_cpu(dev, arch):
+    """``moe_block`` at the smoke widths, S = 300 in groups of 128 (the last
+    padded with 84 zero rows, whose router probabilities tie exactly), on
+    the card against the CPU on the same weights: the experts and slots
+    equal, y within 1e-5, lb_loss within 1e-6; and ``top_k`` of tied rows
+    bitwise."""
+    from repro_torch import random as jr
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers
+    cfg = get_arch(arch).smoke_model.replace(moe_group_size=128)
+    p = layers.init_moe(jr.PRNGKey(0, device="cpu"), cfg)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2, 300, cfg.d_model)).astype(np.float32))
+    want, want_aux = layers.moe_block(p, x, cfg)
+    want_r = layers.moe_routing(p, x, cfg)
+    gp, gx = {k: v.to(dev) for k, v in p.items()}, x.to(dev)
+    got, got_aux = layers.moe_block(gp, gx, cfg)
+    got_r = layers.moe_routing(gp, gx, cfg)
+    assert torch.equal(got_r.idx.cpu(), want_r.idx)
+    assert torch.equal(got_r.slot.cpu(), want_r.slot)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    assert abs(float(got_aux["lb_loss"]) - float(want_aux["lb_loss"])) \
+        <= 1e-6
+    tied = torch.tensor([[0.125] * 8, [0.1, 0.3, 0.3, 0.3, 0, 0, 0, 0],
+                         [0.25, 0.25, 0, 0, 0.25, 0.25, 0, 0]])
+    for k in (1, 2, 3):
+        tv, ti = layers.top_k(tied, k)
+        gv, gi = layers.top_k(tied.to(dev), k)
+        assert torch.equal(gi.cpu(), ti) and torch.equal(gv.cpu(), tv)
+
+
 # (B, S, H, KV, hd): groups of 1, 4 and 5, head dims 16-256, a ragged S
 BWD_SHAPES = [(2, 128, 2, 2, 32), (1, 1000, 8, 2, 64), (1, 300, 10, 2, 128),
               (1, 200, 4, 2, 256), (2, 96, 4, 1, 16)]

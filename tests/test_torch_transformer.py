@@ -54,9 +54,13 @@ SMOKE_T = TSPEC.smoke_model
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the JAX package's dense archs, all ported
 DENSE = ["llama3.2-1b", "qwen3-8b", "qwen3-14b", "gemma-7b"]
+# and its moe archs (tests/test_torch_moe.py holds their model)
+MOE = ["mixtral-8x22b", "grok-1-314b"]
 # JAX's parameter counts of the full configs
 FULL_PARAMS = {"llama3.2-1b": 1_235_814_400, "qwen3-8b": 8_190_735_360,
-               "qwen3-14b": 14_768_307_200, "gemma-7b": 8_537_680_896}
+               "qwen3-14b": 14_768_307_200, "gemma-7b": 8_537_680_896,
+               "mixtral-8x22b": 140_630_071_296,
+               "grok-1-314b": 316_489_340_928}
 
 
 def _logits_close(got, want, dtype):
@@ -120,7 +124,7 @@ def smoke_params():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_configs_equal_field_by_field(arch):
     jspec, tspec = jconfigs.get_arch(arch), tconfigs.get_arch(arch)
     for attr in ("model", "smoke_model"):
@@ -141,7 +145,7 @@ def test_configs_equal_field_by_field(arch):
     assert tspec.model.torch_dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_full_config_counts_jax_parameters(arch):
     """The full config's tree, counted on shapes alone: under
     ``shapes_only`` every drawn leaf is made empty on the meta device
@@ -156,7 +160,8 @@ def test_full_config_counts_jax_parameters(arch):
 
 
 def test_deferred_archs_raise_naming_their_item():
-    others = sorted(set(jconfigs.ARCHS) - set(DENSE) - {"mamba2-2.7b"})
+    others = sorted(set(jconfigs.ARCHS) - set(DENSE) - set(MOE)
+                    - {"mamba2-2.7b"})
     assert sorted(tconfigs.DEFERRED_ARCHS) == others
     for arch in others:
         with pytest.raises(NotImplementedError, match="queue 1 item 12"):
@@ -165,8 +170,7 @@ def test_deferred_archs_raise_naming_their_item():
         tconfigs.get_arch("no-such-arch")
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "grok-1-314b",
-                                  "recurrentgemma-2b", "llava-next-34b",
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "llava-next-34b",
                                   "whisper-small"])
 def test_other_families_raise_before_anything_is_built(arch):
     cfg = _tcfg(jconfigs.get_arch(arch).smoke_model)
