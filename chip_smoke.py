@@ -44,10 +44,10 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  train loss and delta norm within 1e-4;
 5a. ``scenarios`` the paper's grid on the card: scenarios always, scarce,
                  homedevices, smartphones and uneven × strategies f3ast,
-                 fedavg and fedadam at GRID_ROUNDS (60), every other
+                 fedavg and fedadam at GRID_ROUNDS (30), every other
                  scenario under f3ast and uniform, fedavg_weighted and
                  fixed_f3ast (with an r_target) on homedevices and dropout
-                 at SHORT_ROUNDS (30); each cell held to the port's CPU run
+                 at SHORT_ROUNDS (20); each cell held to the port's CPU run
                  of the same spec (run meanwhile in spawned worker
                  processes) as main_path holds its run, and its launches
                  counted:
@@ -59,7 +59,7 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
 5b. ``paper_tasks`` the paper's Shakespeare and CIFAR tasks at their task
                  configs (the LSTM, 820,522 parameters; the reduced ResNet,
                  310,116) in the cell ``launch.train --task X`` builds
-                 (homedevices), under f3ast and fedadam, 6 rounds each on
+                 (homedevices), under f3ast and fedadam, 4 rounds each on
                  the card, each held to its CPU run (spawned workers, two
                  threads each): masks, K_t, |avail| and final r_k bitwise,
                  train loss and delta norm within PAPER_TASK_LOSS_TOL
@@ -84,21 +84,21 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  bitwise the CPU and the main_path device run (masks, K_t,
                  |avail|, r_k), with checkpoints every 100 rounds whose
                  last one, restored onto the CPU, is bitwise the run's
-                 final r_k and parameters; under poc, 150 rounds
+                 final r_k and parameters; under poc, 75 rounds
                  (fed_select_mask twice a round), the fresh losses within
                  1e-5 relative and the masks bitwise in every round whose
                  cut margin clears the card-vs-CPU loss gap (the rounds
                  compared and any round under its margin reported; one
-                 pass of fresh losses timed); on dropout, 60 rounds,
+                 pass of fresh losses timed); on dropout, 30 rounds,
                  bitwise the card's device run too; the buffered server
-                 on straggler, device and host executors, 150 rounds,
+                 on straggler, device and host executors, 75 rounds,
                  masks, every async_history field and r_k bitwise the CPU
                  and each other; the Shakespeare (820,522) and CIFAR
                  (310,116) task cells on the host loop and Shakespeare on
-                 the buffered server with deadline latencies, 6 rounds
+                 the buffered server with deadline latencies, 4 rounds
                  each (losses at the paper_tasks tolerances);
                  ``run_cells_vmapped`` over seeds 0-3 with caps 3, 5, 10,
-                 10, 60 rounds, bitwise the CPU and each cell's single run
+                 10, 30 rounds, bitwise the CPU and each cell's single run
                  on the card; and ``python -m repro_torch.launch.train
                  --scenario straggler --aggregation buffered --engine host
                  --ckpt-dir D --rounds 3`` (exit 0, 3 records); one line a
@@ -154,8 +154,11 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  ``flex_attention`` (its output held to the kernel's) at
                  mixtral's (a causal block mask with the window of 4096;
                  SDPA with the window as a boolean mask, on the first
-                 backend that takes it, named, beside it) and grok's (a
-                 tanh soft-cap score_mod of 30),
+                 backend that takes it, named, beside it), grok's (a
+                 tanh soft-cap score_mod of 30) and recurrentgemma's
+                 (1, 8192, 10, 1, 256) with its window of 2048 (the same
+                 two), and SDPA (GQA through ``enable_gqa``) at
+                 llava's (1, 8192, 56, 8, 128), causal,
                  beside the bound (the larger of bytes over 3.35 TB/s and
                  the unmasked QK^T + PV flops over 989 TFLOP/s bf16), the
                  bf16 route's TFLOP/s and its share of the bound;
@@ -202,7 +205,7 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  stepping the same prompt through ``decode_step`` (the
                  limit of ``tests/test_models_consistency.py``);
 9a. ``dense_path`` drives qwen3-8b, qwen3-14b and gemma-7b at full width
-                 and half their depth (DENSE_DEPTH: 18, 20 and 14
+                 and a quarter of their depth (DENSE_DEPTH: 9, 10 and 7
                  layers),
                  one after another, each freed before the next: (a) the
                  weights ``launch.serve`` draws (``serve_params``, timed on
@@ -219,8 +222,8 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  whole: ``sampled_init_check``), then the card's float32
                  prefill (S = 512, 2 launches) within 1e-4 of the CPU's on
                  the same weights;
-9b. ``moe_path`` drives mixtral-8x22b (4 of its 56 layers) and
-                 grok-1-314b (2 of 64) at full width, one after the other:
+9b. ``moe_path`` drives mixtral-8x22b (2 of its 56 layers) and
+                 grok-1-314b (1 of 64) at full width, one after the other:
                  (a) ``serve_params`` at the cut depth (timed), one
                  ``prefill`` of B = 1, S = 8192 (two routing groups of
                  4096, capacity 1,280) with the launch count set to 0 just
@@ -243,7 +246,32 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  256 (a padded group) with y within 1e-4 of its largest
                  lane, lb_loss within 1e-6 relative, the experts and slots
                  equal, and ``top_k`` of tied rows bitwise;
-9c. ``zoo_train`` trains llama3.2-1b at full width (16 layers, d 2048,
+9c. ``hybrid_path`` drives recurrentgemma-2b at full width and depth (8
+                 groups of (rec, rec, attn) and 2 tail rec blocks, bf16):
+                 (a) ``serve_params`` (timed), one ``prefill`` of B = 1,
+                 S = 8192 with the launch count set to 0 just before,
+                 which must launch the kernel once a group (8) and give
+                 finite (1, 1, V) logits, the median of 3, the peak
+                 memory, a profiled run whose flash kernels must all be
+                 ``flash_kernel_mma``, and the first rec layer's float32
+                 gate GEMMs, gates, scan and RG-LRU block (ms and
+                 launches each) with the gates' and scan's share of the
+                 prefill; (b) 8 decode steps through ``serve`` (batch 4),
+                 and again at max_len 2,304, where the attention caches
+                 are rings of the window's 2,048 slots, with no flash
+                 launch; (c) the draw by ``init_windows_check`` (lam
+                 within an ulp), the first group in float32 at S = 3072
+                 (the window hides 1,024 keys from the last rows) within
+                 1e-4 of the CPU's prefill, and ``rglru_block`` alone on
+                 its first layer at S = 8192 within 1e-5 relative;
+9d. ``vlm_path`` drives llava-next-34b at full width and 8 of its 60
+                 layers (bf16): (a) as 9c's, at 1,024 patch embeddings
+                 (drawn from a seed) before 7,168 tokens, one launch a
+                 layer; (b) 8 text-only decode steps through ``serve``;
+                 (c) the draw by windows, and the first 2 layers and the
+                 projector in float32 at 1,024 patches + 512 tokens within
+                 1e-4 of the CPU's prefill;
+9e. ``zoo_train`` trains llama3.2-1b at full width (16 layers, d 2048,
                  the tied 128,256-token vocabulary, bf16, random weights)
                  through ``launch.steps.build_train_step(arch, "train_4k")``
                  (the arch's FedExec: the parallel round, per-layer remat,
@@ -329,6 +357,7 @@ ATTN_TOL = AGG_TOL                  # test_flash_attention_allclose
 BF16_STEP = 2.0 ** -7
 BF16_STEP_ATOL = 1e-5
 LOSS_TOL = 1e-4
+F32_LOGIT_TOL = 1e-4                # float32 prefill logits, card vs CPU
 
 
 def emit(obj) -> None:
@@ -771,11 +800,12 @@ OTHER_SCENARIOS = ("bernoulli", "markov", "gilbert_elliott", "diurnal",
                    "straggler")
 BASELINE_SCENARIOS = ("homedevices", "dropout")
 BASELINE_ALGORITHMS = ("uniform", "fedavg_weighted", "fixed_f3ast")
-# The paper grid's rounds: RunSpec()'s 300 cut to 60 (and the other cells'
-# to 30), so that the script, with the zoo's archs and training round,
-# stays inside its 1,200 s limit.
-GRID_ROUNDS = 60
-SHORT_ROUNDS = 30
+# The paper grid's rounds: RunSpec()'s 300 cut to 30 (and the other cells'
+# to 20), so that the script, with the zoo's archs and training round,
+# stays inside its 1,200 s limit (60 and 30 until the hybrid and vlm
+# archs joined it).
+GRID_ROUNDS = 30
+SHORT_ROUNDS = 20
 CPU_WORKERS = 4
 # completion processes that split the cut from the EMA and weights, so the
 # round takes fed_select_mask instead of the fused fed_select
@@ -929,12 +959,13 @@ def check_cell(torch, cell, card, ref, phase: str, loss_tol: float,
 # ---------------------------------------------------------------------------
 
 PAPER_TASKS = ("shakespeare", "cifar")
-# cut from 20 when the dense archs joined the script and to 6 when the moe
-# archs did: the phase waits for the CPU's Shakespeare runs (~10 s a round
-# beside the other workers); evaluated every PAPER_TASK_EVAL rounds, so
-# the runs after the first chunk give the steady round
-PAPER_TASK_ROUNDS = 6
-PAPER_TASK_EVAL = 3
+# cut from 20 when the dense archs joined the script, to 6 when the moe
+# archs did and to 4 when the hybrid and vlm archs did: the phase waits
+# for the CPU's Shakespeare runs (~10 s a round beside the other workers);
+# evaluated every PAPER_TASK_EVAL rounds, so the runs after the first
+# chunk give the steady round
+PAPER_TASK_ROUNDS = 4
+PAPER_TASK_EVAL = 2
 PAPER_TASK_CPU_THREADS = 2
 PAPER_TASK_STRATEGIES = ("f3ast", "fedadam")
 # card vs the CPU, train loss each round.  The LSTM's rounds stay within
@@ -1276,9 +1307,10 @@ def paper_tasks(torch, dev):
 # ---------------------------------------------------------------------------
 
 HOST_ROUNDS = 300
-HOST_POC_BUFFERED_ROUNDS = 150
-HOST_SHORT_ROUNDS = 60
-HOST_TASK_ROUNDS = 6         # with PAPER_TASK_EVAL: two chunks
+# 150, 60 and 6 until the hybrid and vlm archs joined the script
+HOST_POC_BUFFERED_ROUNDS = 75
+HOST_SHORT_ROUNDS = 30
+HOST_TASK_ROUNDS = 4         # with PAPER_TASK_EVAL: two chunks
 HOST_CELLS_SEEDS, HOST_CELLS_CAPS = [0, 1, 2, 3], [3, 5, 10, 10]
 # PoC's fresh losses, card vs CPU, each round (relative)
 POC_LOSS_RTOL = 1e-5
@@ -1775,6 +1807,14 @@ MOE_ATTN = (1, 8192, 48, 8, 128)
 WINDOW32 = dict(causal=True, window=32, softcap=0.0)
 SWA4096 = dict(causal=True, window=4096, softcap=0.0)    # mixtral's
 MOE_MODES = {"mixtral-8x22b": "window4096", "grok-1-314b": "softcap30"}
+# recurrentgemma-2b's local attention layer, B = 1: one KV head (MQA), a
+# query group of 10, head dim 256, its window of 2048; and llava-next-34b's
+# layer: a query group of 7
+RG_ATTN = (1, 8192, 10, 1, 256)
+SWA2048 = dict(causal=True, window=2048, softcap=0.0)    # recurrentgemma's
+LLAVA_ATTN = (1, 8192, 56, 8, 128)
+FLASH_MODES = dict(ATTN_MODES, window32=WINDOW32, window2048=SWA2048,
+                   window4096=SWA4096)
 
 
 def attn_inputs(torch, dev, shape, dtype, seed):
@@ -1814,8 +1854,13 @@ def check_flash_attention(torch, dev):
     cases += [(shape, dtype, "causal") for shape in (GEMMA_ATTN, QWEN14_ATTN)
               for dtype in (torch.bfloat16, torch.float32)]
     cases += [(MOE_ATTN, torch.bfloat16, mode) for mode in MOE_MODES.values()]
-    modes = dict(ATTN_MODES, window32=WINDOW32, window4096=SWA4096)
+    cases += [(shape, dtype, mode)
+              for shape, mode in ((RG_ATTN, "window2048"),
+                                  (LLAVA_ATTN, "causal"))
+              for dtype in (torch.bfloat16, torch.float32)]
+    modes = FLASH_MODES
     rows, max_err, llama, gemma, moe = [], {}, {}, {}, {}
+    hybrid_vlm = {}
     for i, (shape, dtype, mode) in enumerate(cases):
         q, k, v = attn_inputs(torch, dev, shape, dtype, i)
         got = flash_attention(q, k, v, **modes[mode])
@@ -1843,6 +1888,10 @@ def check_flash_attention(torch, dev):
         if shape == MOE_ATTN:
             moe[mode] = dict(max_abs_err=err, ref_rms=rms,
                              err_over_rms=err / rms)
+        if shape in (RG_ATTN, LLAVA_ATTN):
+            hybrid_vlm[f"{'recurrentgemma' if shape == RG_ATTN else 'llava'}"
+                       f"_{dname}"] = dict(max_abs_err=err, ref_rms=rms,
+                                           err_over_rms=err / rms)
         if not ok:
             raise AssertionError(
                 f"flash_attention {shape} {dtype} {mode}: max |err| {err} "
@@ -1852,19 +1901,23 @@ def check_flash_attention(torch, dev):
         del q, k, v, got, want, diff
     emit(dict(phase="flash_attention", checks=rows,
               max_abs_err_by_dtype=max_err, llama_shape=llama,
-              gemma_shape=gemma, moe_shape=moe))
+              gemma_shape=gemma, moe_shape=moe,
+              hybrid_vlm_shapes=hybrid_vlm))
     return llama["bfloat16"]["max_abs_err"]
 
 
 def time_flash_attention(torch, dev):
-    """The llama, gemma, mixtral and grok prefill layers' rows; returns
-    llama's with the others' under ``at_gemma``, ``at_mixtral`` and
-    ``at_grok``."""
+    """The llama, gemma, mixtral, grok, recurrentgemma and llava prefill
+    layers' rows; returns llama's with the others' under ``at_gemma``,
+    ``at_mixtral``, ``at_grok``, ``at_recurrentgemma`` and ``at_llava``."""
     llama = time_flash_shape(torch, dev, LLAMA_ATTN)
     llama["at_gemma"] = time_flash_shape(torch, dev, GEMMA_ATTN)
     llama["at_mixtral"] = time_flash_shape(torch, dev, MOE_ATTN,
                                            "window4096")
     llama["at_grok"] = time_flash_shape(torch, dev, MOE_ATTN, "softcap30")
+    llama["at_recurrentgemma"] = time_flash_shape(torch, dev, RG_ATTN,
+                                                  "window2048")
+    llama["at_llava"] = time_flash_shape(torch, dev, LLAVA_ATTN)
     return llama
 
 
@@ -1927,7 +1980,7 @@ def time_flash_shape(torch, dev, shape, mode="causal"):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
 
-    kw = dict(ATTN_MODES, window4096=SWA4096)[mode]
+    kw = FLASH_MODES[mode]
     B, S, H, KV, hd = shape
     q, k, v = attn_inputs(torch, dev, shape, torch.bfloat16, 100)
     # the library yardstick takes (B, heads, S, hd); its copies are made
@@ -2776,13 +2829,105 @@ def serve_path(torch, dev, flash_ms: float):
 
 
 # ---------------------------------------------------------------------------
+# the serving paths' shared steps
+# ---------------------------------------------------------------------------
+
+def full_width_prefill(torch, cfg, params, batch, n_attn: int):
+    """One ``prefill`` of ``batch`` (B = 1) with the flash count set to 0
+    just before: ``n_attn`` launches, finite (1, 1, V) logits; then the
+    median of 3, the peak memory and a profiled run whose flash kernels
+    must all be the tensor-core route's.  The profiler drops some device
+    events late in the script (a 1-layer prefill's one flash launch
+    among them), so a trace with no flash kernel is taken again over 2,
+    then 3 prefills.  Returns the record."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer
+
+    flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = transformer.prefill(cfg, params, batch)
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    launches = flash_attention.launches
+    finite = bool(torch.isfinite(logits).all())
+    if (launches != n_attn or not finite
+            or tuple(logits.shape) != (1, 1, cfg.vocab)):
+        raise AssertionError(f"{cfg.name} prefill: {launches} flash launches "
+                             f"(want {n_attn}), finite {finite}, shape "
+                             f"{tuple(logits.shape)}")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        transformer.prefill(cfg, params, batch)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.reset_peak_memory_stats()
+    for steps in (1, 2, 3):
+        prof = device_profile(
+            torch, lambda: [transformer.prefill(cfg, params, batch)
+                            for _ in range(steps)],
+            steps=steps, kernel_name="flash_kernel")[0]
+        if prof["kernel_names"]:
+            break
+    peak = torch.cuda.max_memory_allocated()
+    if not prof["kernel_names"] or any(
+            "flash_kernel_mma" not in n for n in prof["kernel_names"]):
+        raise AssertionError(f"{cfg.name}: profiled flash kernels "
+                             f"{prof['kernel_names']} in {steps} prefills")
+    seq = sum(t.shape[1] for t in batch.values())
+    return dict(batch=1, seq_len=seq, layers=cfg.n_layers,
+                dtype=cfg.dtype, flash_launches=launches,
+                logits_finite=finite, first_call_ms=first_ms,
+                wall_ms_median_of_3=sorted(walls)[1], wall_ms_runs=walls,
+                peak_gb=peak / 1e9, profiled_prefills=steps, profiled=prof)
+
+
+def served_decode(torch, name, dev, params, n_layers, max_len=128):
+    """8 greedy steps through ``serve`` (batch 4, prompt 16) on the drawn
+    weights, with no flash launch."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import serve
+
+    flash_attention.launches = 0
+    res = serve(name, steps=8, smoke=False, device=dev, params=params,
+                n_layers=n_layers, max_len=max_len, log_fn=lambda *a: None)
+    if flash_attention.launches != 0 or res.tokens.shape != (4, 8):
+        raise AssertionError(f"{name} serve: {flash_attention.launches} "
+                             f"flash launches, tokens {res.tokens.shape}")
+    return dict(batch=4, prompt_len=16, steps=8, max_len=max_len,
+                tokens_per_s=res.tokens_per_s, decode_s=res.decode_s,
+                first_tokens=res.tokens[0].tolist())
+
+
+def card_vs_cpu_prefill(torch, cfg, p32, batch):
+    """The card's float32 prefill (the flash kernel's float32 route)
+    against the CPU's (plain) on the same weights: (max |err|, the CPU's
+    largest logit, the card's flash launches)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer
+
+    dev = p32["embed"].device
+    flash_attention.launches = 0
+    card = transformer.prefill(cfg, p32, {k: v.to(dev)
+                                          for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    cpu = transformer.prefill(cfg, _tree_to(p32, "cpu"), batch)
+    return (float((card.cpu() - cpu).abs().max()), float(cpu.abs().max()),
+            launches)
+
+
+# ---------------------------------------------------------------------------
 # dense path: qwen3-8b, qwen3-14b and gemma-7b at full width
 # ---------------------------------------------------------------------------
 
 DENSE_ARCHS = ("qwen3-8b", "qwen3-14b", "gemma-7b")
-# every width, half the depth (of 36, 40 and 28 layers): cut when the moe
-# archs joined the script, to keep it inside its 1,200 s limit
-DENSE_DEPTH = {"qwen3-8b": 18, "qwen3-14b": 20, "gemma-7b": 14}
+# every width, a quarter of the depth (of 36, 40 and 28 layers): half when
+# the moe archs joined the script, a quarter when the hybrid and vlm archs
+# did, to keep it inside its 1,200 s limit
+DENSE_DEPTH = {"qwen3-8b": 9, "qwen3-14b": 10, "gemma-7b": 7}
 INIT_WINDOW = 4096          # lanes of each drawn row re-drawn on the CPU
 
 
@@ -2797,7 +2942,8 @@ class DrawWindows:
 def sampled_init_check(torch, cfg, seed, dev):
     """The card's ``init_params`` of ``cfg`` at ``seed`` against the CPU's
     (:func:`init_windows_check`).  Returns (the card's parameters, the
-    windows and leaves compared, the paths that differ)."""
+    windows and leaves compared, the paths that differ, the computed
+    leaves' ulp gaps)."""
     from repro_torch import random as jr
     from repro_torch.models import transformer
 
@@ -2814,12 +2960,13 @@ def init_windows_check(torch, cfg, key, card):
     each layer's row of it, the first and the last INIT_WINDOW lanes and
     the window that straddles the draw's first 2^24-lane chunk boundary,
     with the same ``random.normal(start=)``; every undrawn leaf (the norms)
-    is compared whole.  Returns (the windows and leaves compared, the
-    paths that differ)."""
+    is compared whole, the computed ones (ULP_LEAVES) within an ulp.
+    Returns (the windows and leaves compared, the paths that differ, the
+    computed leaves' largest ulp gaps)."""
     import math
 
     from repro_torch import random as jr
-    from repro_torch.models import layers, transformer
+    from repro_torch.models import layers, ssm, transformer
 
     chunk = layers._DRAW_CHUNK
 
@@ -2835,13 +2982,13 @@ def init_windows_check(torch, cfg, key, card):
                 out[(i, s)] = (x / scale if divide else x * scale).to(dtype)
         return DrawWindows(out)
 
-    saved = (layers._normal, transformer._normal)
-    layers._normal = transformer._normal = windows
+    saved = (layers._normal, transformer._normal, ssm._normal)
+    layers._normal = transformer._normal = ssm._normal = windows
     try:
         cpu = transformer.init_params(cfg, key, "cpu")
     finally:
-        layers._normal, transformer._normal = saved
-    compared, differ = 0, []
+        layers._normal, transformer._normal, ssm._normal = saved
+    compared, differ, ulps = 0, [], {}
     leaves = dict(tree_items(card))
     for path, want in tree_items(cpu):
         got = leaves[path]
@@ -2852,11 +2999,30 @@ def init_windows_check(torch, cfg, key, card):
                 if not same_tensor_bits(torch, rows[i, s:s + w.numel()].cpu(),
                                         w):
                     differ.append(f"{path}[{i}, {s}:]")
+        elif path.rsplit("/", 1)[-1] in ULP_LEAVES:
+            compared += 1
+            ulps[path] = ulp_gap(torch, got.cpu(), want)
+            if ulps[path] > 1:
+                differ.append(path)
         else:
             compared += 1
             if not same_tensor_bits(torch, got.cpu(), want):
                 differ.append(path)
-    return compared, differ
+    return compared, differ, ulps
+
+
+# computed, not drawn (torch's log and expm1 on the card and on the CPU
+# round apart): held within an ulp
+ULP_LEAVES = ("A_log", "lam")
+
+
+def ulp_gap(torch, a, b) -> int:
+    """The largest distance in float32 steps between two float32 tensors
+    of one shape."""
+    if a.dtype != torch.float32 or b.dtype != a.dtype or a.shape != b.shape:
+        return 1 << 31
+    return int((a.contiguous().view(torch.int32).long()
+                - b.contiguous().view(torch.int32).long()).abs().max())
 
 
 def same_tensor_bits(torch, a, b) -> bool:
@@ -2872,9 +3038,7 @@ def dense_path(torch, dev):
     """Each dense arch at full width and DENSE_DEPTH through
     ``launch.serve``'s entry points; returns the flash launches of their
     prefills."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch.serve import serve, serve_config, serve_params
-    from repro_torch.models import transformer
+    from repro_torch.launch.serve import serve_config, serve_params
 
     total = 0
     for name in DENSE_ARCHS:
@@ -2894,60 +3058,15 @@ def dense_path(torch, dev):
                                          dtype=torch.int32)}
 
         # (a) prefill, B = 1, S = 8192, one flash launch a layer
-        flash_attention.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits = transformer.prefill(cfg, params, batch)
-        torch.cuda.synchronize()
-        first_ms = 1e3 * (time.perf_counter() - t0)
-        launches = flash_attention.launches
-        finite = bool(torch.isfinite(logits).all())
-        if (launches != cfg.n_layers or not finite
-                or tuple(logits.shape) != (1, 1, cfg.vocab)):
-            raise AssertionError(
-                f"{name} prefill: {launches} flash launches (want "
-                f"{cfg.n_layers}), finite {finite}, shape "
-                f"{tuple(logits.shape)}")
-        total += launches
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            transformer.prefill(cfg, params, batch)
-            torch.cuda.synchronize()
-            walls.append(1e3 * (time.perf_counter() - t0))
-        torch.cuda.reset_peak_memory_stats()
-        prof = device_profile(
-            torch, lambda: transformer.prefill(cfg, params, batch),
-            kernel_name="flash_kernel")[0]
-        # bf16 q, k, v reach the tensor-core route and nothing else
-        if not prof["kernel_names"] or any(
-                "flash_kernel_mma" not in n for n in prof["kernel_names"]):
-            raise AssertionError(f"{name}: profiled flash kernels "
-                                 f"{prof['kernel_names']}")
-        prefill = dict(batch=1, seq_len=8192, layers=cfg.n_layers,
-                       of_layers=serve_config(name, smoke=False).n_layers,
-                       head_dim=cfg.head_dim, dtype=cfg.dtype,
-                       n_params=n_params, init_params_s=init_s,
-                       flash_launches=launches, logits_finite=finite,
-                       first_call_ms=first_ms,
-                       wall_ms_median_of_3=sorted(walls)[1],
-                       wall_ms_runs=walls,
-                       peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                       profiled=prof)
-        del logits
+        prefill = full_width_prefill(torch, cfg, params, batch,
+                                     cfg.n_layers)
+        total += prefill["flash_launches"]
+        prefill.update(of_layers=serve_config(name, smoke=False).n_layers,
+                       head_dim=cfg.head_dim, n_params=n_params,
+                       init_params_s=init_s)
 
         # (b) a few decode tokens through serve, on the same weights
-        flash_attention.launches = 0
-        res = serve(name, steps=8, smoke=False, device=dev, params=params,
-                    n_layers=depth, log_fn=lambda *a: None)
-        if flash_attention.launches != 0 or res.tokens.shape != (4, 8):
-            raise AssertionError(f"{name} serve: {flash_attention.launches} "
-                                 f"flash launches, tokens "
-                                 f"{res.tokens.shape}")
-        served = dict(batch=4, prompt_len=16, steps=8,
-                      tokens_per_s=res.tokens_per_s, decode_s=res.decode_s,
-                      first_tokens=res.tokens[0].tolist())
+        served = served_decode(torch, name, dev, params, depth)
         del params
         torch.cuda.empty_cache()
 
@@ -2957,7 +3076,7 @@ def dense_path(torch, dev):
         cfg2 = cfg.replace(n_layers=2)
         init_rows = []
         for seed, dtype in ((0, "bfloat16"), (3, "float32")):
-            p2, compared, differ = sampled_init_check(
+            p2, compared, differ, _ = sampled_init_check(
                 torch, cfg2.replace(dtype=dtype), seed, dev)
             init_rows.append(dict(seed=seed, dtype=dtype, compared=compared,
                                   not_bitwise=differ))
@@ -2967,17 +3086,12 @@ def dense_path(torch, dev):
         cfg2 = cfg2.replace(dtype="float32")
         toks = torch.randint(0, cfg.vocab, (1, 512), generator=gen,
                              device=dev, dtype=torch.int32)
-        flash_attention.launches = 0
-        card = transformer.prefill(cfg2, p2, {"tokens": toks})
-        torch.cuda.synchronize()
-        card_launches = flash_attention.launches
-        cpu = transformer.prefill(cfg2, _tree_to(p2, "cpu"),
-                                  {"tokens": toks.cpu()})
-        card_vs_cpu = float((card.cpu() - cpu).abs().max())
-        if card_launches != 2 or not card_vs_cpu <= 1e-4:
+        card_vs_cpu, _, card_launches = card_vs_cpu_prefill(
+            torch, cfg2, p2, {"tokens": toks.cpu()})
+        if card_launches != 2 or not card_vs_cpu <= F32_LOGIT_TOL:
             raise AssertionError(f"{name} depth-2 card vs CPU: "
                                  f"{card_vs_cpu} ({card_launches} launches)")
-        del p2, card, cpu
+        del p2
         emit(dict(phase="dense_path", arch=name, prefill=prefill,
                   serve=served, depth2_init=init_rows,
                   depth2_f32_card_vs_cpu_max_abs_err=card_vs_cpu))
@@ -2990,8 +3104,9 @@ def dense_path(torch, dev):
 # ---------------------------------------------------------------------------
 
 # Every width kept, the depth cut to what one card holds: mixtral's layer
-# is 2.504 B parameters (5.0 GB in bf16), grok's 4.920 B (9.84 GB)
-MOE_DEPTH = {"mixtral-8x22b": 4, "grok-1-314b": 2}
+# is 2.504 B parameters (5.0 GB in bf16), grok's 4.920 B (9.84 GB); 2 and
+# 1 layers (were 4 and 2) since the hybrid and vlm archs joined the script
+MOE_DEPTH = {"mixtral-8x22b": 2, "grok-1-314b": 1}
 # the first layers cast to float32 for the card-vs-CPU prefill: grok's
 # layer is 9.84 GB in bf16, so one (its bf16 copy written for the CPU and
 # its float32 copy on the card each half of two layers')
@@ -3115,13 +3230,15 @@ def moe_cpu(src: str, name: str, path: str, threads: int, results) -> None:
     results.put(out)
 
 
-def first_layers(params, n: int):
-    """The embeddings, the final norm and the first n stacked layers."""
+def first_layers(params, n: int, stack: str = "blocks"):
+    """The embeddings, the final norm (and a vlm's projector) and the first
+    n entries of ``stack``: the stacked layers, or a hybrid's "groups"
+    (its tail left out)."""
     def cut(tree):
         return ({k: cut(v) for k, v in tree.items()} if isinstance(tree, dict)
                 else tree[:n])
-    return dict({k: v for k, v in params.items() if k != "blocks"},
-                blocks=cut(params["blocks"]))
+    return dict({k: v for k, v in params.items()
+                 if k not in (stack, "tail")}, **{stack: cut(params[stack])})
 
 
 def moe_compare(torch, card, cpu) -> dict:
@@ -3157,7 +3274,7 @@ def moe_path(torch, dev):
     import multiprocessing
     from repro_torch import random as jr
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch.serve import serve, serve_config, serve_params
+    from repro_torch.launch.serve import serve_config, serve_params
     from repro_torch.models import transformer
 
     ctx = multiprocessing.get_context("spawn")
@@ -3192,74 +3309,26 @@ def moe_path(torch, dev):
 
             # (a) prefill, B = 1, S = 8192 (two routing groups of 4096),
             # one flash launch a layer
-            flash_attention.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits = transformer.prefill(cfg, params, batch)
-            torch.cuda.synchronize()
-            first_ms = 1e3 * (time.perf_counter() - t0)
-            launches = flash_attention.launches
-            finite = bool(torch.isfinite(logits).all())
-            if (launches != depth or not finite
-                    or tuple(logits.shape) != (1, 1, cfg.vocab)):
-                raise AssertionError(
-                    f"{name} prefill: {launches} flash launches (want "
-                    f"{depth}), finite {finite}, shape "
-                    f"{tuple(logits.shape)}")
-            total += launches
-            walls = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                transformer.prefill(cfg, params, batch)
-                torch.cuda.synchronize()
-                walls.append(1e3 * (time.perf_counter() - t0))
-            torch.cuda.reset_peak_memory_stats()
-            prof = device_profile(
-                torch, lambda: transformer.prefill(cfg, params, batch),
-                kernel_name="flash_kernel")[0]
-            peak = torch.cuda.max_memory_allocated()
-            if not prof["kernel_names"] or any(
-                    "flash_kernel_mma" not in n
-                    for n in prof["kernel_names"]):
-                raise AssertionError(f"{name}: profiled flash kernels "
-                                     f"{prof['kernel_names']}")
+            prefill = full_width_prefill(torch, cfg, params, batch, depth)
+            total += prefill["flash_launches"]
             drops = []
             with recorded_routing(drops, drop_summary):
                 transformer.prefill(cfg, params, batch)
-            prefill = dict(batch=1, seq_len=8192, layers=depth,
-                           of_layers=serve_config(name, smoke=False).n_layers,
-                           dtype=cfg.dtype, n_params=n_params,
-                           init_params_s=init_s, cpu_copy_save_s=save_s,
-                           flash_launches=launches, logits_finite=finite,
-                           first_call_ms=first_ms,
-                           wall_ms_median_of_3=sorted(walls)[1],
-                           wall_ms_runs=walls, peak_gb=peak / 1e9,
+            prefill.update(of_layers=serve_config(name, smoke=False).n_layers,
+                           n_params=n_params, init_params_s=init_s,
+                           cpu_copy_save_s=save_s,
                            capacity_dropped_share_by_layer=[
                                d["dropped_share"] for d in drops],
                            router_input_mean_cosine_by_layer=[
                                d["input_mean_cosine"] for d in drops],
                            router_input_mean_over_norm_by_layer=[
-                               d["input_mean_over_norm"] for d in drops],
-                           profiled=prof)
-            del logits
+                               d["input_mean_over_norm"] for d in drops])
 
             # (b) decode through serve on the same weights: no flash
-            flash_attention.launches = 0
-            res = serve(name, steps=8, smoke=False, device=dev,
-                        params=params, n_layers=depth,
-                        log_fn=lambda *a: None)
-            if flash_attention.launches != 0 or res.tokens.shape != (4, 8):
-                raise AssertionError(
-                    f"{name} serve: {flash_attention.launches} flash "
-                    f"launches, tokens {res.tokens.shape}")
-            served = dict(batch=4, prompt_len=16, steps=8,
-                          tokens_per_s=res.tokens_per_s,
-                          decode_s=res.decode_s,
-                          first_tokens=res.tokens[0].tolist())
+            served = served_decode(torch, name, dev, params, depth)
 
             # (c) 1. the draw, by windows of every row against the CPU's
-            compared, differ = init_windows_check(
+            compared, differ, _ = init_windows_check(
                 torch, cfg, jr.split(jr.PRNGKey(0, device="cpu"), 3)[0],
                 params)
             if differ:
@@ -3307,6 +3376,207 @@ def moe_path(torch, dev):
                                  f"({card_launches} launches)")
     torch.cuda.empty_cache()
     return total
+
+
+# ---------------------------------------------------------------------------
+# hybrid and vlm paths: recurrentgemma-2b whole, llava-next-34b cut in depth
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "recurrentgemma-2b"
+HYBRID_F32_SEQ = 3072       # the window of 2048 hides the first 1,024 keys
+#                             from the last rows
+RING_MAX_LEN = 2304         # past the window: caches of exactly 2,048 slots
+RGLRU_RTOL = 1e-5           # rglru_block alone, float32, card vs CPU
+VLM_ARCH = "llava-next-34b"
+# every width; 8 of 60 layers (557,856,768 parameters a layer: the whole
+# model's 68.9 GB of bf16 would nearly fill the card, and its draw would
+# take ~170 s)
+VLM_DEPTH = 8
+VLM_F32_LAYERS = 2
+VLM_F32_TEXT = 512          # after the 1,024 patches
+
+
+def rec_layer_parts(torch, cfg, params, x):
+    """Where a recurrent layer's RG-LRU spends its time at ``x``'s shape,
+    on the first group's first block: the two float32 gate GEMMs, all of
+    ``_rglru_gates``, the scan and the whole ``rglru_block``, each in ms
+    (CUDA events) and device launches (a profiled call)."""
+    from repro_torch.models import ssm
+
+    p = {k: v[0] for k, v in params["groups"]["0_rec"]["rglru"].items()}
+    u = ssm.causal_conv1d(x @ p["wx"], p["conv_w"], p["conv_b"])
+    u32, wa, wi = u.float(), p["w_a"].float(), p["w_i"].float()
+    a, gated = ssm._rglru_gates(p, u)
+    parts = {"gate_gemms": lambda: (u32 @ wa, u32 @ wi),
+             "gates": lambda: ssm._rglru_gates(p, u),
+             "scan": lambda: ssm._linear_scan(a, gated),
+             "rglru_block": lambda: ssm.rglru_block(p, x, cfg)}
+    out = {}
+    for name, fn in parts.items():
+        out[f"{name}_ms"] = cuda_ms(fn, warmup=2, runs=9)
+        out[f"{name}_launches"] = device_profile(
+            torch, fn)[0]["device_launches_per_step"]
+    S, w = u.shape[1], u.shape[2]
+    out["gate_gemms_tflops_per_s"] = 4.0 * S * w * w / out["gate_gemms_ms"] \
+        / 1e9
+    return out
+
+
+def hybrid_path(torch, dev):
+    """recurrentgemma-2b at full width and depth (8 groups of (rec, rec,
+    attn) and a tail of 2 rec blocks) through ``launch.serve``'s entry
+    points, then the card against the CPU on the same drawn weights;
+    returns the flash launches of the full-width prefill."""
+    from repro_torch import random as jr
+    from repro_torch.launch.serve import serve_config, serve_params
+    from repro_torch.models import ssm, transformer
+
+    torch.cuda.empty_cache()
+    name = HYBRID_ARCH
+    cfg = serve_config(name, smoke=False)
+    pat, n_groups, rem = transformer._hybrid_layout(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = serve_params(name, 0, smoke=False, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, 8192), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+
+    # (a) prefill, B = 1, S = 8192: one flash launch a group's attention
+    prefill = full_width_prefill(torch, cfg, params, batch, n_groups)
+    n_rec = cfg.n_layers - n_groups
+    x = torch.randn(1, 8192, cfg.d_model, generator=gen, device=dev).to(
+        cfg.torch_dtype)
+    parts = rec_layer_parts(torch, cfg, params, x)
+    parts["rec_layers"] = n_rec
+    parts["gates_and_scan_share_of_prefill"] = n_rec * (
+        parts["gates_ms"] + parts["scan_ms"]) / prefill["wall_ms_median_of_3"]
+    prefill.update(n_params=n_params, init_params_s=init_s,
+                   rec_layer=parts)
+    del x
+
+    # (b) decode through serve; then with caches of exactly the window,
+    # which attention_decode takes as rings
+    served = served_decode(torch, name, dev, params, None)
+    ring_state = transformer.init_decode_state(cfg, 4, RING_MAX_LEN, dev)
+    ring_slots = ring_state["groups"]["2_attn"]["k"].shape[2]
+    del ring_state
+    if ring_slots != cfg.sliding_window:
+        raise AssertionError(f"{name}: {ring_slots} cache slots at max_len "
+                             f"{RING_MAX_LEN}")
+    ring = served_decode(torch, name, dev, params, None, RING_MAX_LEN)
+    ring["cache_slots"] = ring_slots
+
+    # (c) 1. the draw, by windows of every row (lam within an ulp)
+    compared, differ, ulps = init_windows_check(
+        torch, cfg, jr.split(jr.PRNGKey(0, device="cpu"), 3)[0], params)
+    if differ:
+        raise AssertionError(f"{name} init: card differs in {differ}")
+    # 2. the first group in float32 at S = 3072, card against CPU
+    cfg1 = cfg.replace(n_layers=len(pat), dtype="float32")
+    p32 = _tree_to(first_layers(params, 1, "groups"), torch.float32)
+    del params
+    torch.cuda.empty_cache()
+    cpu_gen = torch.Generator().manual_seed(11)
+    toks = torch.randint(0, cfg.vocab, (1, HYBRID_F32_SEQ), generator=cpu_gen,
+                         dtype=torch.int32)
+    t0 = time.perf_counter()
+    err, scale, f32_launches = card_vs_cpu_prefill(torch, cfg1, p32,
+                                                   {"tokens": toks})
+    # 3. rglru_block alone on layer 0's float32 weights at S = 8192
+    p0 = {k: v[0] for k, v in p32["groups"]["0_rec"]["rglru"].items()}
+    xs = torch.randn(1, 8192, cfg.d_model, generator=cpu_gen)
+    y_card = ssm.rglru_block(p0, xs.to(dev), cfg1).cpu()
+    y_cpu = ssm.rglru_block(_tree_to(p0, "cpu"), xs, cfg1)
+    rglru_rel = float((y_card - y_cpu).abs().max() / y_cpu.abs().max())
+    cpu_s = time.perf_counter() - t0
+    del p32
+    torch.cuda.empty_cache()
+    check = dict(layers=len(pat), seq_len=HYBRID_F32_SEQ,
+                 window=cfg.sliding_window, flash_launches=f32_launches,
+                 prefill_max_abs_err=err, logit_scale=scale,
+                 rglru_block_seq_len=8192, rglru_block_rel_err=rglru_rel,
+                 wall_s=cpu_s)
+    emit(dict(phase="hybrid_path", arch=name, prefill=prefill, serve=served,
+              serve_ring=ring,
+              init=dict(seed=0, key="serve_params", compared=compared,
+                        not_bitwise=[], computed_leaf_ulps=max(
+                            ulps.values())),
+              f32_check=check))
+    if (f32_launches != 1 or not err <= F32_LOGIT_TOL
+            or not rglru_rel <= RGLRU_RTOL):
+        raise AssertionError(f"{name} card vs CPU: {check}")
+    torch.cuda.empty_cache()
+    return prefill["flash_launches"]
+
+
+def vlm_path(torch, dev):
+    """llava-next-34b at full width and VLM_DEPTH layers through
+    ``launch.serve``'s entry points (1,024 patch embeddings before 7,168
+    text tokens), then the card against the CPU on the same drawn weights;
+    returns the flash launches of the full-width prefill."""
+    from repro_torch import random as jr
+    from repro_torch.launch.serve import serve_config, serve_params
+
+    torch.cuda.empty_cache()
+    name = VLM_ARCH
+    cfg = serve_config(name, smoke=False, n_layers=VLM_DEPTH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = serve_params(name, 0, smoke=False, device=dev,
+                          n_layers=VLM_DEPTH)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    P = cfg.n_patches
+    batch = {"patch_embeds": torch.randn(1, P, cfg.vit_dim, generator=gen,
+                                         device=dev).to(cfg.torch_dtype),
+             "tokens": torch.randint(0, cfg.vocab, (1, 8192 - P),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+
+    # (a) prefill, B = 1, S = 1,024 patches + 7,168 tokens
+    prefill = full_width_prefill(torch, cfg, params, batch, VLM_DEPTH)
+    prefill.update(of_layers=serve_config(name, smoke=False).n_layers,
+                   patches=P, text_tokens=8192 - P, n_params=n_params,
+                   init_params_s=init_s)
+
+    # (b) decode through serve: text only
+    served = served_decode(torch, name, dev, params, VLM_DEPTH)
+
+    # (c) 1. the draw, by windows of every row
+    compared, differ, _ = init_windows_check(
+        torch, cfg, jr.split(jr.PRNGKey(0, device="cpu"), 3)[0], params)
+    if differ:
+        raise AssertionError(f"{name} init: card differs in {differ}")
+    # 2. the first layers and the projector in float32, card against CPU
+    cfg2 = cfg.replace(n_layers=VLM_F32_LAYERS, dtype="float32")
+    p32 = _tree_to(first_layers(params, VLM_F32_LAYERS), torch.float32)
+    del params
+    torch.cuda.empty_cache()
+    cpu_gen = torch.Generator().manual_seed(11)
+    small = {"patch_embeds": torch.randn(1, P, cfg.vit_dim,
+                                         generator=cpu_gen),
+             "tokens": torch.randint(0, cfg.vocab, (1, VLM_F32_TEXT),
+                                     generator=cpu_gen, dtype=torch.int32)}
+    t0 = time.perf_counter()
+    err, scale, f32_launches = card_vs_cpu_prefill(torch, cfg2, p32, small)
+    check = dict(layers=VLM_F32_LAYERS, patches=P, text_tokens=VLM_F32_TEXT,
+                 flash_launches=f32_launches, prefill_max_abs_err=err,
+                 logit_scale=scale, wall_s=time.perf_counter() - t0)
+    del p32
+    torch.cuda.empty_cache()
+    emit(dict(phase="vlm_path", arch=name, prefill=prefill, serve=served,
+              init=dict(seed=0, key="serve_params", compared=compared,
+                        not_bitwise=[]),
+              f32_check=check))
+    if f32_launches != VLM_F32_LAYERS or not err <= F32_LOGIT_TOL:
+        raise AssertionError(f"{name} card vs CPU: {check}")
+    return prefill["flash_launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -3841,12 +4111,14 @@ def main(argv) -> int:
     t_attn = phase("flash_timing", time_flash_attention, torch, dev)
     bwd_err = phase("flash_backward", check_flash_backward, torch, dev)
     t_bwd = phase("flash_bwd_timing", time_flash_backward, torch, dev)
-    flash_launches = phase("serve_path", serve_path, torch, dev,
-                           t_attn["ms"])
-    flash_launches += phase("dense_path", dense_path, torch, dev)
-    flash_launches += phase("moe_path", moe_path, torch, dev)
+    flash_by_path = {"serve_path": phase("serve_path", serve_path, torch,
+                                         dev, t_attn["ms"])}
+    for name, fn in (("dense_path", dense_path), ("moe_path", moe_path),
+                     ("hybrid_path", hybrid_path), ("vlm_path", vlm_path)):
+        flash_by_path[name] = phase(name, fn, torch, dev)
     zoo = phase("zoo_train", zoo_train, torch, dev)
-    flash_launches += zoo["flash_attention"]
+    flash_by_path["zoo_train"] = zoo["flash_attention"]
+    flash_launches = sum(flash_by_path.values())
     ssd_err = phase("ssd_chunk", check_ssd_chunk, torch, dev)
     t_ssd = phase("ssd_timing", time_ssd, torch, dev)
     ssd_launches = phase("mamba_path", mamba_path, torch, dev, t_ssd["ms"])
@@ -3894,7 +4166,8 @@ def main(argv) -> int:
         dict(name="flash_attention", route="cuda",
              source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:77",
-             launches=flash_launches, max_abs_err=attn_err,
+             launches=flash_launches, launches_by_path=flash_by_path,
+             max_abs_err=attn_err,
              routes={"bfloat16": "tensor cores (mma.sync m16n8k16, P split "
                                  "into bf16 hi + lo); ms",
                      "float32": "CUDA cores; f32_ms"},
@@ -3905,7 +4178,8 @@ def main(argv) -> int:
                  "shape", "mode", "ms", "f32_ms", "plain_ms", "bound_ms",
                  "bound_by", "library_ms", "library", "sdpa_mask_ms")
                  if k in t_attn[f"at_{a}"]}
-                for a in ("gemma", "mixtral", "grok")}),
+                for a in ("gemma", "mixtral", "grok", "recurrentgemma",
+                          "llava")}),
         dict(name="flash_attention_bwd", route="cuda",
              source=src + "flash_attention_bwd.cu",
              replaces="src/repro/models/layers.py:157",

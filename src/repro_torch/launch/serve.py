@@ -9,17 +9,22 @@ architecture — the deployment path of the federated global model (port of
   python -m repro_torch.launch.serve --arch mamba2-2.7b [--full]
   python -m repro_torch.launch.serve --arch mixtral-8x22b [--full]
   python -m repro_torch.launch.serve --arch grok-1-314b [--full]
+  python -m repro_torch.launch.serve --arch recurrentgemma-2b [--full]
+  python -m repro_torch.launch.serve --arch llava-next-34b [--full]
 
 The smoke config is the default (``--smoke`` spells it out); ``--full``
 serves the full-width config (mixtral-8x22b's 281 GB and grok-1-314b's
-633 GB of bf16 weights are more than one card holds; :func:`serve`'s
-``n_layers`` cuts the depth and keeps every width).  Runs on CUDA
+633 GB of bf16 weights are more than one card holds, and llava-next-34b's
+68.9 GB nearly fill it; :func:`serve`'s ``n_layers`` cuts the depth and
+keeps every width).  Runs on CUDA
 unless ``--device cpu`` is given.  The prompt is drawn with
 the port's threefry, so it is the JAX package's prompt for the same seed;
 the weights are random from the same seed (``transformer.init_params``).
-Decode steps a KV cache (dense, moe: each token routed to its experts) or
-the O(1) recurrent state (mamba2); no full-sequence kernel (flash
-attention, ssd_chunk) runs.
+Decode steps a KV cache (dense, moe: each token routed to its experts;
+vlm: text only, as the JAX package serves it), the O(1) recurrent state
+(mamba2) or both (recurrentgemma: the RG-LRU state, and the local
+attention's cache, a ring of its window once ``max_len`` reaches it); no
+full-sequence kernel (flash attention, ssd_chunk) runs.
 """
 from __future__ import annotations
 
@@ -57,8 +62,9 @@ def serve(arch_id: str, batch: int = 4, prompt_len: int = 16,
           smoke: bool = True, log_fn=print, device=None,
           params=None, n_layers=None) -> ServeResult:
     """Step the prompt through ``decode_step``, then decode ``steps``
-    greedy tokens (``max_len`` sizes the KV cache; mamba2's state does not
-    grow with it).  The loop keeps the tokens on the device and waits for
+    greedy tokens (``max_len`` sizes the KV cache, up to a windowed
+    attention's ring; mamba2's and the RG-LRU's states do not grow with
+    it).  The loop keeps the tokens on the device and waits for
     it once, at the end.  ``params`` are weights already on ``device``
     for this config (e.g. :func:`serve_params`' for this seed); None
     draws them.  ``n_layers`` cuts the config's depth

@@ -1,6 +1,6 @@
 """Shapes and dtypes of every program input, without allocation (port of
 ``repro.launch.specs`` for the train and prefill programs of the dense,
-moe and ssm families).
+moe, ssm, hybrid and vlm families).
 
 ``jax.ShapeDtypeStruct`` becomes :class:`ShapeDtype`, a (shape, dtype)
 named tuple.  ``param_specs`` walks ``init_params`` with the parameter
@@ -39,22 +39,36 @@ def _shape(shape_name: str, kind: str) -> dict:
     return shp
 
 
+def _batch(cfg, lead: tuple, seq_len: int) -> Dict:
+    """{"tokens": lead + (S,) int32}; a vlm's S counts its image prefix:
+    S - n_patches text tokens and "patch_embeds" lead + (n_patches,
+    vit_dim) in the model's dtype."""
+    if cfg.family != "vlm":
+        return {"tokens": ShapeDtype(lead + (seq_len,), torch.int32)}
+    return {"tokens": ShapeDtype(lead + (seq_len - cfg.n_patches,),
+                                 torch.int32),
+            "patch_embeds": ShapeDtype(lead + (cfg.n_patches, cfg.vit_dim),
+                                       cfg.torch_dtype)}
+
+
 def cohort_batch_specs(arch: ArchSpec, shape_name: str) -> Dict:
-    """Training cohort batch: {"tokens": (K, E, B_loc, S) int32}."""
+    """Training cohort batch: {"tokens": (K, E, B_loc, S) int32}, and a
+    vlm's patch embeddings (K, E, B_loc, n_patches, vit_dim)."""
     shp = _shape(shape_name, "train")
     cfg = arch.model_for_shape(shape_name)
     transformer.check_supported(cfg)
     K, E = arch.fed.cohort_size, arch.fed.local_steps
     B = arch.fed.local_batch_for(shp["global_batch"])
-    return {"tokens": ShapeDtype((K, E, B, shp["seq_len"]), torch.int32)}
+    return _batch(cfg, (K, E, B), shp["seq_len"])
 
 
 def prefill_batch_specs(arch: ArchSpec, shape_name: str) -> Dict:
-    """Prefill batch: {"tokens": (B, S) int32}."""
+    """Prefill batch: {"tokens": (B, S) int32}, and a vlm's patch
+    embeddings (B, n_patches, vit_dim)."""
     shp = _shape(shape_name, "prefill")
-    transformer.check_supported(arch.model_for_shape(shape_name))
-    return {"tokens": ShapeDtype((shp["global_batch"], shp["seq_len"]),
-                                 torch.int32)}
+    cfg = arch.model_for_shape(shape_name)
+    transformer.check_supported(cfg)
+    return _batch(cfg, (shp["global_batch"],), shp["seq_len"])
 
 
 def _shape_tree(cfg):

@@ -20,7 +20,9 @@ def check_trainable(cfg, device=None) -> None:
     """Raise ``NotImplementedError`` where the port cannot train ``cfg``:
     the ssm family on a CUDA device, whose ``ssd_chunk`` kernel has no
     backward yet (ROADMAP.md queue 1 item 15).  On the CPU it trains on
-    the plain path.  Decided before anything is built."""
+    the plain path.  The other families train on both: their attention's
+    gradient is the flash_attention_bwd kernel, and the hybrid's RG-LRU
+    is plain torch.  Decided before anything is built."""
     on_cuda = torch.device("cuda" if device is None else device).type \
         == "cuda"
     if cfg.family == "ssm" and on_cuda:
@@ -42,7 +44,8 @@ def build_train_step(arch: ArchSpec, shape_name: str, device=None):
     ``init(params)`` makes ``opt_state``, and
     ``{"tokens": ShapeDtype((K, E, B, S), torch.int32)}``.  ``device``
     (default CUDA) is where the round will run; only the refusal of
-    :func:`check_trainable` reads it."""
+    :func:`check_trainable` reads it.  A vlm's batch also holds its
+    ``patch_embeds`` (``specs.cohort_batch_specs``)."""
     cfg = arch.model_for_shape(shape_name).replace(remat=arch.fed.remat)
     check_trainable(cfg, device)
     batch_shapes = S.cohort_batch_specs(arch, shape_name)
@@ -58,8 +61,8 @@ def build_train_step(arch: ArchSpec, shape_name: str, device=None):
 def build_prefill_step(arch: ArchSpec, shape_name: str):
     """Returns ``(prefill, batch_shapes)``: ``prefill(params, batch)`` gives
     the last position's logits (B, 1, V), and ``batch_shapes`` is
-    ``{"tokens": ShapeDtype((B, S), torch.int32)}``
-    (``specs.prefill_batch_specs``)."""
+    ``{"tokens": ShapeDtype((B, S), torch.int32)}``, with a vlm's
+    ``patch_embeds`` (``specs.prefill_batch_specs``)."""
     if INPUT_SHAPES.get(shape_name, {}).get("kind") != "prefill":
         names = sorted(n for n, s in INPUT_SHAPES.items()
                        if s["kind"] == "prefill")

@@ -95,11 +95,14 @@ def run_federated(task_id: str = "synthetic11", algo_name: str = "f3ast",
 
 def federated_rounds(fed_round, params, opt_state, key, *, vocab: int,
                      shape, rounds: int, n_clients: int = 16,
-                     client_lr: float = 1e-2):
+                     client_lr: float = 1e-2, patches=None):
     """The round loop of :func:`run_arch_smoke`: f3ast over ``n_clients``
     equally weighted ``scarce`` (q = 0.5) clients with K_t = K, a
     ``randint`` cohort batch of ``shape`` = (K, E, B, S) tokens a round and
-    the key split five ways a round, as JAX's loop.  ``key`` is the key
+    the key split five ways a round, as JAX's loop.  ``patches`` =
+    (n_patches, vit_dim) adds a vlm's patch embeddings (K, E, B,
+    n_patches, vit_dim), float32 from the round's fifth key: JAX's draw
+    for a float32 model, as the smoke configs are.  ``key`` is the key
     the parameters were drawn from.  Yields ``(t, mask, metrics,
     opt_state)`` after each round: the selection mask, the round's
     ``RoundMetrics`` and the server optimizer's new state (Adam's first
@@ -114,13 +117,16 @@ def federated_rounds(fed_round, params, opt_state, key, *, vocab: int,
     avail_proc = make_availability("scarce", n_clients, q=0.5, device=device)
     k_t = torch.tensor(K, dtype=torch.int32, device=device)
     for t in range(rounds):
-        key, k1, k2, kb, _ = jr.split(key, 5)
+        key, k1, k2, kb, kb_aux = jr.split(key, 5)
         avail = avail_proc.sample(k1, t)
         sel, w_full, algo_state = strategy.select(algo_state, k2, avail, k_t,
                                                   None)
         sel_ids = np.flatnonzero(sel.cpu().numpy())
         ids = (list(sel_ids) + [int(sel_ids[0])] * K)[:K]
         batch = {"tokens": jr.randint(kb, tuple(shape), 0, vocab)}
+        if patches is not None:
+            batch["patch_embeds"] = jr.normal(kb_aux,
+                                              tuple(shape[:3]) + patches)
         w = w_full[torch.as_tensor(ids, device=device)]
         params, opt_state, m = fed_round(params, opt_state, batch, w,
                                          client_lr)
@@ -144,9 +150,10 @@ def run_arch_smoke(arch_id: str, rounds: int = 3, seed: int = 0,
     opt = make_optimizer("adam", lr=1e-3)
     fed_round = make_fed_round(api.loss_fn, opt, mode="parallel")
     losses = []
+    patches = (cfg.n_patches, cfg.vit_dim) if cfg.family == "vlm" else None
     loop = federated_rounds(fed_round, params, opt.init(params), key,
                             vocab=cfg.vocab, shape=(4, 2, 2, 64),
-                            rounds=rounds)
+                            rounds=rounds, patches=patches)
     for t, _, m, _ in loop:
         losses.append(float(m.loss))
         log_fn(f"[{arch_id}-smoke] round {t} loss={losses[-1]:.4f}")

@@ -1,7 +1,7 @@
 """Model zoo of the port: the paper's task models (softmax regression, the
 Shakespeare LSTM ``rnn``, ResNet-18 with GroupNorm ``resnet``) and, of the
-assigned architectures, the dense, moe and ssm (Mamba-2) decoder
-families (``transformer``, ``ssm``).
+assigned architectures, the dense, moe, ssm (Mamba-2), hybrid (RG-LRU and
+local attention) and vlm decoder families (``transformer``, ``ssm``).
 
 ``get_model_api(cfg)`` returns a uniform API namespace for a ModelConfig,
 as ``repro.models.get_model_api`` does; families this port does not run

@@ -3,14 +3,16 @@
 * Configs: ``FedExec``, ``INPUT_SHAPES["train_4k"]`` and each ported
   arch's ``fed=`` and long-context fields are JAX's field for field; the
   decode shapes raise naming their ROADMAP.md item.
-* ``launch.specs``: ``count_params`` of the seven full configs and
+* ``launch.specs``: ``count_params`` of the nine full configs and
   ``param_specs`` of the smoke configs are JAX's, and so are the batch
-  specs.
+  specs (a vlm's ``patch_embeds`` and shortened text among them).
 * ``loss_fn`` (fused unembedding CE, per-layer remat) and its gradient for
   the smoke configs of llama3.2-1b, qwen3-8b, qwen3-14b, gemma-7b and
   mamba2-2.7b, from JAX's weights, within 1e-5.
 * ``run_arch_smoke`` (llama3.2-1b, mamba2-2.7b, mixtral-8x22b,
-  grok-1-314b): 3 rounds on the CPU against JAX's, masks bitwise and
+  grok-1-314b, recurrentgemma-2b, llava-next-34b: its patch embeddings
+  drawn from the round's fifth key, bitwise JAX's): 3 rounds on the CPU
+  against JAX's, masks bitwise and
   losses within 1e-5 relative.  The losses depart by ~2e-7 relative after
   Adam's first server step, which moves coordinates whose Δ is within
   rounding of 0 by up to ±lr (ROADMAP.md queue 3, "FedAdam's first server
@@ -48,8 +50,10 @@ from repro_torch.models import get_model_api  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 ARCHS = ["llama3.2-1b", "qwen3-8b", "qwen3-14b", "gemma-7b", "mamba2-2.7b"]
-# the moe archs: their loss_fn and gradient are held in test_torch_moe.py
+# the moe, hybrid and vlm archs: their loss_fn and gradient are held in
+# test_torch_moe.py, test_torch_hybrid.py and test_torch_vlm.py
 MOE = ["mixtral-8x22b", "grok-1-314b"]
+HYBRID_VLM = ["recurrentgemma-2b", "llava-next-34b"]
 TOL = 1e-5
 LOSS_RTOL = 1e-5
 
@@ -75,7 +79,7 @@ def _close(got, want, tol=TOL):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ARCHS + MOE)
+@pytest.mark.parametrize("arch", ARCHS + MOE + HYBRID_VLM)
 def test_fed_exec_and_train_shape_field_for_field(arch):
     jspec, tspec = jconfigs.get_arch(arch), tconfigs.get_arch(arch)
     assert dataclasses.asdict(tspec.fed) == dataclasses.asdict(jspec.fed)
@@ -100,7 +104,7 @@ def test_fed_exec_defaults_are_jax():
         == [f.name for f in dataclasses.fields(JFedExec)]
 
 
-@pytest.mark.parametrize("arch", ARCHS + MOE)
+@pytest.mark.parametrize("arch", ARCHS + MOE + HYBRID_VLM)
 def test_specs_match_jax(arch):
     jspec, tspec = jconfigs.get_arch(arch), tconfigs.get_arch(arch)
     assert (tspecs.count_params(tspec.model)
@@ -117,7 +121,8 @@ def test_specs_match_jax(arch):
         jb = getattr(jspecs, fn.__name__)(jspec, shape)
         tb = fn(tspec, shape)
         assert {k: (tuple(v.shape), str(v.dtype)) for k, v in jb.items()} \
-            == {k: (v.shape, "int32") for k, v in tb.items()}
+            == {k: (v.shape, str(v.dtype).split(".")[-1])
+                for k, v in tb.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +179,8 @@ def _recording(make_strategy, masks):
     return make
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b", *MOE])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b", *MOE,
+                                  *HYBRID_VLM])
 def test_run_arch_smoke_matches_jax(arch, monkeypatch):
     jmasks, tmasks = [], []
     monkeypatch.setattr(jtrain, "make_strategy",

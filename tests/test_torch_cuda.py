@@ -290,6 +290,81 @@ def test_moe_block_and_top_k_card_match_cpu(dev, arch):
         assert torch.equal(gi.cpu(), ti) and torch.equal(gv.cpu(), tv)
 
 
+def _to_dev(tree, dev):
+    return ({k: _to_dev(v, dev) for k, v in tree.items()}
+            if isinstance(tree, dict) else tree.to(dev))
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("shape", [(1, 1000, 10, 1, 256),
+                                   (1, 700, 14, 2, 128)])
+def test_flash_attention_groups_of_10_and_7(dev, shape, dtype, tol):
+    """recurrentgemma's layer (one KV head, a group of 10, hd 256) with a
+    window of 300 and a ragged S, and a group of 7 (llava's), causal."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    B, S, H, KV, hd = shape
+    rng = np.random.default_rng(H)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(getattr(torch, dtype)).to(dev)
+               for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    mode = dict(causal=True, window=300 if KV == 1 else 0, softcap=0.0)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **mode)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = ref.sdpa(q, k, v, **mode)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+    if dtype == "bfloat16":
+        assert _lanes_over_one_bf16_step(got, want) == 0
+
+
+def test_rglru_block_card_matches_cpu(dev):
+    """recurrentgemma's RG-LRU block at the smoke widths, S = 1000, float32:
+    the card's (its float32 gate GEMMs and scan) within 1e-5 relative of
+    the CPU's on the same weights."""
+    from repro_torch import random as jr
+    from repro_torch.configs import get_arch
+    from repro_torch.models import ssm
+    cfg = get_arch("recurrentgemma-2b").smoke_model
+    p = ssm.init_rglru(jr.PRNGKey(0, device="cpu"), cfg)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2, 1000, cfg.d_model)).astype(np.float32))
+    want = ssm.rglru_block(p, x, cfg)
+    got = ssm.rglru_block(_to_dev(p, dev), x.to(dev), cfg).cpu()
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "llava-next-34b"])
+def test_hybrid_and_vlm_smoke_prefill_card_matches_cpu(dev, arch):
+    """The smoke model's prefill through the kernel (one launch an
+    attention layer) against the same weights' CPU prefill; S = 300 (past
+    recurrentgemma's window of 16), llava's 16 patches before the text."""
+    from repro_torch import random as jr
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer
+    cfg = get_arch(arch).smoke_model
+    params = transformer.init_params(cfg, jr.PRNGKey(0, device="cpu"), "cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (2, 300)).astype(np.int32))}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.n_patches, cfg.vit_dim)).astype(np.float32))
+    want = transformer.prefill(cfg, params, batch)
+    n_attn = (transformer._hybrid_layout(cfg)[1] if cfg.family == "hybrid"
+              else cfg.n_layers)
+    before = flash_attention.launches
+    got = transformer.prefill(cfg, _to_dev(params, dev),
+                              _to_dev(batch, dev))
+    assert flash_attention.launches == before + n_attn
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
 # (B, S, H, KV, hd): groups of 1, 4 and 5, head dims 16-256, a ragged S
 BWD_SHAPES = [(2, 128, 2, 2, 32), (1, 1000, 8, 2, 64), (1, 300, 10, 2, 128),
               (1, 200, 4, 2, 256), (2, 96, 4, 1, 16)]

@@ -34,6 +34,8 @@ SLICE_MODULES = [
     "repro_torch.configs.common", "repro_torch.configs.llama3_2_1b",
     "repro_torch.configs.mamba2_2_7b", "repro_torch.configs.qwen3_8b",
     "repro_torch.configs.qwen3_14b", "repro_torch.configs.gemma_7b",
+    "repro_torch.configs.recurrentgemma_2b",
+    "repro_torch.configs.llava_next_34b",
     "repro_torch.models", "repro_torch.models.layers",
     "repro_torch.models.transformer", "repro_torch.models.ssm",
     "repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd_chunk",

@@ -63,7 +63,7 @@ def test_spec_file_runs(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--arch", "recurrentgemma-2b"], 12), (["--mesh-shape", "2,2"], 11)])
+    (["--arch", "whisper-small"], 12), (["--mesh-shape", "2,2"], 11)])
 def test_unported_flags_raise_naming_their_item(flags, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
         train.main(["--task", "cifar", "--device", "cpu",
