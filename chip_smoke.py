@@ -144,8 +144,12 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  and qwen3-14b's group of 5, (1, 2048, 40, 8, 128), causal
                  in both dtypes, and the moe archs' prefill layer (1, 8192,
                  48, 8, 128) in bf16 with mixtral's window of 4096 and
-                 with grok's soft-cap of 30; it reports each reference's
-                 RMS;
+                 with grok's soft-cap of 30, and whisper-small's layers in
+                 both dtypes: the encoder (1, 1500, 12, 12, 64) non-causal
+                 (a ragged edge), the decoder's self-attention (1, 8192,
+                 12, 12, 64) causal and its cross-attention, 8,192 and 448
+                 queries over 1,500 frames, non-causal; it reports each
+                 reference's RMS;
 8. ``flash_timing`` median CUDA-event times of the kernel (its bf16 route,
                  on the tensor cores, and its float32 route, on the CUDA
                  cores), its plain version and
@@ -157,8 +161,10 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  backend that takes it, named, beside it), grok's (a
                  tanh soft-cap score_mod of 30) and recurrentgemma's
                  (1, 8192, 10, 1, 256) with its window of 2048 (the same
-                 two), and SDPA (GQA through ``enable_gqa``) at
-                 llava's (1, 8192, 56, 8, 128), causal,
+                 two), SDPA (GQA through ``enable_gqa``) at
+                 llava's (1, 8192, 56, 8, 128), causal, and SDPA with
+                 ``is_causal=False`` at whisper's encoder and
+                 cross-attention layers,
                  beside the bound (the larger of bytes over 3.35 TB/s and
                  the unmasked QK^T + PV flops over 989 TFLOP/s bf16), the
                  bf16 route's TFLOP/s and its share of the bound;
@@ -170,7 +176,11 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  Sq = Skv = 128 (B = 2) and 1000 (ragged), plus head dim
                  16, a non-causal case and the training layers of
                  llama3.2-1b (1, 4096, 32, 8, 64), qwen3-8b (1, 4096, 32,
-                 8, 128) and gemma-7b (1, 4096, 16, 16, 256), causal, in
+                 8, 128) and gemma-7b (1, 4096, 16, 16, 256), causal, and
+                 whisper-small's at train_4k (the encoder (1, 1500, 12,
+                 12, 64) non-causal, the decoder's self-attention at 4,096
+                 causal, its cross-attention, 4,096 queries over 1,500
+                 frames, non-causal), in
                  both dtypes (bf16 is the tensor-core route, float32 the
                  CUDA-core one): float32 gradients
                  within 1e-5 of their largest magnitude, bf16 lanes within
@@ -190,23 +200,37 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  folded layer (2, 4096, 32, 8, 64) and the qwen3-8b and
                  gemma-7b training layers, causal, beside the bound (the
                  five products of the backward over 989 TFLOP/s bf16);
-9. ``serve_path`` drives llama3.2-1b at full width (its ``init_params``
-                 timed on the card): (a) one ``prefill``
+9. ``serve_path`` drives llama3.2-1b at full width (the weights
+                 ``launch.serve`` draws, ``serve_params``, timed on the
+                 card, and kept for 9a): (a) one ``prefill``
                  of B = 1, S = 8192 (16 layers, bf16) with the launch count
                  set to 0 just before, which must launch the kernel exactly
                  16 times and give finite logits, then its wall time
                  (median of 3 after that warm-up) and a profiled run for the
                  kernel's share; (b) ``serve(..., smoke=False)`` at its
-                 defaults (batch 4, prompt 16, 32 steps), which must launch
-                 no flash kernel; (c) at depth 2 in float32, B = 1,
+                 defaults (batch 4, prompt 16, 32 steps) on those weights,
+                 which must launch no flash kernel; (c) at depth 2 in
+                 float32, B = 1,
                  S = 512, the card's prefill (kernel) within 1e-4 of the
                  CPU's (plain) on the same weights; (d) at depth 2 in
                  float32, S = 128, the card's prefill within 2e-3 of
                  stepping the same prompt through ``decode_step`` (the
                  limit of ``tests/test_models_consistency.py``);
-9a. ``dense_path`` drives qwen3-8b, qwen3-14b and gemma-7b at full width
-                 and a quarter of their depth (DENSE_DEPTH: 9, 10 and 7
-                 layers),
+9a. ``decode_shapes`` steps llama3.2-1b at full width, on serve_path's
+                 weights, through ``launch.steps.build_decode_step`` at
+                 ``decode_32k`` (its batch cut from 128 to 32: a 34.4 GB
+                 KV cache) and ``long_500k`` (batch 1, the swa_variant's
+                 ring of 8,192 slots a layer): the state allocated as
+                 the step's shapes say (the batch cut), filled at random,
+                 and 8 steps from index 32,760, and 16 from 524,280 (the
+                 ring wraps), with the flash count at 0: no launch,
+                 finite logits, ms a step and tokens/s; then the first 2
+                 layers in float32 on one cache (2 rows of decode_32k's,
+                 long_500k's whole), the same steps on the card and the
+                 CPU: logits and caches within 1e-4;
+9b. ``dense_path`` drives qwen3-8b, qwen3-14b and gemma-7b at full width
+                 and about an eighth of their depth (DENSE_DEPTH: 5, 5 and
+                 4 layers),
                  one after another, each freed before the next: (a) the
                  weights ``launch.serve`` draws (``serve_params``, timed on
                  the card), one ``prefill`` of B = 1, S = 8192 with the
@@ -215,14 +239,13 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  the median of 3 and a profiled run whose flash kernels
                  must all be the tensor-core route's; (b) 8 decode steps
                  through ``serve`` on those weights (batch 4), with no
-                 flash launch; (c) at depth 2 of the full widths, the
-                 card's ``init_params`` against the CPU's at seed 0 in
-                 bfloat16 and seed 3 in float32 (the CPU walks the same key
-                 tree and re-draws windows of every drawn row, the norms
-                 whole: ``sampled_init_check``), then the card's float32
-                 prefill (S = 512, 2 launches) within 1e-4 of the CPU's on
-                 the same weights;
-9b. ``moe_path`` drives mixtral-8x22b (2 of its 56 layers) and
+                 flash launch; (c) the draw against the CPU's (the CPU
+                 walks the same key tree and re-draws windows of every
+                 drawn row, the norms whole: ``init_windows_check``), then
+                 the first 2 layers cast to float32, the card's prefill
+                 (S = 512, 2 launches) within 1e-4 of the CPU's on the
+                 same weights;
+9c. ``moe_path`` drives mixtral-8x22b (1 of its 56 layers) and
                  grok-1-314b (1 of 64) at full width, one after the other:
                  (a) ``serve_params`` at the cut depth (timed), one
                  ``prefill`` of B = 1, S = 8192 (two routing groups of
@@ -236,8 +259,7 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  (b) 8 decode steps through ``serve`` on those weights
                  (batch 4), with no flash launch; (c) on the same drawn
                  weights: the draw by ``init_windows_check``'s windows of
-                 every row; the first MOE_F32_LAYERS (mixtral 2, grok 1)
-                 layers cast to float32 on the card and, in a spawned CPU
+                 every row; the first MOE_F32_LAYERS (1 each) layers cast to float32 on the card and, in a spawned CPU
                  worker (from their bf16 copy saved under ``build/``),
                  prefill at S = 512 within 1e-4 with
                  every layer's chosen experts equal (the smallest gap
@@ -246,7 +268,7 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  256 (a padded group) with y within 1e-4 of its largest
                  lane, lb_loss within 1e-6 relative, the experts and slots
                  equal, and ``top_k`` of tied rows bitwise;
-9c. ``hybrid_path`` drives recurrentgemma-2b at full width and depth (8
+9d. ``hybrid_path`` drives recurrentgemma-2b at full width and depth (8
                  groups of (rec, rec, attn) and 2 tail rec blocks, bf16):
                  (a) ``serve_params`` (timed), one ``prefill`` of B = 1,
                  S = 8192 with the launch count set to 0 just before,
@@ -264,14 +286,31 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  (the window hides 1,024 keys from the last rows) within
                  1e-4 of the CPU's prefill, and ``rglru_block`` alone on
                  its first layer at S = 8192 within 1e-5 relative;
-9d. ``vlm_path`` drives llava-next-34b at full width and 8 of its 60
-                 layers (bf16): (a) as 9c's, at 1,024 patch embeddings
+9e. ``vlm_path`` drives llava-next-34b at full width and 4 of its 60
+                 layers (bf16): (a) as 9d's, at 1,024 patch embeddings
                  (drawn from a seed) before 7,168 tokens, one launch a
                  layer; (b) 8 text-only decode steps through ``serve``;
                  (c) the draw by windows, and the first 2 layers and the
                  projector in float32 at 1,024 patches + 512 tokens within
                  1e-4 of the CPU's prefill;
-9e. ``zoo_train`` trains llama3.2-1b at full width (16 layers, d 2048,
+9f. ``audio_path`` drives whisper-small at full width and depth (12
+                 encoder and 12 decoder layers, bf16, 0.24 B parameters):
+                 (a) ``serve_params`` (timed), one ``prefill`` of B = 1,
+                 1,500 stub frames and S = 8192 tokens (past the 4,096
+                 decoder positions, which it leaves out) with the launch
+                 count set to 0 just before, which must launch the kernel
+                 36 times (12 encoder, 12 self, 12 cross) and give finite
+                 (1, 1, V) logits, the median of 3, the peak memory and a
+                 profiled run whose flash kernels must all be
+                 ``flash_kernel_mma``; a second prefill at whisper's target
+                 length of 448 (with positions), 36 launches; (b) 8 decode
+                 steps through ``serve`` (batch 4), whose frames are
+                 encoded once (12 launches, ``encdec.prefill`` of the
+                 cross K/V) and whose steps launch none; (c) the draw by
+                 windows, and the first 2 encoder and 2 decoder layers in
+                 float32 at 1,500 frames + 448 tokens (6 launches) within
+                 1e-4 of the CPU's prefill;
+9g. ``zoo_train`` trains llama3.2-1b at full width (16 layers, d 2048,
                  the tied 128,256-token vocabulary, bf16, random weights)
                  through ``launch.steps.build_train_step(arch, "train_4k")``
                  (the arch's FedExec: the parallel round, per-layer remat,
@@ -1815,13 +1854,29 @@ SWA2048 = dict(causal=True, window=2048, softcap=0.0)    # recurrentgemma's
 LLAVA_ATTN = (1, 8192, 56, 8, 128)
 FLASH_MODES = dict(ATTN_MODES, window32=WINDOW32, window2048=SWA2048,
                    window4096=SWA4096)
+# whisper-small's attention layers at B = 1, (B, Sq, H, KV, hd[, Skv]):
+# the encoder over its 1,500 frames (non-causal; a ragged edge for 64-row
+# tiles), the decoder's self-attention over audio_path's 8,192 tokens
+# (causal) and its cross-attention, the 8,192 queries (and whisper's
+# target length of 448) over the 1,500 frames (non-causal, Sq != Skv)
+WHISPER_ENC_ATTN = (1, 1500, 12, 12, 64)
+WHISPER_SELF_ATTN = (1, 8192, 12, 12, 64)
+WHISPER_CROSS_ATTN = (1, 8192, 12, 12, 64, 1500)
+WHISPER_CROSS448_ATTN = (1, 448, 12, 12, 64, 1500)
+WHISPER_ATTN = {"encoder": (WHISPER_ENC_ATTN, "full"),
+                "self": (WHISPER_SELF_ATTN, "causal"),
+                "cross": (WHISPER_CROSS_ATTN, "full"),
+                "cross448": (WHISPER_CROSS448_ATTN, "full")}
 
 
 def attn_inputs(torch, dev, shape, dtype, seed):
-    B, S, H, KV, hd = shape
+    """q (B, Sq, H, hd) and k, v (B, Skv, KV, hd) of ``shape`` (B, Sq, H,
+    KV, hd[, Skv]); Skv = Sq where it is not given."""
+    B, S, H, KV, hd = shape[:5]
+    skv = shape[5] if len(shape) > 5 else S
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return [torch.randn(B, S, n, hd, generator=gen, device=dev).to(dtype)
-            for n in (H, KV, KV)]
+    return [torch.randn(B, n_s, n, hd, generator=gen, device=dev).to(dtype)
+            for n_s, n in ((S, H), (skv, KV), (skv, KV))]
 
 
 def attn_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
@@ -1856,11 +1911,14 @@ def check_flash_attention(torch, dev):
     cases += [(MOE_ATTN, torch.bfloat16, mode) for mode in MOE_MODES.values()]
     cases += [(shape, dtype, mode)
               for shape, mode in ((RG_ATTN, "window2048"),
-                                  (LLAVA_ATTN, "causal"))
+                                  (LLAVA_ATTN, "causal"),
+                                  *WHISPER_ATTN.values())
               for dtype in (torch.bfloat16, torch.float32)]
     modes = FLASH_MODES
     rows, max_err, llama, gemma, moe = [], {}, {}, {}, {}
-    hybrid_vlm = {}
+    hybrid_vlm, whisper = {}, {}
+    whisper_layer = {shape: layer for layer, (shape, _)
+                     in WHISPER_ATTN.items()}
     for i, (shape, dtype, mode) in enumerate(cases):
         q, k, v = attn_inputs(torch, dev, shape, dtype, i)
         got = flash_attention(q, k, v, **modes[mode])
@@ -1892,6 +1950,10 @@ def check_flash_attention(torch, dev):
             hybrid_vlm[f"{'recurrentgemma' if shape == RG_ATTN else 'llava'}"
                        f"_{dname}"] = dict(max_abs_err=err, ref_rms=rms,
                                            err_over_rms=err / rms)
+        if shape in whisper_layer:
+            whisper[f"{whisper_layer[shape]}_{dname}"] = dict(
+                shape=list(shape), mode=mode, max_abs_err=err, ref_rms=rms,
+                err_over_rms=err / rms)
         if not ok:
             raise AssertionError(
                 f"flash_attention {shape} {dtype} {mode}: max |err| {err} "
@@ -1902,14 +1964,16 @@ def check_flash_attention(torch, dev):
     emit(dict(phase="flash_attention", checks=rows,
               max_abs_err_by_dtype=max_err, llama_shape=llama,
               gemma_shape=gemma, moe_shape=moe,
-              hybrid_vlm_shapes=hybrid_vlm))
+              hybrid_vlm_shapes=hybrid_vlm, whisper_shapes=whisper))
     return llama["bfloat16"]["max_abs_err"]
 
 
 def time_flash_attention(torch, dev):
-    """The llama, gemma, mixtral, grok, recurrentgemma and llava prefill
-    layers' rows; returns llama's with the others' under ``at_gemma``,
-    ``at_mixtral``, ``at_grok``, ``at_recurrentgemma`` and ``at_llava``."""
+    """The llama, gemma, mixtral, grok, recurrentgemma, llava and whisper
+    (encoder and cross-attention) prefill layers' rows; returns llama's
+    with the others' under ``at_gemma``, ``at_mixtral``, ``at_grok``,
+    ``at_recurrentgemma``, ``at_llava``, ``at_whisper_encoder`` and
+    ``at_whisper_cross``."""
     llama = time_flash_shape(torch, dev, LLAMA_ATTN)
     llama["at_gemma"] = time_flash_shape(torch, dev, GEMMA_ATTN)
     llama["at_mixtral"] = time_flash_shape(torch, dev, MOE_ATTN,
@@ -1918,6 +1982,9 @@ def time_flash_attention(torch, dev):
     llama["at_recurrentgemma"] = time_flash_shape(torch, dev, RG_ATTN,
                                                   "window2048")
     llama["at_llava"] = time_flash_shape(torch, dev, LLAVA_ATTN)
+    for layer in ("encoder", "cross"):
+        llama[f"at_whisper_{layer}"] = time_flash_shape(
+            torch, dev, *WHISPER_ATTN[layer])
     return llama
 
 
@@ -1972,7 +2039,8 @@ def flex_library_call(torch, qt, kt, vt, *, causal, window, softcap):
 def time_flash_shape(torch, dev, shape, mode="causal"):
     """bf16 (the tensor cores) and float32 (the CUDA cores) through the
     kernel, the plain version and the library beside the bound.  The
-    library: SDPA, causal (its default backend); a window or a soft-cap,
+    library: SDPA, causal or not (its default backend); a window or a
+    soft-cap,
     which no SDPA call skips tiles for or has, takes the compiled
     ``flex_attention`` (held to the kernel's output), and a window is
     also timed as SDPA with a boolean mask."""
@@ -1981,14 +2049,15 @@ def time_flash_shape(torch, dev, shape, mode="causal"):
     from repro_torch.kernels.flash_attention import flash_attention
 
     kw = FLASH_MODES[mode]
-    B, S, H, KV, hd = shape
+    B, S, H, KV, hd = shape[:5]
+    skv = shape[5] if len(shape) > 5 else S
     q, k, v = attn_inputs(torch, dev, shape, torch.bfloat16, 100)
     # the library yardstick takes (B, heads, S, hd); its copies are made
     # here, outside the timed calls
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    pairs = attn_pairs(S, S, kw["causal"], kw["window"])
+    pairs = attn_pairs(S, skv, kw["causal"], kw["window"])
     flops = 4.0 * B * H * hd * pairs          # QK^T and PV, 2 flops a MAC
-    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)  # q, o, k, v
+    nbytes = 2 * (2 * B * S * H * hd + 2 * B * skv * KV * hd)  # q, o, k, v
     b, by = bound_ms(nbytes, flops, peak=BF16_FLOPS)
     q32, k32, v32 = (x.float() for x in (q, k, v))
     extra = {}
@@ -2014,8 +2083,8 @@ def time_flash_shape(torch, dev, shape, mode="causal"):
     else:
         def call():
             return F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)
-        library = "SDPA, is_causal"
+                qt, kt, vt, is_causal=kw["causal"], enable_gqa=True)
+        library = f"SDPA, is_causal={kw['causal']}"
     lib_ms = cuda_ms(call, warmup=3, runs=15)
     row = dict(shape=list(shape), dtype="bfloat16", mode=mode,
                ms=cuda_ms(lambda: flash_attention(q, k, v, **kw),
@@ -2043,6 +2112,12 @@ BWD_HEAD_DIMS = (32, 64, 128, 256)
 BWD_GROUPS = (1, 4, 5)                # query heads a KV head
 BWD_LENGTHS = ((2, 128), (1, 1000))   # (B, Sq = Skv); 1000 is ragged
 LLAMA_TRAIN_ATTN = (1, 4096, 32, 8, 64)   # llama3.2-1b's training layer
+# whisper-small's at train_4k, B = 1: the encoder (non-causal, ragged),
+# the decoder's self-attention (causal) and its cross-attention, 4,096
+# queries over 1,500 frames (non-causal, Sq != Skv)
+WHISPER_TRAIN_ATTN = (((1, 1500, 12, 12, 64), "full"),
+                      ((1, 4096, 12, 12, 64), "causal"),
+                      ((1, 4096, 12, 12, 64, 1500), "full"))
 QWEN8_TRAIN_ATTN = (1, 4096, 32, 8, 128)  # qwen3-8b's, B = 1
 GEMMA_TRAIN_ATTN = (1, 4096, 16, 16, 256)  # gemma-7b's, B = 1
 # zoo_train's layer as the kernels take it: vmap folds the K = 2 clients'
@@ -2063,7 +2138,7 @@ BWD_BF16_ATOL = 1e-5
 
 
 def bwd_inputs(torch, dev, shape, dtype, mode, seed):
-    """q, k, v and do of ``shape`` (B, S, H, KV, hd), and the plain
+    """q, k, v and do of ``shape`` (B, Sq, H, KV, hd[, Skv]), and the plain
     forward's o and lse on them."""
     from repro_torch.kernels import ref
     q, k, v = attn_inputs(torch, dev, shape, dtype, seed)
@@ -2083,6 +2158,8 @@ def bwd_cases(torch):
     cases += [(shape, dtype, "causal")
               for shape in (LLAMA_TRAIN_ATTN, QWEN8_TRAIN_ATTN,
                             GEMMA_TRAIN_ATTN)
+              for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(shape, dtype, mode) for shape, mode in WHISPER_TRAIN_ATTN
               for dtype in (torch.bfloat16, torch.float32)]
     return [(*c, False) for c in cases] + [
         (ZOO_TRAIN_ATTN, dtype, "causal", True)
@@ -2144,6 +2221,7 @@ def check_flash_backward(torch, dev):
     modes = dict(BWD_MODES, full=dict(causal=False, window=0, softcap=0.0))
     rows, max_err = [], {}
     for i, (shape, dtype, mode, own) in enumerate(bwd_cases(torch)):
+        t0 = time.perf_counter()
         q, k, v, o, lse, do = bwd_inputs(torch, dev, shape, dtype,
                                          modes[mode], 300 + i)
         fwd = {}
@@ -2184,7 +2262,7 @@ def check_flash_backward(torch, dev):
         rows.append(dict(shape=list(shape), dtype=dname, mode=mode,
                          o_lse="kernel" if own else "plain",
                          max_abs_err_and_ref_max=errs, bitwise_rerun=bitwise,
-                         ok=ok, **fwd))
+                         ok=ok, wall_s=time.perf_counter() - t0, **fwd))
         if not ok:
             raise AssertionError(
                 f"flash_attention_bwd {shape} {dtype} {mode}: errors "
@@ -2734,15 +2812,22 @@ def _tree_to(tree, to):
 
 
 def serve_path(torch, dev, flash_ms: float):
+    """llama3.2-1b at full width on the weights ``launch.serve`` draws
+    (``serve_params``, timed); returns the prefill's flash launches and
+    the weights, which decode_shapes steps next."""
     from repro_torch import random as jr
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve import serve, serve_params
     from repro_torch.models import transformer
 
     arch = get_arch("llama3.2-1b")
     cfg = arch.model
-    params, init_s = timed_init(torch, transformer, cfg, 0, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = serve_params("llama3.2-1b", 0, smoke=False, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     n_params = sum(x.numel() for x in tree_leaves(params))
     gen = torch.Generator(device=dev).manual_seed(0)
     tokens = torch.randint(0, cfg.vocab, (1, 8192), generator=gen,
@@ -2781,11 +2866,13 @@ def serve_path(torch, dev, flash_ms: float):
                    profiled=device_profile(
                        torch, lambda: transformer.prefill(cfg, params, batch),
                        kernel_name="flash_kernel")[0])
-    del params, logits
+    del logits
 
-    # (b) serve at full width: decode only, no flash kernel
+    # (b) serve at full width on the same weights: decode only, no flash
+    # kernel
     flash_attention.launches = 0
-    res = serve("llama3.2-1b", smoke=False, device=dev, log_fn=lambda *a: None)
+    res = serve("llama3.2-1b", smoke=False, device=dev, params=params,
+                log_fn=lambda *a: None)
     if flash_attention.launches != 0:
         raise AssertionError(f"serve launched {flash_attention.launches} "
                              "flash kernels")
@@ -2825,7 +2912,7 @@ def serve_path(torch, dev, flash_ms: float):
               depth2_f32_card_vs_cpu_max_abs_err=card_vs_cpu,
               depth2_f32_prefill_vs_decode_max_abs_err=pre_vs_decode,
               logit_scale=float(cpu.abs().max())))
-    return launches
+    return launches, params
 
 
 # ---------------------------------------------------------------------------
@@ -2833,7 +2920,8 @@ def serve_path(torch, dev, flash_ms: float):
 # ---------------------------------------------------------------------------
 
 def full_width_prefill(torch, cfg, params, batch, n_attn: int):
-    """One ``prefill`` of ``batch`` (B = 1) with the flash count set to 0
+    """One ``prefill`` of ``batch`` (B = 1; ``get_model_api(cfg).prefill``:
+    the last position's logits) with the flash count set to 0
     just before: ``n_attn`` launches, finite (1, 1, V) logits; then the
     median of 3, the peak memory and a profiled run whose flash kernels
     must all be the tensor-core route's.  The profiler drops some device
@@ -2841,12 +2929,13 @@ def full_width_prefill(torch, cfg, params, batch, n_attn: int):
     among them), so a trace with no flash kernel is taken again over 2,
     then 3 prefills.  Returns the record."""
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.models import transformer
+    from repro_torch.models import get_model_api
 
+    prefill = get_model_api(cfg).prefill
     flash_attention.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits = transformer.prefill(cfg, params, batch)
+    logits = prefill(params, batch)
     torch.cuda.synchronize()
     first_ms = 1e3 * (time.perf_counter() - t0)
     launches = flash_attention.launches
@@ -2860,14 +2949,13 @@ def full_width_prefill(torch, cfg, params, batch, n_attn: int):
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        transformer.prefill(cfg, params, batch)
+        prefill(params, batch)
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
     torch.cuda.reset_peak_memory_stats()
     for steps in (1, 2, 3):
         prof = device_profile(
-            torch, lambda: [transformer.prefill(cfg, params, batch)
-                            for _ in range(steps)],
+            torch, lambda: [prefill(params, batch) for _ in range(steps)],
             steps=steps, kernel_name="flash_kernel")[0]
         if prof["kernel_names"]:
             break
@@ -2876,7 +2964,10 @@ def full_width_prefill(torch, cfg, params, batch, n_attn: int):
             "flash_kernel_mma" not in n for n in prof["kernel_names"]):
         raise AssertionError(f"{cfg.name}: profiled flash kernels "
                              f"{prof['kernel_names']} in {steps} prefills")
-    seq = sum(t.shape[1] for t in batch.values())
+    # the decoder's sequence: a vlm's patches and its text (an
+    # encoder-decoder's frames are its encoder's)
+    seq = sum(batch[k].shape[1] for k in ("patch_embeds", "tokens")
+              if k in batch)
     return dict(batch=1, seq_len=seq, layers=cfg.n_layers,
                 dtype=cfg.dtype, flash_launches=launches,
                 logits_finite=finite, first_call_ms=first_ms,
@@ -2884,21 +2975,25 @@ def full_width_prefill(torch, cfg, params, batch, n_attn: int):
                 peak_gb=peak / 1e9, profiled_prefills=steps, profiled=prof)
 
 
-def served_decode(torch, name, dev, params, n_layers, max_len=128):
+def served_decode(torch, name, dev, params, n_layers, max_len=128,
+                  launches=0):
     """8 greedy steps through ``serve`` (batch 4, prompt 16) on the drawn
-    weights, with no flash launch."""
+    weights, with ``launches`` flash launches: none in the decode steps
+    (an encoder-decoder's serve encodes its frames once first, one launch
+    an encoder layer)."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.serve import serve
 
     flash_attention.launches = 0
     res = serve(name, steps=8, smoke=False, device=dev, params=params,
                 n_layers=n_layers, max_len=max_len, log_fn=lambda *a: None)
-    if flash_attention.launches != 0 or res.tokens.shape != (4, 8):
+    if flash_attention.launches != launches or res.tokens.shape != (4, 8):
         raise AssertionError(f"{name} serve: {flash_attention.launches} "
-                             f"flash launches, tokens {res.tokens.shape}")
+                             f"flash launches (want {launches}), tokens "
+                             f"{res.tokens.shape}")
     return dict(batch=4, prompt_len=16, steps=8, max_len=max_len,
-                tokens_per_s=res.tokens_per_s, decode_s=res.decode_s,
-                first_tokens=res.tokens[0].tolist())
+                flash_launches=launches, tokens_per_s=res.tokens_per_s,
+                decode_s=res.decode_s, first_tokens=res.tokens[0].tolist())
 
 
 def card_vs_cpu_prefill(torch, cfg, p32, batch):
@@ -2906,15 +3001,15 @@ def card_vs_cpu_prefill(torch, cfg, p32, batch):
     against the CPU's (plain) on the same weights: (max |err|, the CPU's
     largest logit, the card's flash launches)."""
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.models import transformer
+    from repro_torch.models import get_model_api
 
+    prefill = get_model_api(cfg).prefill
     dev = p32["embed"].device
     flash_attention.launches = 0
-    card = transformer.prefill(cfg, p32, {k: v.to(dev)
-                                          for k, v in batch.items()})
+    card = prefill(p32, {k: v.to(dev) for k, v in batch.items()})
     torch.cuda.synchronize()
     launches = flash_attention.launches
-    cpu = transformer.prefill(cfg, _tree_to(p32, "cpu"), batch)
+    cpu = prefill(_tree_to(p32, "cpu"), batch)
     return (float((card.cpu() - cpu).abs().max()), float(cpu.abs().max()),
             launches)
 
@@ -2924,10 +3019,12 @@ def card_vs_cpu_prefill(torch, cfg, p32, batch):
 # ---------------------------------------------------------------------------
 
 DENSE_ARCHS = ("qwen3-8b", "qwen3-14b", "gemma-7b")
-# every width, a quarter of the depth (of 36, 40 and 28 layers): half when
-# the moe archs joined the script, a quarter when the hybrid and vlm archs
-# did, to keep it inside its 1,200 s limit
-DENSE_DEPTH = {"qwen3-8b": 9, "qwen3-14b": 10, "gemma-7b": 7}
+# every width, about an eighth of the depth (of 36, 40 and 28 layers): half
+# when the moe archs joined the script, a quarter when the hybrid and vlm
+# archs did, an eighth when the audio and decode-shape phases did, to keep
+# it inside its 1,200 s limit
+DENSE_DEPTH = {"qwen3-8b": 5, "qwen3-14b": 5, "gemma-7b": 4}
+DENSE_F32_LAYERS = 2
 INIT_WINDOW = 4096          # lanes of each drawn row re-drawn on the CPU
 
 
@@ -2937,19 +3034,6 @@ class DrawWindows:
 
     def __init__(self, parts):
         self.parts = parts
-
-
-def sampled_init_check(torch, cfg, seed, dev):
-    """The card's ``init_params`` of ``cfg`` at ``seed`` against the CPU's
-    (:func:`init_windows_check`).  Returns (the card's parameters, the
-    windows and leaves compared, the paths that differ, the computed
-    leaves' ulp gaps)."""
-    from repro_torch import random as jr
-    from repro_torch.models import transformer
-
-    card = transformer.init_params(cfg, jr.PRNGKey(seed, device=dev), dev)
-    return (card,) + init_windows_check(
-        torch, cfg, jr.PRNGKey(seed, device="cpu"), card)
 
 
 def init_windows_check(torch, cfg, key, card):
@@ -2966,7 +3050,8 @@ def init_windows_check(torch, cfg, key, card):
     import math
 
     from repro_torch import random as jr
-    from repro_torch.models import layers, ssm, transformer
+    from repro_torch.models import encdec, get_model_api, layers, ssm, \
+        transformer
 
     chunk = layers._DRAW_CHUNK
 
@@ -2982,12 +3067,15 @@ def init_windows_check(torch, cfg, key, card):
                 out[(i, s)] = (x / scale if divide else x * scale).to(dtype)
         return DrawWindows(out)
 
-    saved = (layers._normal, transformer._normal, ssm._normal)
-    layers._normal = transformer._normal = ssm._normal = windows
+    mods = (layers, transformer, ssm, encdec)
+    saved = [m._normal for m in mods]
+    for m in mods:
+        m._normal = windows
     try:
-        cpu = transformer.init_params(cfg, key, "cpu")
+        cpu = get_model_api(cfg).init_params(key, "cpu")
     finally:
-        layers._normal, transformer._normal, ssm._normal = saved
+        for m, fn in zip(mods, saved):
+            m._normal = fn
     compared, differ, ulps = 0, [], {}
     leaves = dict(tree_items(card))
     for path, want in tree_items(cpu):
@@ -3038,6 +3126,7 @@ def dense_path(torch, dev):
     """Each dense arch at full width and DENSE_DEPTH through
     ``launch.serve``'s entry points; returns the flash launches of their
     prefills."""
+    from repro_torch import random as jr
     from repro_torch.launch.serve import serve_config, serve_params
 
     total = 0
@@ -3067,33 +3156,31 @@ def dense_path(torch, dev):
 
         # (b) a few decode tokens through serve, on the same weights
         served = served_decode(torch, name, dev, params, depth)
+
+        # (c) the draw, by windows of every row against the CPU's, then
+        # the first layers in float32: the card's logits (kernel) against
+        # the CPU's (plain) on the same weights
+        compared, differ, _ = init_windows_check(
+            torch, cfg, jr.split(jr.PRNGKey(0, device="cpu"), 3)[0], params)
+        if differ:
+            raise AssertionError(f"{name} init: card differs in {differ}")
+        cfg2 = cfg.replace(n_layers=DENSE_F32_LAYERS, dtype="float32")
+        p2 = _tree_to(first_layers(params, DENSE_F32_LAYERS), torch.float32)
         del params
         torch.cuda.empty_cache()
-
-        # (c) the full widths at depth 2: the card's draws against the
-        # CPU's at two seeds, then the card's float32 logits (kernel)
-        # against the CPU's (plain) on the same weights
-        cfg2 = cfg.replace(n_layers=2)
-        init_rows = []
-        for seed, dtype in ((0, "bfloat16"), (3, "float32")):
-            p2, compared, differ, _ = sampled_init_check(
-                torch, cfg2.replace(dtype=dtype), seed, dev)
-            init_rows.append(dict(seed=seed, dtype=dtype, compared=compared,
-                                  not_bitwise=differ))
-            if differ:
-                raise AssertionError(f"{name} depth-2 init seed {seed} "
-                                     f"{dtype}: card differs in {differ}")
-        cfg2 = cfg2.replace(dtype="float32")
         toks = torch.randint(0, cfg.vocab, (1, 512), generator=gen,
                              device=dev, dtype=torch.int32)
         card_vs_cpu, _, card_launches = card_vs_cpu_prefill(
             torch, cfg2, p2, {"tokens": toks.cpu()})
-        if card_launches != 2 or not card_vs_cpu <= F32_LOGIT_TOL:
+        if (card_launches != DENSE_F32_LAYERS
+                or not card_vs_cpu <= F32_LOGIT_TOL):
             raise AssertionError(f"{name} depth-2 card vs CPU: "
                                  f"{card_vs_cpu} ({card_launches} launches)")
         del p2
         emit(dict(phase="dense_path", arch=name, prefill=prefill,
-                  serve=served, depth2_init=init_rows,
+                  serve=served, init=dict(seed=0, key="serve_params",
+                                          compared=compared,
+                                          not_bitwise=[]),
                   depth2_f32_card_vs_cpu_max_abs_err=card_vs_cpu))
     torch.cuda.empty_cache()
     return total
@@ -3105,12 +3192,13 @@ def dense_path(torch, dev):
 
 # Every width kept, the depth cut to what one card holds: mixtral's layer
 # is 2.504 B parameters (5.0 GB in bf16), grok's 4.920 B (9.84 GB); 2 and
-# 1 layers (were 4 and 2) since the hybrid and vlm archs joined the script
-MOE_DEPTH = {"mixtral-8x22b": 2, "grok-1-314b": 1}
+# 1 layers (were 4 and 2) since the hybrid and vlm archs joined the
+# script, 1 and 1 since the audio and decode-shape phases did
+MOE_DEPTH = {"mixtral-8x22b": 1, "grok-1-314b": 1}
 # the first layers cast to float32 for the card-vs-CPU prefill: grok's
 # layer is 9.84 GB in bf16, so one (its bf16 copy written for the CPU and
 # its float32 copy on the card each half of two layers')
-MOE_F32_LAYERS = {"mixtral-8x22b": 2, "grok-1-314b": 1}
+MOE_F32_LAYERS = {"mixtral-8x22b": 1, "grok-1-314b": 1}
 MOE_F32_SEQ = 512
 # moe_block alone at S = 300, groups of 256: the second group padded with
 # 212 zero rows, whose router probabilities tie exactly
@@ -3230,15 +3318,19 @@ def moe_cpu(src: str, name: str, path: str, threads: int, results) -> None:
     results.put(out)
 
 
-def first_layers(params, n: int, stack: str = "blocks"):
+def first_layers(params, n: int, stack="blocks"):
     """The embeddings, the final norm (and a vlm's projector) and the first
-    n entries of ``stack``: the stacked layers, or a hybrid's "groups"
-    (its tail left out)."""
+    n entries of ``stack`` (a name, or a tuple of names): the stacked
+    layers, a hybrid's "groups" (its tail left out), or an
+    encoder-decoder's ("enc_blocks", "dec_blocks")."""
+    stacks = (stack,) if isinstance(stack, str) else tuple(stack)
+
     def cut(tree):
         return ({k: cut(v) for k, v in tree.items()} if isinstance(tree, dict)
                 else tree[:n])
     return dict({k: v for k, v in params.items()
-                 if k not in (stack, "tail")}, **{stack: cut(params[stack])})
+                 if k not in stacks + ("tail",)},
+                **{k: cut(params[k]) for k in stacks})
 
 
 def moe_compare(torch, card, cpu) -> dict:
@@ -3388,10 +3480,10 @@ HYBRID_F32_SEQ = 3072       # the window of 2048 hides the first 1,024 keys
 RING_MAX_LEN = 2304         # past the window: caches of exactly 2,048 slots
 RGLRU_RTOL = 1e-5           # rglru_block alone, float32, card vs CPU
 VLM_ARCH = "llava-next-34b"
-# every width; 8 of 60 layers (557,856,768 parameters a layer: the whole
+# every width; 4 of 60 layers (557,856,768 parameters a layer: the whole
 # model's 68.9 GB of bf16 would nearly fill the card, and its draw would
-# take ~170 s)
-VLM_DEPTH = 8
+# take ~170 s); 8 until the audio and decode-shape phases joined the script
+VLM_DEPTH = 4
 VLM_F32_LAYERS = 2
 VLM_F32_TEXT = 512          # after the 1,024 patches
 
@@ -3577,6 +3669,240 @@ def vlm_path(torch, dev):
     if f32_launches != VLM_F32_LAYERS or not err <= F32_LOGIT_TOL:
         raise AssertionError(f"{name} card vs CPU: {check}")
     return prefill["flash_launches"]
+
+
+# ---------------------------------------------------------------------------
+# audio path: whisper-small whole; decode shapes: llama3.2-1b's KV caches
+# ---------------------------------------------------------------------------
+
+AUDIO_ARCH = "whisper-small"
+# prefill_32k's length cut as the other archs' (past the 4,096 decoder
+# positions: JAX's branch that adds none), then whisper's target length
+# of 448 (the branch that adds them)
+AUDIO_SEQ = 8192
+AUDIO_TARGET_SEQ = 448
+AUDIO_F32_LAYERS = 2        # of the encoder's and of the decoder's
+DECODE_ARCH = "llama3.2-1b"
+# decode_32k's batch cut from 128 to 32: its KV cache is then 16 layers x
+# k, v x 32 x 32,768 x 8 heads x 64 bf16 = 34.4 GB (137 GB at 128);
+# long_500k at its own batch of 1, a ring of 8,192 slots
+# (long_context_window) a layer
+DECODE_BATCH = {"decode_32k": 32, "long_500k": 1}
+# the steps: decode_32k's 8 from index 32,760, its last positions;
+# long_500k's 16 from index 524,280, slots 8,184-8,191 and then 0-7 of
+# the ring: it wraps in the run
+DECODE_STEPS = {"decode_32k": 8, "long_500k": 16}
+DECODE_START = {"decode_32k": 32_760, "long_500k": 524_280}
+# the depth-2 float32 step, card against CPU on the same cache: 2 rows of
+# decode_32k's cache (537 MB in float32), long_500k's whole
+DECODE_F32_BATCH = {"decode_32k": 2, "long_500k": 1}
+DECODE_F32_LAYERS = 2
+
+
+def audio_path(torch, dev):
+    """whisper-small at full width and depth (12 + 12 layers, bf16) through
+    ``launch.serve``'s entry points, then the card against the CPU on the
+    same drawn weights; returns the flash launches counted in its
+    prefills and its serve."""
+    from repro_torch import random as jr
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import serve_config, serve_params
+    from repro_torch.models import encdec, get_model_api
+
+    torch.cuda.empty_cache()
+    name = AUDIO_ARCH
+    cfg = serve_config(name, smoke=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = serve_params(name, 0, smoke=False, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    frames = torch.randn(1, cfg.enc_seq, cfg.d_model, generator=gen,
+                         device=dev).to(cfg.torch_dtype)
+    tokens = torch.randint(0, cfg.vocab, (1, AUDIO_SEQ), generator=gen,
+                           device=dev, dtype=torch.int32)
+    # one launch an encoder layer, two a decoder layer (self and cross)
+    n_attn = cfg.n_enc_layers + 2 * cfg.n_layers
+
+    # (a) prefill, B = 1, 1,500 frames and S = 8192 tokens; then at 448
+    batch = {"frames": frames, "tokens": tokens}
+    prefill = full_width_prefill(torch, cfg, params, batch, n_attn)
+    prefill.update(enc_seq=cfg.enc_seq, enc_layers=cfg.n_enc_layers,
+                   decoder_positions=AUDIO_SEQ <= encdec.DEC_POS,
+                   n_params=n_params, init_params_s=init_s)
+    short = {"frames": frames, "tokens": tokens[:, :AUDIO_TARGET_SEQ]}
+    api = get_model_api(cfg)
+    flash_attention.launches = 0
+    logits = api.prefill(params, short)
+    torch.cuda.synchronize()
+    short_launches = flash_attention.launches
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.prefill(params, short)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    target = dict(seq_len=AUDIO_TARGET_SEQ, flash_launches=short_launches,
+                  decoder_positions=AUDIO_TARGET_SEQ <= encdec.DEC_POS,
+                  logits_finite=bool(torch.isfinite(logits).all()),
+                  wall_ms_median_of_3=sorted(walls)[1], wall_ms_runs=walls)
+    if (short_launches != n_attn or not target["logits_finite"]
+            or tuple(logits.shape) != (1, 1, cfg.vocab)):
+        raise AssertionError(f"{name} prefill at {AUDIO_TARGET_SEQ}: "
+                             f"{target}, logits {tuple(logits.shape)}")
+    del logits
+
+    # (b) decode through serve: the frames encoded once (encdec.prefill of
+    # the cross K/V, one launch an encoder layer), then no launch a step
+    served = served_decode(torch, name, dev, params, None,
+                           launches=cfg.n_enc_layers)
+
+    # (c) 1. the draw, by windows of every row
+    compared, differ, _ = init_windows_check(
+        torch, cfg, jr.split(jr.PRNGKey(0, device="cpu"), 3)[0], params)
+    if differ:
+        raise AssertionError(f"{name} init: card differs in {differ}")
+    # 2. the first layers of both stacks in float32, card against CPU, at
+    # whisper's target length
+    n = AUDIO_F32_LAYERS
+    cfg2 = cfg.replace(n_layers=n, n_enc_layers=n, dtype="float32")
+    p32 = _tree_to(first_layers(params, n, ("enc_blocks", "dec_blocks")),
+                   torch.float32)
+    del params
+    torch.cuda.empty_cache()
+    cpu_gen = torch.Generator().manual_seed(11)
+    small = {"frames": torch.randn(1, cfg.enc_seq, cfg.d_model,
+                                   generator=cpu_gen),
+             "tokens": torch.randint(0, cfg.vocab, (1, AUDIO_TARGET_SEQ),
+                                     generator=cpu_gen, dtype=torch.int32)}
+    t0 = time.perf_counter()
+    err, scale, f32_launches = card_vs_cpu_prefill(torch, cfg2, p32, small)
+    check = dict(enc_layers=n, dec_layers=n, enc_seq=cfg.enc_seq,
+                 seq_len=AUDIO_TARGET_SEQ, flash_launches=f32_launches,
+                 prefill_max_abs_err=err, logit_scale=scale,
+                 wall_s=time.perf_counter() - t0)
+    del p32
+    torch.cuda.empty_cache()
+    emit(dict(phase="audio_path", arch=name, prefill=prefill,
+              prefill_target=target, serve=served,
+              init=dict(seed=0, key="serve_params", compared=compared,
+                        not_bitwise=[]),
+              f32_check=check))
+    if f32_launches != 3 * n or not err <= F32_LOGIT_TOL:
+        raise AssertionError(f"{name} card vs CPU: {check}")
+    return prefill["flash_launches"] + short_launches + cfg.n_enc_layers
+
+
+def decode_state_check(state, shapes, batch: int):
+    """The allocated decode state's leaves against ``build_decode_step``'s
+    shapes and dtypes, with the batch axis (1 of every cache leaf) cut to
+    ``batch``."""
+    got = {path: (tuple(t.shape), t.dtype)
+           for path, t in tree_items(state)}
+    want = {path: (s.shape if len(s.shape) < 2 else
+                   s.shape[:1] + (batch,) + s.shape[2:], s.dtype)
+            for path, s in tree_items(shapes)}
+    if got != want:
+        raise AssertionError(f"decode state {got}, specs {want}")
+
+
+def decode_shapes(torch, dev, params):
+    """llama3.2-1b at full width through ``launch.steps.build_decode_step``
+    at decode_32k (batch cut to 32) and long_500k, on ``params`` (the
+    weights serve_path drew): each cache filled at random and stepped from
+    near the shape's end with the flash count at 0; then the first layers
+    in float32, card against CPU on one cache.  Returns 0, the flash
+    launches of its steps."""
+    from repro_torch.configs import INPUT_SHAPES, get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.steps import build_decode_step
+    from repro_torch.models import get_model_api
+
+    arch = get_arch(DECODE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for shape in ("decode_32k", "long_500k"):
+        step, state_shapes, tok_shape = build_decode_step(arch, shape)
+        cfg = arch.model_for_shape(shape)
+        shp = INPUT_SHAPES[shape]
+        B, n_steps = DECODE_BATCH[shape], DECODE_STEPS[shape]
+        api = get_model_api(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = api.init_decode_state(B, shp["seq_len"], dev)
+        decode_state_check(state, state_shapes, B)
+        for t in state["caches"].values():
+            t.normal_(generator=gen)
+        state["index"].fill_(DECODE_START[shape])
+        toks = torch.randint(0, cfg.vocab, (B, n_steps), generator=gen,
+                             device=dev, dtype=torch.int32)
+        flash_attention.launches = 0
+        walls, finite = [], True
+        for i in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, state = step(params, state, toks[:, i:i + 1])
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            finite = finite and bool(torch.isfinite(logits).all())
+        launches = flash_attention.launches
+        slots = state["caches"]["k"].shape[2]
+        row = dict(arch=DECODE_ARCH, shape=shape, batch=B,
+                   shape_batch=shp["global_batch"],
+                   tok_shape=list(tok_shape.shape), seq_len=shp["seq_len"],
+                   window=cfg.long_context_window, cache_slots=slots,
+                   cache_gb=sum(t.numel() * t.element_size()
+                                for t in state["caches"].values()) / 1e9,
+                   start_index=DECODE_START[shape], steps=n_steps,
+                   last_index=int(state["index"]) - 1,
+                   first_slot=DECODE_START[shape] % slots,
+                   last_slot=(int(state["index"]) - 1) % slots,
+                   flash_launches=launches, logits_finite=finite,
+                   ms_per_step_median=sorted(walls)[n_steps // 2],
+                   ms_per_step_runs=walls,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        row["tokens_per_s"] = B / (row["ms_per_step_median"] / 1e3)
+        del state, logits
+        torch.cuda.empty_cache()
+
+        # the first layers in float32 on one cache, card against CPU
+        cfg2 = cfg.replace(n_layers=DECODE_F32_LAYERS, dtype="float32")
+        api2 = get_model_api(cfg2)
+        p32 = _tree_to(first_layers(params, DECODE_F32_LAYERS),
+                       torch.float32)
+        B2 = DECODE_F32_BATCH[shape]
+        card = api2.init_decode_state(B2, shp["seq_len"], dev)
+        for t in card["caches"].values():
+            t.normal_(generator=gen)
+        card["index"].fill_(DECODE_START[shape])
+        cpu = _tree_to(card, "cpu")
+        p_cpu = _tree_to(p32, "cpu")
+        toks = torch.randint(0, cfg.vocab, (B2, n_steps), generator=gen,
+                             device=dev, dtype=torch.int32)
+        err = scale = 0.0
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            got, card = api2.decode_step(p32, card, toks[:, i:i + 1])
+            want, cpu = api2.decode_step(p_cpu, cpu, toks[:, i:i + 1].cpu())
+            err = max(err, float((got.cpu() - want).abs().max()))
+            scale = max(scale, float(want.abs().max()))
+        cache_err = max(float((card["caches"][k].cpu()
+                               - cpu["caches"][k]).abs().max())
+                        for k in ("k", "v"))
+        row["f32_check"] = dict(layers=DECODE_F32_LAYERS, batch=B2,
+                                steps=n_steps, logits_max_abs_err=err,
+                                logit_scale=scale,
+                                cache_max_abs_err=cache_err,
+                                wall_s=time.perf_counter() - t0)
+        del card, cpu, p32, p_cpu
+        torch.cuda.empty_cache()
+        emit(dict(phase="decode_shapes", **row))
+        if (launches != 0 or not finite or not err <= F32_LOGIT_TOL
+                or not cache_err <= F32_LOGIT_TOL):
+            raise AssertionError(f"decode_shapes {shape}: {row}")
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -4111,10 +4437,15 @@ def main(argv) -> int:
     t_attn = phase("flash_timing", time_flash_attention, torch, dev)
     bwd_err = phase("flash_backward", check_flash_backward, torch, dev)
     t_bwd = phase("flash_bwd_timing", time_flash_backward, torch, dev)
-    flash_by_path = {"serve_path": phase("serve_path", serve_path, torch,
-                                         dev, t_attn["ms"])}
+    serve_launches, llama = phase("serve_path", serve_path, torch, dev,
+                                  t_attn["ms"])
+    flash_by_path = {"serve_path": serve_launches,
+                     "decode_shapes": phase("decode_shapes", decode_shapes,
+                                            torch, dev, llama)}
+    del llama
     for name, fn in (("dense_path", dense_path), ("moe_path", moe_path),
-                     ("hybrid_path", hybrid_path), ("vlm_path", vlm_path)):
+                     ("hybrid_path", hybrid_path), ("vlm_path", vlm_path),
+                     ("audio_path", audio_path)):
         flash_by_path[name] = phase(name, fn, torch, dev)
     zoo = phase("zoo_train", zoo_train, torch, dev)
     flash_by_path["zoo_train"] = zoo["flash_attention"]
@@ -4179,7 +4510,7 @@ def main(argv) -> int:
                  "bound_by", "library_ms", "library", "sdpa_mask_ms")
                  if k in t_attn[f"at_{a}"]}
                 for a in ("gemma", "mixtral", "grok", "recurrentgemma",
-                          "llava")}),
+                          "llava", "whisper_encoder", "whisper_cross")}),
         dict(name="flash_attention_bwd", route="cuda",
              source=src + "flash_attention_bwd.cu",
              replaces="src/repro/models/layers.py:157",

@@ -5,26 +5,23 @@ Each ``repro_torch/configs/<arch>.py`` exposes ``SPEC: ArchSpec`` with
   * the exact full-size ModelConfig of the JAX package,
   * the federated execution mode (``FedExec``, parallel or sequential
     cohort),
+  * per-input-shape applicability (long_500k needs sub-quadratic
+    attention, or the documented sliding-window variant),
   * a reduced smoke variant for CPU tests.
-
-The train and prefill input shapes are ported.  The decode shapes
-(``decode_32k``, ``long_500k``) and the long-context variants come with
-``build_decode_step``: ROADMAP.md queue 1 item 12 step 6.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 from ..models.layers import ModelConfig
 
 INPUT_SHAPES: Dict[str, dict] = {
     "train_4k":    dict(kind="train",   seq_len=4_096,   global_batch=256),
     "prefill_32k": dict(kind="prefill", seq_len=32_768,  global_batch=32),
+    "decode_32k":  dict(kind="decode",  seq_len=32_768,  global_batch=128),
+    "long_500k":   dict(kind="decode",  seq_len=524_288, global_batch=1),
 }
-
-# the JAX package's other input shapes: ROADMAP.md queue 1 item 12 step 6
-DEFERRED_SHAPES = ("decode_32k", "long_500k")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,18 +57,20 @@ class ArchSpec:
     long_context_window: int = 8192
     notes: str = ""
 
-    def model_for_shape(self, shape_name: str) -> ModelConfig:
-        """ModelConfig of an input shape: the full model for the train and
-        prefill shapes; the decode shapes raise ``NotImplementedError``
-        naming their ROADMAP.md item, and any other name ``KeyError``."""
-        if shape_name in DEFERRED_SHAPES:
-            raise NotImplementedError(
-                f"input shape {shape_name!r} is not ported to repro_torch "
-                f"yet (ROADMAP.md queue 1 item 12 step 6)")
+    def model_for_shape(self, shape_name: str) -> Optional[ModelConfig]:
+        """ModelConfig of an input shape (None: the arch skips it), as the
+        JAX package's: the full model, except at ``long_500k``, where a
+        ``swa_variant`` arch takes ``long_context_window`` and a ``skip``
+        arch gives None.  An unknown name raises ``KeyError``."""
         if shape_name not in INPUT_SHAPES:
             raise KeyError(f"unknown input shape {shape_name!r}; known: "
                            f"{sorted(INPUT_SHAPES)}")
-        return self.model
+        if shape_name != "long_500k" or self.long_context == "native":
+            return self.model
+        if self.long_context == "swa_variant":
+            return self.model.replace(
+                long_context_window=self.long_context_window)
+        return None
 
     def supported_shapes(self):
-        return list(INPUT_SHAPES)
+        return [s for s in INPUT_SHAPES if self.model_for_shape(s) is not None]

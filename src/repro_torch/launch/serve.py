@@ -11,6 +11,7 @@ architecture — the deployment path of the federated global model (port of
   python -m repro_torch.launch.serve --arch grok-1-314b [--full]
   python -m repro_torch.launch.serve --arch recurrentgemma-2b [--full]
   python -m repro_torch.launch.serve --arch llava-next-34b [--full]
+  python -m repro_torch.launch.serve --arch whisper-small [--full]
 
 The smoke config is the default (``--smoke`` spells it out); ``--full``
 serves the full-width config (mixtral-8x22b's 281 GB and grok-1-314b's
@@ -23,7 +24,10 @@ the weights are random from the same seed (``transformer.init_params``).
 Decode steps a KV cache (dense, moe: each token routed to its experts;
 vlm: text only, as the JAX package serves it), the O(1) recurrent state
 (mamba2) or both (recurrentgemma: the RG-LRU state, and the local
-attention's cache, a ring of its window once ``max_len`` reaches it); no
+attention's cache, a ring of its window once ``max_len`` reaches it);
+whisper's decoder steps its self-attention cache against the cross K/V
+that ``encdec.prefill`` computes once from the stub frames (drawn from
+the seed's second key, float32 cast to the model's dtype).  No
 full-sequence kernel (flash attention, ssd_chunk) runs.
 """
 from __future__ import annotations
@@ -51,10 +55,14 @@ class ServeResult:
 
 def serve_config(arch_id: str, smoke: bool = True, n_layers=None):
     """The config :func:`serve` runs: the arch's smoke or full config, cut
-    to its first ``n_layers`` layers when given."""
+    to its first ``n_layers`` layers when given (an encoder-decoder's
+    encoder too)."""
     arch = get_arch(arch_id)
     cfg = arch.smoke_model if smoke else arch.model
-    return cfg.replace(n_layers=n_layers) if n_layers else cfg
+    if not n_layers:
+        return cfg
+    enc = {"n_enc_layers": n_layers} if cfg.n_enc_layers else {}
+    return cfg.replace(n_layers=n_layers, **enc)
 
 
 def serve(arch_id: str, batch: int = 4, prompt_len: int = 16,
@@ -73,10 +81,15 @@ def serve(arch_id: str, batch: int = 4, prompt_len: int = 16,
     cfg = serve_config(arch_id, smoke, n_layers)
     api = get_model_api(cfg)
     # (params, audio frames, prompt) keys, as the JAX package splits them
-    _, _, k_prompt = jr.split(jr.PRNGKey(seed, device=device), 3)
+    _, k_frames, k_prompt = jr.split(jr.PRNGKey(seed, device=device), 3)
     if params is None:
         params = serve_params(arch_id, seed, smoke, device, n_layers)
     state = api.init_decode_state(batch, max_len, device)
+    if cfg.family == "audio":
+        frames = jr.normal(k_frames, (batch, cfg.enc_seq, cfg.d_model))
+        state = api.module.prefill(cfg, params,
+                                   {"frames": frames.to(cfg.torch_dtype)},
+                                   state)
     prompt = jr.randint(k_prompt, (batch, prompt_len), 0, cfg.vocab)
 
     # prefill by stepping the prompt (cache-consistent by construction)

@@ -1,7 +1,14 @@
-"""The train and prefill programs of an (arch x input shape) pair (port of
-``repro.launch.steps``), on one card: no mesh and no shardings.  The
-shardings of ``build_train_step`` and ``build_decode_step`` are ROADMAP.md
-queue 1 item 11; the decode shapes, item 12 step 6.
+"""The programs of an (arch x input shape) pair (port of
+``repro.launch.steps``), one a kind of shape:
+
+  train   — the F3AST federated round (``build_train_step``)
+  prefill — full-sequence forward, last-position logits
+            (``build_prefill_step``)
+  decode  — one serve step against the KV caches or recurrent state
+            (``build_decode_step``)
+
+``build_step`` dispatches by the shape's kind.  All run on one card: no
+mesh and no shardings (ROADMAP.md queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -21,8 +28,10 @@ def check_trainable(cfg, device=None) -> None:
     the ssm family on a CUDA device, whose ``ssd_chunk`` kernel has no
     backward yet (ROADMAP.md queue 1 item 15).  On the CPU it trains on
     the plain path.  The other families train on both: their attention's
-    gradient is the flash_attention_bwd kernel, and the hybrid's RG-LRU
-    is plain torch.  Decided before anything is built."""
+    gradient is the flash_attention_bwd kernel (held on the card at each
+    family's layers, whisper's non-causal encoder and cross-attention
+    among them), and the hybrid's RG-LRU is plain torch.  Decided before
+    anything is built."""
     on_cuda = torch.device("cuda" if device is None else device).type \
         == "cuda"
     if cfg.family == "ssm" and on_cuda:
@@ -45,7 +54,8 @@ def build_train_step(arch: ArchSpec, shape_name: str, device=None):
     ``{"tokens": ShapeDtype((K, E, B, S), torch.int32)}``.  ``device``
     (default CUDA) is where the round will run; only the refusal of
     :func:`check_trainable` reads it.  A vlm's batch also holds its
-    ``patch_embeds`` (``specs.cohort_batch_specs``)."""
+    ``patch_embeds``, the audio family's its ``frames``
+    (``specs.cohort_batch_specs``)."""
     cfg = arch.model_for_shape(shape_name).replace(remat=arch.fed.remat)
     check_trainable(cfg, device)
     batch_shapes = S.cohort_batch_specs(arch, shape_name)
@@ -58,16 +68,53 @@ def build_train_step(arch: ArchSpec, shape_name: str, device=None):
     return fed_round, opt, batch_shapes
 
 
+_STEP_FNS = {"train": "build_train_step", "prefill": "build_prefill_step",
+             "decode": "build_decode_step"}
+
+
+def _check_kind(shape_name: str, kind: str) -> None:
+    got = INPUT_SHAPES.get(shape_name, {}).get("kind")
+    if got != kind:
+        names = sorted(n for n, s in INPUT_SHAPES.items()
+                       if s["kind"] == kind)
+        where = (f"; {shape_name!r} is a {got} shape: {_STEP_FNS[got]}"
+                 if got else "")
+        raise ValueError(f"the {kind} shapes are {names}{where}")
+
+
 def build_prefill_step(arch: ArchSpec, shape_name: str):
     """Returns ``(prefill, batch_shapes)``: ``prefill(params, batch)`` gives
     the last position's logits (B, 1, V), and ``batch_shapes`` is
     ``{"tokens": ShapeDtype((B, S), torch.int32)}``, with a vlm's
-    ``patch_embeds`` (``specs.prefill_batch_specs``)."""
-    if INPUT_SHAPES.get(shape_name, {}).get("kind") != "prefill":
-        names = sorted(n for n, s in INPUT_SHAPES.items()
-                       if s["kind"] == "prefill")
-        raise ValueError(f"{shape_name!r}: the prefill shapes are {names} "
-                         f"(decode with shardings: ROADMAP.md queue 1 "
-                         f"item 11)")
-    api = get_model_api(arch.model)
+    ``patch_embeds`` or the audio family's ``frames``
+    (``specs.prefill_batch_specs``)."""
+    _check_kind(shape_name, "prefill")
+    api = get_model_api(arch.model_for_shape(shape_name))
     return api.prefill, S.prefill_batch_specs(arch, shape_name)
+
+
+def build_decode_step(arch: ArchSpec, shape_name: str):
+    """Returns ``(decode_step, state_shapes, tok_shape)`` at a decode
+    shape: ``decode_step(params, state, tok)`` -> (logits (B, 1, V),
+    state), the model's ``decode_step`` for ``arch.model_for_shape``
+    (at ``long_500k`` a ``swa_variant`` arch's attention is a ring of
+    ``long_context_window`` slots); the state's shapes and dtypes
+    (``specs.decode_state_specs``, nothing allocated) and the token's,
+    (B, 1) int32.  An arch that skips the shape raises ``ValueError``."""
+    _check_kind(shape_name, "decode")
+    state_shapes = S.decode_state_specs(arch, shape_name)
+    api = get_model_api(arch.model_for_shape(shape_name))
+    return (api.decode_step, state_shapes,
+            S.decode_tok_specs(arch, shape_name))
+
+
+def build_step(arch: ArchSpec, shape_name: str, device=None):
+    """Dispatch by the shape's kind: ``build_train_step(arch,
+    shape_name, device)``, ``build_prefill_step`` or
+    ``build_decode_step``."""
+    kind = INPUT_SHAPES[shape_name]["kind"]
+    if kind == "train":
+        return build_train_step(arch, shape_name, device)
+    if kind == "prefill":
+        return build_prefill_step(arch, shape_name)
+    return build_decode_step(arch, shape_name)

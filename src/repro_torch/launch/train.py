@@ -28,9 +28,9 @@ architecture's smoke config (:func:`run_arch_smoke`, as the JAX CLI does;
   python -m repro_torch.launch.train --arch llama3.2-1b --smoke --device cpu
 
 What the port lacks fails before anything runs, with
-``NotImplementedError`` naming its ROADMAP.md queue 1 item: the
-architectures not ported yet (item 12), the ssm family's training on CUDA
-(item 15) and ``--mesh-shape C,M`` (the (clients, model) mesh, item 11).
+``NotImplementedError`` naming its ROADMAP.md queue 1 item: the ssm
+family's training on CUDA (item 15) and ``--mesh-shape C,M`` (the
+(clients, model) mesh, item 11).
 """
 from __future__ import annotations
 
@@ -95,14 +95,16 @@ def run_federated(task_id: str = "synthetic11", algo_name: str = "f3ast",
 
 def federated_rounds(fed_round, params, opt_state, key, *, vocab: int,
                      shape, rounds: int, n_clients: int = 16,
-                     client_lr: float = 1e-2, patches=None):
+                     client_lr: float = 1e-2, embeds=None):
     """The round loop of :func:`run_arch_smoke`: f3ast over ``n_clients``
     equally weighted ``scarce`` (q = 0.5) clients with K_t = K, a
     ``randint`` cohort batch of ``shape`` = (K, E, B, S) tokens a round and
-    the key split five ways a round, as JAX's loop.  ``patches`` =
-    (n_patches, vit_dim) adds a vlm's patch embeddings (K, E, B,
-    n_patches, vit_dim), float32 from the round's fifth key: JAX's draw
-    for a float32 model, as the smoke configs are.  ``key`` is the key
+    the key split five ways a round, as JAX's loop.  ``embeds`` = (name,
+    trailing shape) adds a batch entry (K, E, B) + trailing shape,
+    float32 from the round's fifth key (JAX's draw for a float32 model,
+    as the smoke configs are): a vlm's ("patch_embeds", (n_patches,
+    vit_dim)), the audio family's ("frames", (enc_seq, d_model)).
+    ``key`` is the key
     the parameters were drawn from.  Yields ``(t, mask, metrics,
     opt_state)`` after each round: the selection mask, the round's
     ``RoundMetrics`` and the server optimizer's new state (Adam's first
@@ -124,9 +126,9 @@ def federated_rounds(fed_round, params, opt_state, key, *, vocab: int,
         sel_ids = np.flatnonzero(sel.cpu().numpy())
         ids = (list(sel_ids) + [int(sel_ids[0])] * K)[:K]
         batch = {"tokens": jr.randint(kb, tuple(shape), 0, vocab)}
-        if patches is not None:
-            batch["patch_embeds"] = jr.normal(kb_aux,
-                                              tuple(shape[:3]) + patches)
+        if embeds is not None:
+            name, tail = embeds
+            batch[name] = jr.normal(kb_aux, tuple(shape[:3]) + tuple(tail))
         w = w_full[torch.as_tensor(ids, device=device)]
         params, opt_state, m = fed_round(params, opt_state, batch, w,
                                          client_lr)
@@ -150,10 +152,12 @@ def run_arch_smoke(arch_id: str, rounds: int = 3, seed: int = 0,
     opt = make_optimizer("adam", lr=1e-3)
     fed_round = make_fed_round(api.loss_fn, opt, mode="parallel")
     losses = []
-    patches = (cfg.n_patches, cfg.vit_dim) if cfg.family == "vlm" else None
+    embeds = {"vlm": ("patch_embeds", (cfg.n_patches, cfg.vit_dim)),
+              "audio": ("frames", (cfg.enc_seq, cfg.d_model))
+              }.get(cfg.family)
     loop = federated_rounds(fed_round, params, opt.init(params), key,
                             vocab=cfg.vocab, shape=(4, 2, 2, 64),
-                            rounds=rounds, patches=patches)
+                            rounds=rounds, embeds=embeds)
     for t, _, m, _ in loop:
         losses.append(float(m.loss))
         log_fn(f"[{arch_id}-smoke] round {t} loss={losses[-1]:.4f}")

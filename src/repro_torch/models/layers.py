@@ -117,11 +117,13 @@ def rotary(x: torch.Tensor, positions: torch.Tensor,
     """x: (..., S, H, hd); positions: broadcastable to (..., S).  The
     frequencies are computed in the JAX package's order,
     ``1 / theta ** (arange(0, hd, 2) / hd)`` in float32, which gives its
-    angles bit for bit."""
+    angles bit for bit.  They are computed on the CPU and copied to x's
+    device: the card's ``powf`` rounds up to 2 ulps apart, and at
+    position 32,760 one ulp of a frequency moves an angle by ~2e-3."""
     hd = x.shape[-1]
-    exps = torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                         device=x.device), exps)
+    exps = torch.arange(0, hd, 2, dtype=torch.float32) / hd
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exps)
+    freqs = freqs.to(x.device, non_blocking=True)
     ang = positions[..., None].to(torch.float32) * freqs     # (..., S, hd/2)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)

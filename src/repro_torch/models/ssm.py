@@ -185,12 +185,21 @@ def mamba2_decode(p, x_t: torch.Tensor, cfg: ModelConfig, state):
 _RG_C = 8.0
 
 
+# Above this many lanes XLA:CPU's vectorised loop for ``jnp.linspace`` also
+# fuses ``1 - i * r`` into an FMA, except in the last lanes that its
+# 32-lane vector loop leaves to scalar code.
+_LINSPACE_FUSED_ABOVE = 352
+
+
 def _xla_linspace(start: float, stop: float, n: int, device) -> torch.Tensor:
     """``jnp.linspace(start, stop, n)`` in float32 as XLA:CPU rounds it:
     ``start * (1 - i * r) + i * (stop * r)`` with r = float32(1 / (n - 1)),
-    the last add fused into an FMA, and ``stop`` itself last.  (Above 256
-    lanes XLA:CPU's vectorised loop also fuses ``1 - i * r``, so JAX's own
-    lanes there depend on its code generation.)"""
+    the last add fused into an FMA, and ``stop`` itself last.  Above
+    _LINSPACE_FUSED_ABOVE lanes, ``1 - i * r`` is fused too, fma(-i, r, 1),
+    in lanes i < 32 * floor((n - 1) / 32).  Against jnp.linspace(0.9,
+    0.999, n) on jax 0.9.0: bitwise at every n < 2,700 but 12, 14, 15 and
+    26, and at every 37th width from 2,700 to 4,439; above that some
+    widths (4,476, 4,550, 5,000, ...) take another code path."""
     f32 = dict(dtype=torch.float32, device=device)
     s, e = torch.tensor(start, **f32), torch.tensor(stop, **f32)
     if n == 1:
@@ -198,7 +207,11 @@ def _xla_linspace(start: float, stop: float, n: int, device) -> torch.Tensor:
     div = n - 1
     r = torch.tensor(1.0 / div, **f32)
     i = torch.arange(div, **f32)
-    head = xla_math.fma(i, (e * r).expand(div), s * (1.0 - i * r))
+    one_minus = 1.0 - i * r
+    if n > _LINSPACE_FUSED_ABOVE:
+        cut = 32 * (div // 32)
+        one_minus[:cut] = xla_math.fma(-i[:cut], r.expand(cut), 1.0)
+    head = xla_math.fma(i, (e * r).expand(div), s * one_minus)
     return torch.cat([head, e.reshape(1)])
 
 

@@ -18,8 +18,7 @@ only.
     decode_step(cfg, params, state, tok_t)        -> (logits, state)
     prefill(cfg, params, batch)                   -> last-position logits
 
-The audio family raises ``NotImplementedError`` naming its ROADMAP.md
-item.
+The audio family (whisper's encoder-decoder) is ``encdec``'s.
 """
 from __future__ import annotations
 
@@ -39,17 +38,17 @@ from .layers import (ModelConfig, _gelu, _normal, attention_block,
                      sqrt_f32)
 from .losses import fused_unembed_xent
 
-# the JAX package's other family: ROADMAP.md queue 1 item 12
-DEFERRED_FAMILIES = ("audio",)
+# families of the JAX package not ported yet: none (audio is encdec's)
+DEFERRED_FAMILIES = ()
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 _MLPS = ("swiglu", "geglu", "gelu", "moe")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this port does not run yet:
-    the audio family (whisper's encoder-decoder)."""
-    lookup("family", cfg.family, _FAMILIES, DEFERRED_FAMILIES, 12)
-    lookup("mlp", cfg.mlp, _MLPS, (), 12)
+    """Raise ``KeyError`` for a family or an MLP this module does not
+    build (the audio family is ``encdec``'s)."""
+    lookup("family", cfg.family, _FAMILIES, DEFERRED_FAMILIES)
+    lookup("mlp", cfg.mlp, _MLPS)
 
 
 # ---------------------------------------------------------------------------

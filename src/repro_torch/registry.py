@@ -4,8 +4,8 @@ from __future__ import annotations
 from typing import Container, Mapping
 
 
-def lookup(kind: str, name: str, registry: Mapping, deferred: Container,
-           item: int) -> str:
+def lookup(kind: str, name: str, registry: Mapping,
+           deferred: Container = (), item: int = 0) -> str:
     """The registry key for ``name``.  A name the JAX package has but this
     port does not yet raises ``NotImplementedError`` naming its ROADMAP.md
     queue 1 item; an unknown name raises ``KeyError`` listing the known."""

@@ -411,11 +411,12 @@ _POW_UFLOW = -150.0
 _POW_OFLOW = float.fromhex("0x1.fffffffd1d571p+6")
 
 
-def _powf(x: torch.Tensor, y: float) -> torch.Tensor:
+def _powf(x: torch.Tensor, y) -> torch.Tensor:
     """glibc's ``powf(x, y)`` for a float32 tensor x >= 0 and a finite,
-    nonzero float32 exponent y (a Python float): log2(x) in float64 over
-    the interval table, times y, then exp2 over its table; subnormal
-    arguments and results as under XLA's flushed denormals."""
+    nonzero float32 exponent y (a Python float, or a float32 tensor that
+    broadcasts against x): log2(x) in float64 over the interval table,
+    times y, then exp2 over its table; subnormal arguments and results as
+    under XLA's flushed denormals."""
     dev = x.device
     ix = x.view(torch.int32).to(torch.int64) & _M32
     # a subnormal x is normalised as bits(x * 2^23) - (23 << 23), and the
@@ -435,7 +436,7 @@ def _powf(x: torch.Tensor, y: float) -> torch.Tensor:
     q = _fma64(r, _POW_A[4], y0)
     q = _fma64(r2, p, q)
     logx = _fma64(yy, r2 * r2, q)
-    ylogx = logx * f32(y)
+    ylogx = logx * (y.to(_F64) if torch.is_tensor(y) else f32(y))
     # exp2: ylogx = m/32 + r, 2^(m/32) from the table and the exponent
     kd = (ylogx + _EXP2_SHIFT) - _EXP2_SHIFT
     r = ylogx - kd
@@ -450,17 +451,26 @@ def _powf(x: torch.Tensor, y: float) -> torch.Tensor:
     big = ylogx > _POW_OFLOW
     out = torch.where(ylogx <= _POW_UFLOW, 0.0, out)
     out = torch.where(big, math.inf, out)
-    out = torch.where(zero, 0.0 if y > 0 else math.inf, out)
-    out = torch.where(x == math.inf, math.inf if y > 0 else 0.0, out)
+    pos = y > 0
+    if torch.is_tensor(y):
+        out = torch.where(zero & pos, 0.0, torch.where(zero, math.inf, out))
+        out = torch.where((x == math.inf) & pos, math.inf,
+                          torch.where(x == math.inf, 0.0, out))
+    else:
+        out = torch.where(zero, 0.0 if pos else math.inf, out)
+        out = torch.where(x == math.inf, math.inf if pos else 0.0, out)
     return torch.where(torch.isnan(x) | (x < 0), math.nan, out)
 
 
-def pow(x: torch.Tensor, y: float) -> torch.Tensor:
+def pow(x: torch.Tensor, y) -> torch.Tensor:
     """XLA:CPU's float32 ``x ** y`` for a float32 tensor x >= 0 and a
     Python float y, as ``jnp`` traces it (``pow`` with a constant
     exponent).  XLA's simplifier rewrites y = 0, 1, 2, 3, -1 and 0.5 into
     1, x, x·x, x·x·x, 1/x and sqrt(x); every other y calls glibc's
-    ``powf``."""
+    ``powf``.  A float32 tensor y (an exponent computed at run time,
+    finite and nonzero) always calls ``powf``."""
+    if torch.is_tensor(y):
+        return _powf(x, y)
     y = f32(y)
     if y == 0.0:
         return torch.ones_like(x)

@@ -1,17 +1,20 @@
 """The model zoo's federated round against the JAX package, on the CPU.
 
-* Configs: ``FedExec``, ``INPUT_SHAPES["train_4k"]`` and each ported
-  arch's ``fed=`` and long-context fields are JAX's field for field; the
-  decode shapes raise naming their ROADMAP.md item.
-* ``launch.specs``: ``count_params`` of the nine full configs and
+* Configs: ``FedExec``, ``INPUT_SHAPES["train_4k"]`` and each
+  arch's ``fed=`` and long-context fields are JAX's field for field, and
+  so is ``model_for_shape`` at every shape (the decode shapes' are held
+  further in ``tests/test_torch_decode_shapes.py``).
+* ``launch.specs``: ``count_params`` of the ten full configs and
   ``param_specs`` of the smoke configs are JAX's, and so are the batch
-  specs (a vlm's ``patch_embeds`` and shortened text among them).
+  specs (a vlm's ``patch_embeds`` and shortened text, whisper's
+  ``frames`` among them).
 * ``loss_fn`` (fused unembedding CE, per-layer remat) and its gradient for
   the smoke configs of llama3.2-1b, qwen3-8b, qwen3-14b, gemma-7b and
   mamba2-2.7b, from JAX's weights, within 1e-5.
 * ``run_arch_smoke`` (llama3.2-1b, mamba2-2.7b, mixtral-8x22b,
-  grok-1-314b, recurrentgemma-2b, llava-next-34b: its patch embeddings
-  drawn from the round's fifth key, bitwise JAX's): 3 rounds on the CPU
+  grok-1-314b, recurrentgemma-2b, llava-next-34b and whisper-small: their
+  patch embeddings and frames drawn from the round's fifth key, bitwise
+  JAX's): 3 rounds on the CPU
   against JAX's, masks bitwise and
   losses within 1e-5 relative.  The losses depart by ~2e-7 relative after
   Adam's first server step, which moves coordinates whose Δ is within
@@ -50,10 +53,12 @@ from repro_torch.models import get_model_api  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 ARCHS = ["llama3.2-1b", "qwen3-8b", "qwen3-14b", "gemma-7b", "mamba2-2.7b"]
-# the moe, hybrid and vlm archs: their loss_fn and gradient are held in
-# test_torch_moe.py, test_torch_hybrid.py and test_torch_vlm.py
+# the moe, hybrid, vlm and audio archs: their loss_fn and gradient are
+# held in test_torch_moe.py, test_torch_hybrid.py, test_torch_vlm.py and
+# test_torch_encdec.py
 MOE = ["mixtral-8x22b", "grok-1-314b"]
 HYBRID_VLM = ["recurrentgemma-2b", "llava-next-34b"]
+AUDIO = ["whisper-small"]
 TOL = 1e-5
 LOSS_RTOL = 1e-5
 
@@ -79,7 +84,7 @@ def _close(got, want, tol=TOL):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ARCHS + MOE + HYBRID_VLM)
+@pytest.mark.parametrize("arch", ARCHS + MOE + HYBRID_VLM + AUDIO)
 def test_fed_exec_and_train_shape_field_for_field(arch):
     jspec, tspec = jconfigs.get_arch(arch), tconfigs.get_arch(arch)
     assert dataclasses.asdict(tspec.fed) == dataclasses.asdict(jspec.fed)
@@ -90,10 +95,12 @@ def test_fed_exec_and_train_shape_field_for_field(arch):
     assert (dataclasses.asdict(tspec.model_for_shape("train_4k"))
             == dataclasses.asdict(jspec.model_for_shape("train_4k")))
     assert tspec.fed.local_batch_for(256) == jspec.fed.local_batch_for(256)
-    assert set(tspec.supported_shapes()) == {"train_4k", "prefill_32k"}
+    assert tspec.supported_shapes() == jspec.supported_shapes()
     for shape in ("decode_32k", "long_500k"):
-        with pytest.raises(NotImplementedError, match="item 12 step 6"):
-            tspec.model_for_shape(shape)
+        want = jspec.model_for_shape(shape)
+        got = tspec.model_for_shape(shape)
+        assert (None if got is None else dataclasses.asdict(got)) \
+            == (None if want is None else dataclasses.asdict(want))
 
 
 def test_fed_exec_defaults_are_jax():
@@ -104,7 +111,7 @@ def test_fed_exec_defaults_are_jax():
         == [f.name for f in dataclasses.fields(JFedExec)]
 
 
-@pytest.mark.parametrize("arch", ARCHS + MOE + HYBRID_VLM)
+@pytest.mark.parametrize("arch", ARCHS + MOE + HYBRID_VLM + AUDIO)
 def test_specs_match_jax(arch):
     jspec, tspec = jconfigs.get_arch(arch), tconfigs.get_arch(arch)
     assert (tspecs.count_params(tspec.model)
@@ -180,7 +187,7 @@ def _recording(make_strategy, masks):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b", *MOE,
-                                  *HYBRID_VLM])
+                                  *HYBRID_VLM, *AUDIO])
 def test_run_arch_smoke_matches_jax(arch, monkeypatch):
     jmasks, tmasks = [], []
     monkeypatch.setattr(jtrain, "make_strategy",

@@ -321,6 +321,36 @@ def test_flash_attention_groups_of_10_and_7(dev, shape, dtype, tol):
         assert _lanes_over_one_bf16_step(got, want) == 0
 
 
+# whisper-small's attention layers at B = 1, (Sq, Skv, causal): the encoder
+# over its 1,500 frames (a ragged edge), the decoder's self-attention at
+# its target length of 448 and its cross-attention, 448 queries over the
+# 1,500 frames
+WHISPER_ATTN = [(1500, 1500, False), (448, 448, True), (448, 1500, False)]
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("sq,skv,causal", WHISPER_ATTN)
+def test_flash_attention_whisper_layers(dev, sq, skv, causal, dtype, tol):
+    """whisper's 12 heads on 12 KV heads at hd 64, non-causal with
+    Sq != Skv among them, against the plain version."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    rng = np.random.default_rng(sq + skv)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(getattr(torch, dtype)).to(dev)
+               for s in ((1, sq, 12, 64), (1, skv, 12, 64), (1, skv, 12, 64)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = ref.sdpa(q, k, v, causal=causal)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+    if dtype == "bfloat16":
+        assert _lanes_over_one_bf16_step(got, want) == 0
+
+
 def test_rglru_block_card_matches_cpu(dev):
     """recurrentgemma's RG-LRU block at the smoke widths, S = 1000, float32:
     the card's (its float32 gate GEMMs and scan) within 1e-5 relative of
@@ -365,6 +395,31 @@ def test_hybrid_and_vlm_smoke_prefill_card_matches_cpu(dev, arch):
                                atol=1e-4)
 
 
+def test_whisper_smoke_prefill_card_matches_cpu(dev):
+    """The encoder-decoder's smoke prefill through the kernel (one launch
+    an encoder layer, two a decoder layer) against the same weights' CPU
+    prefill; 32 frames and S = 300."""
+    from repro_torch import random as jr
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import encdec
+    cfg = get_arch("whisper-small").smoke_model
+    params = encdec.init_params(cfg, jr.PRNGKey(0, device="cpu"), "cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (2, 300)).astype(np.int32)),
+        "frames": torch.from_numpy(rng.normal(
+            size=(2, cfg.enc_seq, cfg.d_model)).astype(np.float32))}
+    want = encdec.prefill_logits(cfg, params, batch)
+    before = flash_attention.launches
+    got = encdec.prefill_logits(cfg, _to_dev(params, dev),
+                                _to_dev(batch, dev))
+    assert flash_attention.launches == before + cfg.n_enc_layers \
+        + 2 * cfg.n_layers
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
 # (B, S, H, KV, hd): groups of 1, 4 and 5, head dims 16-256, a ragged S
 BWD_SHAPES = [(2, 128, 2, 2, 32), (1, 1000, 8, 2, 64), (1, 300, 10, 2, 128),
               (1, 200, 4, 2, 256), (2, 96, 4, 1, 16)]
@@ -384,6 +439,15 @@ def test_flash_attention_bwd_kernel_allclose(dev, shape, mode, dtype):
     _check_bwd(dev, shape, mode, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,mode", [((1, 1500, 12, 12, 64), "full"),
+                                        ((1, 448, 12, 12, 64, 1500), "full")])
+def test_flash_attention_bwd_whisper_layers(dev, shape, mode, dtype):
+    """whisper's non-causal layers: the encoder over its 1,500 frames, and
+    the cross-attention, 448 queries over them (Sq != Skv)."""
+    _check_bwd(dev, shape, mode, dtype)
+
+
 def test_flash_attention_bwd_llama_training_layer_bf16(dev):
     """The bf16 (tensor-core) route at llama3.2-1b's training layer,
     (1, 4096, 32, 8, 64) causal, under the same limits."""
@@ -393,13 +457,14 @@ def test_flash_attention_bwd_llama_training_layer_bf16(dev):
 def _check_bwd(dev, shape, mode, dtype):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_bwd
-    B, S, H, KV, hd = shape
+    B, S, H, KV, hd = shape[:5]
+    skv = shape[5] if len(shape) > 5 else S
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(S + hd)
-    q, k, v, do = (torch.from_numpy(rng.normal(size=(B, S, n, hd))
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(B, n_s, n, hd))
                                     .astype(np.float32)).to(dev).to(dt)
-                   for n in (H, KV, KV, H))
-    m = BWD_MODES[mode]
+                   for n_s, n in ((S, H), (skv, KV), (skv, KV), (S, H)))
+    m = dict(BWD_MODES, full=dict(causal=False, window=0, softcap=0.0))[mode]
     o, lse = ref.sdpa_lse(q, k, v, **m)
     before = flash_attention_bwd.launches
     got = flash_attention_bwd(q, k, v, o, lse, do, **m)

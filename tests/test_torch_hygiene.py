@@ -36,7 +36,9 @@ SLICE_MODULES = [
     "repro_torch.configs.qwen3_14b", "repro_torch.configs.gemma_7b",
     "repro_torch.configs.recurrentgemma_2b",
     "repro_torch.configs.llava_next_34b",
+    "repro_torch.configs.whisper_small",
     "repro_torch.models", "repro_torch.models.layers",
+    "repro_torch.models.encdec",
     "repro_torch.models.transformer", "repro_torch.models.ssm",
     "repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd_chunk",
     "repro_torch.launch",

@@ -4,8 +4,9 @@ mixer) against the JAX package, on the CPU, at the smoke config's widths
 
 * ``init_rglru`` byte for byte JAX's (float32 and bfloat16, two seeds, a
   stack of keys), ``lam`` (computed, not drawn) within an ulp; the float32
-  ``linspace`` under it bitwise ``jnp.linspace`` at widths up to 256
-  (above, XLA:CPU's vectorised loop rounds ``1 - i r`` otherwise).
+  ``linspace`` under it bitwise ``jnp.linspace`` at widths up to 256 and
+  at recurrentgemma-2b's 2,560 (above 352 lanes XLA:CPU's vectorised loop
+  fuses ``1 - i r`` too, except in its scalar tail).
 * ``_rglru_gates`` (a; ``gated`` within an ulp of exp through the
   1 - a^2 cancellation) and ``rglru_block`` within 1e-6 relative at
   S = 1, 7, 64 and 1,000; the scan alone is bitwise
@@ -30,6 +31,7 @@ from repro.models import ssm as jssm  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import random as jr  # noqa: E402
 from repro_torch.convert import params_from_numpy, params_to_numpy  # noqa: E402
+from repro_torch.models import layers as tL  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
 
 ARCH = "recurrentgemma-2b"
@@ -103,19 +105,27 @@ def test_init_rglru_bitwise(dtype, seed):
                                 tcfg))
 
 
-@pytest.mark.parametrize("n", (1, 2, 7, 64, 128, 256))
+@pytest.mark.parametrize("n", (1, 2, 7, 64, 128, 256, 2560))
 def test_linspace_bitwise_and_lam_within_an_ulp(n):
     """``lam``'s float32 linspace is bitwise JAX's: near a = 0.999 one ulp
     of x moves lam by ~60 ulps, so a plain ``torch.linspace`` would not
-    do (it differs in ~40% of the lanes)."""
+    do (it differs in ~40% of the lanes).  At 2,560 lanes the fused
+    ``1 - i r`` matters: without it 468 lanes differ and lam by up to 41
+    ulps.  (The drawn leaves are left on the meta device: lam is not
+    drawn.)"""
     want = np.asarray(jnp.linspace(0.9, 0.999, n))
     got = tssm._xla_linspace(0.9, 0.999, n, "cpu").numpy()
     assert got.tobytes() == want.tobytes()
     jlam = jnp.log(jnp.expm1(-jnp.log(jnp.linspace(0.9, 0.999, n))
                              / jssm._RG_C))
-    tlam = tssm.init_rglru(jr.PRNGKey(0, device="cpu"),
-                           SMOKE_T.replace(lru_width=n))["lam"]
+    with tL.shapes_only():
+        tlam = tssm.init_rglru(jr.PRNGKey(0, device="cpu"),
+                               SMOKE_T.replace(lru_width=n))["lam"]
     assert _ulps(tlam.numpy(), np.asarray(jlam)) <= 1
+    if n == 2560:       # recurrentgemma-2b's width, through init_rglru
+        jp = jssm.init_rglru(jax.random.PRNGKey(0),
+                             SMOKE_J.replace(lru_width=n))
+        assert _ulps(tlam.numpy(), np.asarray(jp["lam"])) <= 1
     if n >= 64:
         assert (torch.linspace(0.9, 0.999, n).numpy() != want).any()
 

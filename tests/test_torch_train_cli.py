@@ -2,8 +2,9 @@
 task runs on the CPU from ``--task`` and from a ``--spec`` file, the spec it
 saves is the one the JAX package's CLI builds from the same flags, the
 host loop, buffered, checkpoint and poc flags run, ``--arch`` trains a
-smoke config, and the flags the port lacks raise ``NotImplementedError``
-naming their ROADMAP.md queue 1 item before anything runs."""
+smoke config (whisper-small's encoder-decoder among them), and the flag
+the port lacks (``--mesh-shape C,M``) raises ``NotImplementedError``
+naming its ROADMAP.md queue 1 item before anything runs."""
 import json
 import os
 import subprocess
@@ -62,8 +63,7 @@ def test_spec_file_runs(tmp_path, capsys):
     assert '"engine": "device"' in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--arch", "whisper-small"], 12), (["--mesh-shape", "2,2"], 11)])
+@pytest.mark.parametrize("flags,item", [(["--mesh-shape", "2,2"], 11)])
 def test_unported_flags_raise_naming_their_item(flags, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
         train.main(["--task", "cifar", "--device", "cpu",
@@ -85,6 +85,22 @@ def test_arch_runs_two_rounds_on_the_cpu(capsys):
              if ln.startswith("[llama3.2-1b-smoke] round")]
     assert len(lines) == 2
     assert all(np.isfinite(float(ln.split("loss=")[1])) for ln in lines)
+
+
+def test_audio_arch_runs_on_the_cpu(capsys):
+    """``--arch whisper-small --device cpu --rounds 1``: the encoder-decoder's
+    smoke config trains, its stub frames drawn as JAX's CLI draws them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        train.main(["--arch", "whisper-small", "--device", "cpu",
+                    "--rounds", "1"])
+    finally:
+        torch.set_num_threads(n)
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("[whisper-small-smoke] round")]
+    assert len(lines) == 1
+    assert np.isfinite(float(lines[0].split("loss=")[1]))
 
 
 @pytest.mark.parametrize("flags,engine", [

@@ -132,12 +132,11 @@ def test_configs_equal_field_by_field(arch):
                 == dataclasses.asdict(getattr(jspec, attr)))
     for f in ("arch_id", "source", "notes"):
         assert getattr(tspec, f) == getattr(jspec, f)
-    # the ported (train and prefill) shapes are JAX's, and take the full
-    # model as is
-    assert set(tconfigs.INPUT_SHAPES) == {"prefill_32k", "train_4k"}
-    for shape, spec in tconfigs.INPUT_SHAPES.items():
-        assert spec == jconfigs.INPUT_SHAPES[shape]
-        assert (dataclasses.asdict(tspec.model)
+    # the four input shapes are JAX's, and so is each shape's model (at
+    # long_500k: the full model, or the long_context_window variant)
+    assert tconfigs.INPUT_SHAPES == jconfigs.INPUT_SHAPES
+    for shape in tconfigs.INPUT_SHAPES:
+        assert (dataclasses.asdict(tspec.model_for_shape(shape))
                 == dataclasses.asdict(jspec.model_for_shape(shape)))
     # the defaults of the dataclass too
     assert dataclasses.asdict(tL.ModelConfig()) == dataclasses.asdict(
@@ -160,23 +159,27 @@ def test_full_config_counts_jax_parameters(arch):
 
 
 def test_deferred_archs_raise_naming_their_item():
-    others = sorted(set(jconfigs.ARCHS) - set(DENSE) - set(MOE)
-                    - {"mamba2-2.7b", "recurrentgemma-2b", "llava-next-34b"})
-    assert others == ["whisper-small"]
-    assert sorted(tconfigs.DEFERRED_ARCHS) == others
-    for arch in others:
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            tconfigs.get_arch(arch)
+    """Nothing is deferred any more: every arch of the JAX package
+    resolves, whisper-small (the last, the audio family) among them, to
+    its JAX config field for field; an unknown name raises KeyError."""
+    assert tconfigs.DEFERRED_ARCHS == ()
+    assert sorted(tconfigs.ARCHS) == sorted(jconfigs.ARCHS)
+    for arch in jconfigs.ARCHS:
+        assert (dataclasses.asdict(tconfigs.get_arch(arch).model)
+                == dataclasses.asdict(jconfigs.get_arch(arch).model))
     with pytest.raises(KeyError):
         tconfigs.get_arch("no-such-arch")
 
 
 @pytest.mark.parametrize("arch", ["whisper-small"])
 def test_other_families_raise_before_anything_is_built(arch):
+    """The audio family is ``encdec``'s: ``get_model_api`` dispatches it
+    there, and the decoder-only ``transformer`` refuses it before anything
+    is drawn."""
     cfg = _tcfg(jconfigs.get_arch(arch).smoke_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
-        get_model_api(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
+    assert tT.DEFERRED_FAMILIES == ()
+    assert get_model_api(cfg).module.__name__ == "repro_torch.models.encdec"
+    with pytest.raises(KeyError, match="family 'audio'"):
         tT.init_params(cfg, jr.PRNGKey(0, device="cpu"), device="cpu")
 
 
@@ -342,7 +345,7 @@ def test_prefill_step_matches_jax(smoke_params):
     jt, tt = _tokens(SMOKE_J, 2, 20, 8)
     want = jT.prefill(SMOKE_J, jp, {"tokens": jt})
     assert _max_err(prefill(tp, {"tokens": tt}), want) < 1e-4
-    with pytest.raises(ValueError, match="queue 1 item 11"):
+    with pytest.raises(ValueError, match="build_decode_step"):
         build_prefill_step(arch, "decode_32k")
 
 
