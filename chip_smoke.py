@@ -348,7 +348,30 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  cores) and its plain version at the layer shape, beside
                  the bound (bytes over 3.35 TB/s; the operations needed,
                  over 989 TFLOP/s bf16) and the bf16 route's share of it;
-                 no single PyTorch call computes it;
+                 no single PyTorch call computes it; ``ms`` is one call
+                 at a time through the wrapper, whose autograd Function's
+                 host work the card waits on at this size, ``queued_ms``
+                 ten calls queued back to back (the card's time);
+11a. ``ssd_backward`` holds the backward kernel (``ssd_chunk_bwd``: dx, ddt,
+                 dA, dBm, dCm from the gradients of y, the states and the
+                 decays) against its plain version, the hand-derived
+                 ``ref.ssd_chunk_bwd``, in float32 and bf16 at the forward
+                 phase's shapes, a ragged one with no states or decays
+                 gradient, the strided x of the model, and the training
+                 layer as the cohort folds it (2, 32 chunks, 128, 80, 64),
+                 N = 128, with one A a row: float32 gradients within 1e-4
+                 of the lane plus 1e-4 of the largest magnitude, bf16 ones
+                 within one bf16 step plus the same (SSD_BWD_TOL); each
+                 case run twice, bitwise; at the training layer
+                 ``vmap(grad)`` through ``ssd_chunk`` must equal the
+                 kernel's gradient bit for bit in one backward launch;
+11b. ``ssd_bwd_timing`` median CUDA-event times of the backward at the
+                 training layer (bf16 and float32 inputs) and of its plain
+                 version, beside the bound (its products over the bf16
+                 tensor cores' 989 TFLOP/s, or its bytes; the products
+                 over the float32 CUDA cores' 67, where it runs them,
+                 beside) and each of its four launches' device ms; no
+                 PyTorch call computes it;
 12. ``mamba_path`` drives mamba2-2.7b at full width after llama's weights
                  are freed (its ``init_params`` timed on the card): (a) one
                  ``prefill`` of B = 1, S = 8192 (64
@@ -362,7 +385,20 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  launch no ssd_chunk; (d) at depth 2 in float32,
                  S = 512, the card's prefill within 1e-4 of the CPU's; (e)
                  at depth 2 in float32, S = 128, prefill within 2e-3 of
-                 stepping the prompt through ``decode_step``.
+                 stepping the prompt through ``decode_step``;
+12a. ``zoo_train`` again, for mamba2-2.7b: its first ZOO_DEPTH layers of
+                 mamba_path's weights at full width (d_model 2,560, 80
+                 heads, N = 128, the 50,280-token vocabulary, bf16), K =
+                 2, E = 2, B = 1, S = 4096: one warm-up round and 2
+                 timed, each launching fed_select and fed_aggregate once,
+                 ssd_chunk 2 x depth x E times and ssd_chunk_bwd depth x
+                 E times, with finite losses; the peak memory and a
+                 profiled round whose ssd kernels must be the forward's
+                 tensor-core route and the backward's four kernels at
+                 bf16; then the depth-2 float32 round (K = 2, E = 1, S =
+                 512) against a spawned CPU worker: masks bitwise, loss
+                 and delta norm within ZOO_MAMBA_TOL, the delta's leaves
+                 within ZOO_MAMBA_LEAF_NORM_TOL and ZOO_MAMBA_LEAF_MAX_TOL.
 
 Each phase prints one JSON line (``seconds_by_phase`` their wall times);
 any failure raises (exit status != 0).
@@ -416,8 +452,11 @@ def bound_ms(n_bytes: float, flops: float = 0.0, peak: float = FP32_FLOPS):
                                        else "operations")
 
 
-def cuda_ms(fn, *, warmup: int = 5, runs: int = 25) -> float:
-    """Median over ``runs`` of CUDA-event time of one call, after warm-up."""
+def cuda_ms(fn, *, warmup: int = 5, runs: int = 25, calls: int = 1) -> float:
+    """Median over ``runs`` of CUDA-event time of one call, after warm-up.
+    With ``calls`` > 1, of that many calls queued back to back, over their
+    count: the host's work for a call then overlaps the card's for the one
+    before, so the time is the card's alone where the kernel outlasts it."""
     import torch
     for _ in range(warmup):
         fn()
@@ -427,10 +466,11 @@ def cuda_ms(fn, *, warmup: int = 5, runs: int = 25) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     times.sort()
     return times[len(times) // 2]
 
@@ -1043,25 +1083,31 @@ def paper_task_cells():
     return out
 
 
-def device_profile(torch, fn, steps: int = 1, kernel_name=None):
+def device_profile(torch, fn, steps: int = 1, kernel_name=None,
+                   cpu: bool = True):
     """``fn()`` under torch.profiler, the script's one reading of a trace:
     wall ms, device launches, kernel ms (summed), busy ms (the union of
     the kernels' intervals: cuDNN runs some kernels side by side), idle
     share (1 - busy / wall) and the top kernels, each a step (``fn`` runs
     ``steps`` steps); with ``kernel_name``, the device ms and names of the
-    kernels whose name holds it.  The profiler mirrors
-    ``record_function`` spans onto the GPU timeline; those (``round/*``)
-    are not kernels.  Returns (stats, the profiler)."""
+    kernels whose name holds it; the seconds the trace took to read.  The
+    profiler mirrors ``record_function`` spans onto the GPU timeline;
+    those (``round/*``) are not kernels.  ``cpu=False`` traces the device
+    alone: a round of tens of thousands of launches with its host ops
+    takes over a minute to read back (mamba2's 44-layer round on an H100
+    80GB HBM3's host).
+    Returns (stats, the profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]
+                 + ([ProfilerActivity.CPU] if cpu else [])) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and not e.name.startswith("round/")]
     by_kernel = {}
@@ -1082,7 +1128,8 @@ def device_profile(torch, fn, steps: int = 1, kernel_name=None):
                  device_idle_share=1.0 - busy_us / 1e3 / wall_ms,
                  top_kernels=[dict(name=k[:90], launches_per_step=n / steps,
                                    ms_per_step=us / 1e3 / steps)
-                              for k, (n, us) in top])
+                              for k, (n, us) in top],
+                 trace_read_s=time.perf_counter() - t0)
     if kernel_name is not None:
         named = {k: v for k, v in by_kernel.items() if kernel_name in k}
         stats["kernel_names"] = sorted(named)
@@ -3910,32 +3957,56 @@ def decode_shapes(torch, dev, params):
 # ---------------------------------------------------------------------------
 
 ZOO_ARCH = "llama3.2-1b"
+ZOO_MAMBA = "mamba2-2.7b"
 ZOO_SHAPE = (2, 2, 1, 4096)         # K, E, B, S; FedExec's K = 32, B = 8
-ZOO_ROUNDS = 4                      # the first is the warm-up
+ZOO_ROUNDS = {ZOO_ARCH: 4, ZOO_MAMBA: 3}    # the first is the warm-up
+# mamba2-2.7b's first layers, the deepest whose round stays under ~70 GB
+# of the card's 80 (Adam's float32 moments and two clients' weights,
+# gradients and float32 deltas: 50.95 GB at 32 layers, 1.42 B parameters,
+# ~1.45 GB a layer; 48 layers ran out of memory; NVIDIA H100 80GB HBM3,
+# 700 W); the full 64 layers at K = 2 wait for the model axis (ROADMAP.md
+# queue 1 item 11)
+ZOO_DEPTH = {ZOO_ARCH: None, ZOO_MAMBA: 44}
 ZOO_DEPTH2_SHAPE = (2, 1, 1, 512)   # the card-vs-CPU round, float32
 ZOO_CPU_THREADS = 5
-# The depth-2 round, card against CPU.  The loss and the delta norm,
-# relative: measured equal in every bit (NVIDIA H100 80GB HBM3, 700 W).
-# Each leaf of the delta, a stacked block leaf per layer: its norm,
-# relative (measured at most 3.2e-7), and its largest lane gap over its
-# largest lane (measured at most 5.0e-4, in wq of the last layer, where
-# dS = P (dP - D) cancels).  chip_grad_sensitivity.py shows what they fail.
+# The depth-2 round, card against CPU.  llama3.2-1b: the loss and the
+# delta norm, relative: measured equal in every bit (NVIDIA H100 80GB
+# HBM3, 700 W).  Each leaf of the delta, a stacked block leaf per layer:
+# its norm, relative (measured at most 3.2e-7), and its largest lane gap
+# over its largest lane (measured at most 5.0e-4, in wq of the last layer,
+# where dS = P (dP - D) cancels).  chip_grad_sensitivity.py shows what
+# they fail.
 ZOO_TOL = 1e-6
 ZOO_LEAF_NORM_TOL = 1e-6
 ZOO_LEAF_MAX_TOL = 2e-3
+# mamba2-2.7b, written before its first run on the card: float32 on both
+# sides, but its forward's ssd_chunk kernel and its backward's
+# ssd_chunk_bwd sum in other orders than the CPU's plain versions (the
+# llama layers' matmuls agreed bitwise, these do not), dcum is a
+# difference of G's row and column sums that cancels, and A_log, dt_bias
+# and D are reductions over every position of a layer: ten times llama's
+# loss, delta norm and leaf norm limits (the leaf norm a hundred), the same
+# share of a leaf's largest lane.
+ZOO_MAMBA_TOL = 1e-5
+ZOO_MAMBA_LEAF_NORM_TOL = 1e-4
+ZOO_MAMBA_LEAF_MAX_TOL = 2e-3
+ZOO_LIMITS = {ZOO_ARCH: (ZOO_TOL, ZOO_LEAF_NORM_TOL, ZOO_LEAF_MAX_TOL),
+              ZOO_MAMBA: (ZOO_MAMBA_TOL, ZOO_MAMBA_LEAF_NORM_TOL,
+                          ZOO_MAMBA_LEAF_MAX_TOL)}
 
 
-def zoo_depth2_arch():
-    """llama3.2-1b at its full widths, 2 layers, float32, E = 1."""
+def zoo_depth2_arch(arch_id: str = ZOO_ARCH):
+    """``arch_id`` at its full widths, 2 layers, float32, E = 1."""
     import dataclasses
     from repro_torch.configs import get_arch
-    arch = get_arch(ZOO_ARCH)
+    arch = get_arch(arch_id)
     return dataclasses.replace(
         arch, model=arch.model.replace(n_layers=2, dtype="float32"),
         fed=dataclasses.replace(arch.fed, local_steps=ZOO_DEPTH2_SHAPE[1]))
 
 
-def zoo_round_cpu(src: str, path: str, threads: int, results) -> None:
+def zoo_round_cpu(src: str, arch_id: str, path: str, threads: int,
+                  results) -> None:
     """The depth-2 round on the CPU (a spawned worker), from the card's
     parameters saved at ``path``; Adam's first moment after it, (1 - b1)
     times the round's delta, is saved at ``path`` with ``.m`` added."""
@@ -3947,8 +4018,8 @@ def zoo_round_cpu(src: str, path: str, threads: int, results) -> None:
     from repro_torch.launch.train import federated_rounds
 
     torch.set_num_threads(threads)
-    arch = zoo_depth2_arch()
-    fed_round, opt, _ = build_train_step(arch, "train_4k", device="cpu")
+    arch = zoo_depth2_arch(arch_id)
+    fed_round, opt, _ = build_train_step(arch, "train_4k")
     params = torch.load(path)
     t0 = time.perf_counter()
     (_, sel, m, state), = federated_rounds(
@@ -3975,23 +4046,87 @@ def delta_leaf_gaps(torch, card, cpu):
     return gaps
 
 
-def zoo_train(torch, dev):
-    """llama3.2-1b trained through ``launch.steps.build_train_step`` and the
-    loop of ``launch.train.run_arch_smoke`` (``federated_rounds``) at full
-    width, then the depth-2 float32 round against the CPU's.  Returns the
-    launches of the full-width rounds."""
+def zoo_kernels(arch_id: str, L: int, E: int):
+    """(the counted wrappers, the launches a round beside the simulation
+    kernels', the profile's name filter, a check of the profiled kernel
+    names) of the arch's training layer: per local step the forward runs
+    once under the gradient and once more in each layer's checkpoint, the
+    backward once."""
+    if arch_id == ZOO_MAMBA:
+        from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_bwd
+
+        def names_ok(names):
+            # bf16: the forward's tensor-core route; the backward's four
+            # kernels, the three templated ones at bf16
+            fwd = [n for n in names if "ssd_chunk_kernel" in n]
+            bwd = [n for n in names if "ssd_bwd_" in n]
+            return (fwd and all("_mma" in n for n in fwd)
+                    and len(fwd) + len(bwd) == len(names)
+                    and all(any(f"ssd_bwd_{k}_kernel" in n for n in bwd)
+                            for k in ("states", "scan", "bc", "a"))
+                    and all("bfloat16" in n for n in bwd
+                            if "ssd_bwd_a_kernel" not in n))
+        return ((ssd_chunk, ssd_chunk_bwd),
+                dict(ssd_chunk=2 * L * E, ssd_chunk_bwd=L * E), "ssd_",
+                names_ok)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+
+    def names_ok(names):
+        # bf16: the backward runs D, then the tensor-core dK/dV and dQ
+        bwd = [n for n in names if "flash_bwd" in n]
+        return (any("flash_bwd_dkdv_mma" in n for n in bwd)
+                and any("flash_bwd_dq_mma" in n for n in bwd)
+                and all("_mma" in n or "flash_bwd_delta" in n for n in bwd))
+    return ((flash_attention, flash_attention_bwd),
+            dict(flash_attention=2 * L * E, flash_attention_bwd=L * E),
+            "flash", names_ok)
+
+
+def zoo_flops(cfg, n_params: int, shape) -> float:
+    """The round's products: 8 flops a parameter a token (the forward, its
+    recompute in the checkpoints, the backward), and the attention's or
+    the SSD's products on top."""
+    K, E, B, S = shape
+    flops = 8.0 * n_params * K * E * B * S
+    if cfg.family == "ssm":
+        from repro_torch.models.ssm import mamba2_dims
+        H = mamba2_dims(cfg)[1]
+        Q, N, P = cfg.ssm_chunk, cfg.ssm_state, cfg.ssm_head_dim
+        layer = (K * B, S // Q, Q, H, P, N)
+        return flops + cfg.n_layers * E * (2 * ssd_work(layer, 2)[1]
+                                           + ssd_bwd_work(layer, 2)[1])
+    pairs = attn_pairs(S, S, True, 0)
+    return flops + cfg.n_layers * K * B * E * cfg.n_heads * cfg.head_dim \
+        * pairs * (2 * 4 + 10)      # the forward twice (remat), backward
+
+
+def zoo_train(torch, dev, arch_id: str = ZOO_ARCH, params=None):
+    """``arch_id`` trained through ``launch.steps.build_train_step`` and
+    the loop of ``launch.train.run_arch_smoke`` (``federated_rounds``) at
+    full width (its first ZOO_DEPTH layers), then the depth-2 float32
+    round against the CPU's.  ``params``: None for a fresh draw, or a list
+    holding weights already drawn and cut to those layers, which it
+    empties, so that no caller keeps them alive through the rounds.
+    Returns the launches of the full-width rounds."""
+    import dataclasses
     import multiprocessing
     from repro_torch import random as jr
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
     from repro_torch.launch.steps import build_train_step
     from repro_torch.launch.train import federated_rounds
     from repro_torch.models import transformer
 
-    flash = (flash_attention, flash_attention_bwd)
+    tol, leaf_norm_tol, leaf_max_tol = ZOO_LIMITS[arch_id]
+    clock = [time.perf_counter()]
+    seconds = {}
+
+    def lap(name):
+        clock.append(time.perf_counter())
+        seconds[name] = clock[-1] - clock[-2]
+
     # the depth-2 parameters first, so the CPU's round runs meanwhile
-    arch2 = zoo_depth2_arch()
+    arch2 = zoo_depth2_arch(arch_id)
     key2 = jr.PRNGKey(1, device=dev)
     p2 = transformer.init_params(arch2.model, key2, dev)
     path = ROOT / "build" / "zoo_depth2_params.pt"
@@ -4000,30 +4135,41 @@ def zoo_train(torch, dev):
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     proc = ctx.Process(target=zoo_round_cpu, args=(
-        str(ROOT / "src"), str(path), ZOO_CPU_THREADS, results), daemon=True)
+        str(ROOT / "src"), arch_id, str(path), ZOO_CPU_THREADS, results),
+        daemon=True)
     proc.start()
+    lap("depth2_draw_save_spawn")
 
     try:
-        arch = get_arch(ZOO_ARCH)
+        arch = get_arch(arch_id)
+        if ZOO_DEPTH[arch_id] is not None:
+            arch = dataclasses.replace(arch, model=arch.model.replace(
+                n_layers=ZOO_DEPTH[arch_id]))
         cfg = arch.model
         fed_round, opt, spec_shapes = build_train_step(arch, "train_4k")
         K, E, B, S = ZOO_SHAPE
+        L = cfg.n_layers
+        kernels, want_model, profile_name, names_ok = zoo_kernels(
+            arch_id, L, E)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        params, init_s = timed_init(torch, transformer, cfg, 0, dev)
+        init_s = None
+        if params is None:
+            params, init_s = timed_init(torch, transformer, cfg, 0, dev)
+        else:
+            params = params.pop()
         n_params = sum(x.numel() for x in tree_leaves(params))
         rounds = federated_rounds(fed_round, params, opt.init(params),
                                   jr.PRNGKey(0, device=dev),
                                   vocab=cfg.vocab, shape=ZOO_SHAPE,
-                                  rounds=ZOO_ROUNDS + 1)
+                                  rounds=ZOO_ROUNDS[arch_id] + 1)
         del params                  # the loop holds them
-        L = cfg.n_layers
         want = dict(fed_select=1, fed_select_mask=0, fed_aggregate=1,
-                    flash_attention=2 * L * E, flash_attention_bwd=L * E)
+                    **want_model)
         per_round, total = [], dict.fromkeys(want, 0)
-        for _ in range(ZOO_ROUNDS):
+        for _ in range(ZOO_ROUNDS[arch_id]):
             (t, sel, m, _), got, wall = counted(torch, lambda: next(rounds),
-                                                flash)
+                                                kernels)
             loss, dnorm = float(m.loss), float(m.delta_norm)
             per_round.append(dict(round=t, wall_ms=1e3 * wall, loss=loss,
                                   delta_norm=dnorm,
@@ -4031,31 +4177,25 @@ def zoo_train(torch, dev):
                                   launches=got))
             total = {n: total[n] + got[n] for n in want}
             if got != want or not all(map(math.isfinite, (loss, dnorm))):
-                raise AssertionError(f"zoo_train round {t}: launches {got} "
-                                     f"(want {want}), loss {loss}, delta "
-                                     f"norm {dnorm}")
+                raise AssertionError(f"zoo_train {arch_id} round {t}: "
+                                     f"launches {got} (want {want}), loss "
+                                     f"{loss}, delta norm {dnorm}")
         peak = torch.cuda.max_memory_allocated()
+        lap("rounds")
         profiled = device_profile(torch, lambda: next(rounds),
-                                  kernel_name="flash")[0]
-        # bf16: the backward runs D, then the tensor-core dK/dV and dQ
-        bwd_names = [n for n in profiled["kernel_names"] if "flash_bwd" in n]
-        if not (any("flash_bwd_dkdv_mma" in n for n in bwd_names)
-                and any("flash_bwd_dq_mma" in n for n in bwd_names)
-                and all("_mma" in n or "flash_bwd_delta" in n
-                        for n in bwd_names)):
-            raise AssertionError(f"zoo_train: the profiled round's backward "
-                                 f"kernels are {bwd_names}, not the "
-                                 f"tensor-core route's")
+                                  kernel_name=profile_name, cpu=False)[0]
+        lap("profiled_round")
+        if not names_ok(profiled["kernel_names"]):
+            raise AssertionError(f"zoo_train {arch_id}: the profiled round's "
+                                 f"kernels are {profiled['kernel_names']}, "
+                                 f"not the bf16 routes' and the backward's")
         del rounds
         torch.cuda.empty_cache()
         tokens = K * E * B * S
-        pairs = attn_pairs(S, S, True, 0)
-        attn_flops = L * K * B * E * cfg.n_heads * cfg.head_dim * pairs \
-            * (2 * 4 + 10)          # the forward twice (remat), backward
-        flops = 8.0 * n_params * tokens + attn_flops
+        flops = zoo_flops(cfg, n_params, ZOO_SHAPE)
         steady = sum(r["wall_ms"] for r in per_round[1:]) \
             / (len(per_round) - 1)
-        full = dict(arch=ZOO_ARCH, layers=L, dtype=cfg.dtype,
+        full = dict(arch=arch_id, layers=L, dtype=cfg.dtype,
                     n_params=n_params, init_params_s=init_s,
                     spec_batch=[list(x.shape) for x in spec_shapes.values()],
                     cohort_K_E_B_S=list(ZOO_SHAPE), tokens_per_round=tokens,
@@ -4069,16 +4209,20 @@ def zoo_train(torch, dev):
         # depth 2, float32: the card's round against the CPU's
         fed2, opt2, _ = build_train_step(arch2, "train_4k")
         (_, sel2, m2, st2), got2, _ = counted(torch, lambda: next(
-            federated_rounds(fed2, p2, opt2.init(p2), key2, vocab=cfg.vocab,
-                             shape=ZOO_DEPTH2_SHAPE, rounds=1)), flash)
+            federated_rounds(fed2, p2, opt2.init(p2), key2,
+                             vocab=cfg.vocab, shape=ZOO_DEPTH2_SHAPE,
+                             rounds=1)), kernels)
         card = dict(mask=sel2.cpu().numpy(), loss=float(m2.loss),
                     delta_norm=float(m2.delta_norm))
         del p2
+        lap("depth2_card")
         cpu = finish_cpu(proc, results, timeout=900)
         if cpu is None:
             raise AssertionError("zoo_train: the CPU's depth-2 round gave "
                                  "no result")
+        lap("depth2_cpu_wait")
         gaps = delta_leaf_gaps(torch, st2.m, torch.load(str(path) + ".m"))
+        lap("depth2_gaps")
     finally:
         if proc.is_alive():
             proc.terminate()
@@ -4088,25 +4232,24 @@ def zoo_train(torch, dev):
     rel = {f: abs(card[f] - cpu[f]) / abs(cpu[f])
            for f in ("loss", "delta_norm")}
     worst = [max(g[i] for g in gaps.values()) for i in (0, 1)]
-    want2 = dict(want, flash_attention=4, flash_attention_bwd=2)
+    want2 = dict(want, **zoo_kernels(arch_id, 2, ZOO_DEPTH2_SHAPE[1])[1])
     bitwise = card["mask"].tobytes() == cpu["mask"].tobytes()
-    if not (bitwise and got2 == want2 and max(rel.values()) <= ZOO_TOL
-            and worst[0] <= ZOO_LEAF_NORM_TOL
-            and worst[1] <= ZOO_LEAF_MAX_TOL):
+    if not (bitwise and got2 == want2 and max(rel.values()) <= tol
+            and worst[0] <= leaf_norm_tol and worst[1] <= leaf_max_tol):
         raise AssertionError(
-            f"zoo_train depth 2: masks bitwise {bitwise}, launches {got2} "
-            f"(want {want2}), relative errors {rel} (limit {ZOO_TOL}), the "
-            f"delta's leaves {gaps} (limits {ZOO_LEAF_NORM_TOL} on the "
-            f"norm, {ZOO_LEAF_MAX_TOL} of the leaf's largest lane)")
-    emit(dict(phase="zoo_train", full_width=full, depth2=dict(
+            f"zoo_train {arch_id} depth 2: masks bitwise {bitwise}, launches "
+            f"{got2} (want {want2}), relative errors {rel} (limit {tol}), "
+            f"the delta's leaves {gaps} (limits {leaf_norm_tol} on the "
+            f"norm, {leaf_max_tol} of the leaf's largest lane)")
+    emit(dict(phase="zoo_train", arch=arch_id, full_width=full, depth2=dict(
         shape=list(ZOO_DEPTH2_SHAPE), dtype="float32", launches=got2,
         mask_bitwise_vs_cpu=bitwise, card_loss=card["loss"],
         cpu_loss=cpu["loss"], card_delta_norm=card["delta_norm"],
-        cpu_delta_norm=cpu["delta_norm"], relative_errors=rel, tol=ZOO_TOL,
+        cpu_delta_norm=cpu["delta_norm"], relative_errors=rel, tol=tol,
         delta_leaf_gaps=gaps, worst_leaf_norm_gap=worst[0],
-        worst_leaf_max_gap=worst[1], leaf_norm_tol=ZOO_LEAF_NORM_TOL,
-        leaf_max_tol=ZOO_LEAF_MAX_TOL, cpu_wall_s=cpu["wall_s"],
-        cpu_threads=ZOO_CPU_THREADS)))
+        worst_leaf_max_gap=worst[1], leaf_norm_tol=leaf_norm_tol,
+        leaf_max_tol=leaf_max_tol, cpu_wall_s=cpu["wall_s"],
+        cpu_threads=ZOO_CPU_THREADS), seconds=seconds))
     return total
 
 
@@ -4240,6 +4383,8 @@ def time_ssd(torch, dev):
     b, by = bound_ms(nbytes, flops, peak=BF16_FLOPS)
     row = dict(shape=list(MAMBA_SSD), dtype="bfloat16",
                ms=cuda_ms(lambda: ssd_chunk(*ins), warmup=3, runs=20),
+               queued_ms=cuda_ms(lambda: ssd_chunk(*ins), warmup=3, runs=9,
+                                 calls=10),
                f32_ms=cuda_ms(lambda: ssd_chunk(*ins32), warmup=2, runs=9),
                plain_ms=cuda_ms(lambda: ref.ssd_chunk_ref(*ins), warmup=2,
                                 runs=9),
@@ -4253,10 +4398,215 @@ def time_ssd(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# ssd_chunk_bwd
+# ---------------------------------------------------------------------------
+
+# mamba2-2.7b's training layer as the cohort folds it: K = 2 clients x
+# B = 1 at S = 4096 (32 chunks), one A a client
+TRAIN_SSD = (2, 32, 128, 80, 64, 128)
+RAGGED_SSD = (2, 3, 13, 3, 10, 7)        # no dimension a multiple of 4
+# Kernel and plain version both form every product and sum in float32, in
+# other orders (the plain version's dcum, a difference of G's row and
+# column sums, and its dA, a sum over every position, cancel most).
+# (rtol, atol as a share of the reference's largest magnitude): float32
+# outputs (ddt, dA, and dx, dBm, dCm of float32 inputs) 1e-4 of both;
+# bf16 outputs are one float32 result rounded once on each side, so one
+# bf16 step of the lane plus 1e-4 of the largest magnitude for lanes that
+# cancel to near zero.
+SSD_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (BF16_STEP, 1e-4)}
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dBm", "dCm")
+
+
+def ssd_bwd_inputs(torch, dev, shape, dtype, seed, *, strided=False,
+                   a_rows=False, cotangents=True):
+    """``ssd_inputs`` (A one row a batch row with ``a_rows``) and the
+    cotangents dy, dstates and ddecays ~ N(0, 1) float32 (``None`` for
+    the last two unless ``cotangents``)."""
+    x, dt, A, Bm, Cm = ssd_inputs(torch, dev, shape, dtype, seed, strided)
+    B, nc, Q, H, P, N = shape
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    if a_rows:
+        A = -torch.exp(0.3 * torch.randn(B, H, generator=gen, device=dev))
+    dy = torch.randn(B, nc, Q, H, P, generator=gen, device=dev)
+    dst = ddec = None
+    if cotangents:
+        dst = torch.randn(B, nc, H, N, P, generator=gen, device=dev)
+        ddec = torch.randn(B, nc, H, generator=gen, device=dev)
+    return (x, dt, A, Bm, Cm), (dy, dst, ddec)
+
+
+def ssd_grad_through_op(torch, ins, cots):
+    """(dx, ddt, dA, dBm, dCm) of <ssd_chunk(ins), cots> through the
+    autograd Functions as the parallel round takes them: ``torch.func.
+    vmap`` of ``grad`` over the batch, one row (and one A) a client, which
+    the vmap rules fold back into one forward and one backward launch."""
+    from torch.func import grad, vmap
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+
+    def loss(x, dt, A, Bm, Cm, dy, dst, ddec):
+        y, st, dec = ssd_chunk(x[None], dt[None], A, Bm[None], Cm[None])
+        return (y[0] * dy).sum() + (st[0] * dst).sum() + (dec[0] * ddec).sum()
+
+    return vmap(grad(loss, argnums=(0, 1, 2, 3, 4)))(*ins, *cots)
+
+
+def ssd_bwd_errors(torch, got, want, dtype):
+    """{name: [max |err|, reference max, worst lane over its limit (<= 0
+    passes)]} of the five gradients, and whether all pass."""
+    errs, ok = {}, True
+    for name, g, w in zip(SSD_BWD_NAMES, got, want):
+        gf, wf = g.float(), w.float()
+        diff = (gf - wf).abs()
+        scale = float(wf.abs().max())
+        low = dtype if name in ("dx", "dBm", "dCm") else torch.float32
+        rt, at = SSD_BWD_TOL[str(low).split(".")[-1]]
+        worst = float((diff - rt * wf.abs()).max()) - at * scale
+        errs[name] = [float(diff.max()), scale, worst]
+        ok = (ok and worst <= 0.0 and g.dtype == w.dtype
+              and g.shape == w.shape and bool(torch.isfinite(gf).all()))
+    return errs, ok
+
+
+def check_ssd_backward(torch, dev):
+    """The backward kernel against ``ref.ssd_chunk_bwd`` on the same
+    inputs and cotangents: f32 and bf16 at the forward phase's shapes, a
+    ragged shape with no dstates or ddecays gradient, the strided x of the
+    model, and the training layer with one A per row; each case run twice,
+    bitwise.  At the training layer the gradient through the autograd
+    Functions under vmap must equal the kernel's bit for bit, in one
+    backward launch for the cohort."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd
+
+    dtypes = (torch.float32, torch.bfloat16)
+    cases = [(shape, dtype, {})
+             for shape in TEST_SSD_SHAPES + [SMOKE_SSD, CONSISTENCY_SSD,
+                                             MAMBA_SSD, BATCH2_SSD]
+             for dtype in dtypes]
+    cases += [(RAGGED_SSD, dtype, dict(cotangents=False)) for dtype in dtypes]
+    cases += [(MAMBA_SSD, dtype, dict(strided=True)) for dtype in dtypes]
+    cases += [(TRAIN_SSD, dtype, dict(a_rows=True)) for dtype in dtypes]
+    rows, max_err = [], {}
+    for i, (shape, dtype, kw) in enumerate(cases):
+        t0 = time.perf_counter()
+        ins, cots = ssd_bwd_inputs(torch, dev, shape, dtype, 500 + i, **kw)
+        got = ssd_chunk_bwd(*ins, *cots)
+        again = ssd_chunk_bwd(*ins, *cots)
+        want = ref.ssd_chunk_bwd(*ins, *cots)
+        torch.cuda.synchronize()
+        dname = str(dtype).split(".")[-1]
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        errs, ok = ssd_bwd_errors(torch, got, want, dtype)
+        ok = ok and bitwise
+        max_err[dname] = max([max_err.get(dname, 0.0)]
+                             + [e[0] for e in errs.values()])
+        row = dict(shape=list(shape), dtype=dname, **kw,
+                   max_abs_err_ref_max_worst_over=errs,
+                   bitwise_rerun=bitwise)
+        if kw.get("a_rows"):
+            before = ssd_chunk_bwd.launches
+            chain = ssd_grad_through_op(torch, ins, cots)
+            row["autograd_launches"] = ssd_chunk_bwd.launches - before
+            row["autograd_bitwise"] = all(
+                torch.equal(a, b) for a, b in zip(chain, got))
+            ok = ok and row["autograd_bitwise"] \
+                and row["autograd_launches"] == 1
+            del chain
+        row.update(ok=ok, wall_s=time.perf_counter() - t0)
+        rows.append(row)
+        if not ok:
+            raise AssertionError(
+                f"ssd_chunk_bwd {shape} {dtype} {kw}: {row}; limits "
+                f"(rtol, share of the reference max) {SSD_BWD_TOL}, the "
+                f"autograd chain one launch, bitwise")
+        del ins, cots, got, again, want
+        torch.cuda.empty_cache()
+    emit(dict(phase="ssd_backward", cases=len(rows),
+              all_bitwise_rerun=all(r["bitwise_rerun"] for r in rows),
+              max_abs_err_by_dtype=max_err, checks=rows))
+    return max(max_err.values())
+
+
+def ssd_bwd_work(shape, in_bytes: int):
+    """(bytes, flops) the gradient needs: x, Bm, Cm read and dx, dBm, dCm
+    written in the input dtype; dy, dstates, ddecays, dt read and ddt
+    written in float32, A and dA one row a batch row; the products S =
+    C B^T, D^T C and D B once per chunk on the lower triangle, per head
+    dM and M^T dy on the lower triangle and B dstate and (w o xdt)
+    dstate^T in full."""
+    B, nc, Q, H, P, N = shape
+    bc = B * nc
+    nbytes = (2 * in_bytes * (bc * Q * H * P + 2 * bc * Q * N)
+              + 4 * (bc * Q * H * P + bc * H * N * P + bc * H)
+              + 4 * 2 * bc * Q * H + 4 * 2 * B * H)
+    tri = Q * (Q + 1) // 2
+    flops = 2.0 * bc * (3 * tri * N + H * (2 * tri * P + 2 * Q * N * P))
+    return nbytes, flops
+
+
+def time_ssd_backward(torch, dev):
+    """The backward at the training layer: bf16 inputs (``ms``), float32
+    (``f32_ms``) and the plain version, beside the bound: the products
+    over the card's peak for bf16 operands, the tensor cores' 989 TFLOP/s,
+    or the bytes, the larger (``bound_f32_cuda_cores_ms``: the products
+    over the float32 CUDA cores' 67, where this kernel runs them); and
+    each of the four launches' device ms (``parts_ms``), from a profile
+    taken again over more calls where the profiler dropped a launch."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd
+
+    ins, cots = ssd_bwd_inputs(torch, dev, TRAIN_SSD, torch.bfloat16, 600,
+                               a_rows=True)
+    ins32 = [t.float() for t in ins]
+    nbytes, flops = ssd_bwd_work(TRAIN_SSD, 2)
+    b, by = bound_ms(nbytes, flops, peak=BF16_FLOPS)
+    row = dict(shape=list(TRAIN_SSD), dtype="bfloat16", a_rows=True,
+               ms=cuda_ms(lambda: ssd_chunk_bwd(*ins, *cots), warmup=3,
+                          runs=15),
+               queued_ms=cuda_ms(lambda: ssd_chunk_bwd(*ins, *cots),
+                                 warmup=2, runs=5, calls=10),
+               f32_ms=cuda_ms(lambda: ssd_chunk_bwd(*ins32, *cots),
+                              warmup=2, runs=9),
+               plain_ms=cuda_ms(lambda: ref.ssd_chunk_bwd(*ins, *cots),
+                                warmup=1, runs=5),
+               library_ms=None, bound_ms=b, bound_by=by,
+               bound_f32_cuda_cores_ms=bound_ms(nbytes, flops,
+                                                peak=FP32_FLOPS)[0],
+               flops=flops, bytes=nbytes)
+    row["tflops_per_s"] = flops / row["ms"] / 1e9
+    row["bound_share"] = b / row["ms"]
+    # the four launches of a call, by kernel; the profiler drops device
+    # events late in the script (a one-call trace here has come back with
+    # none of them), so a trace missing one is taken again over more calls
+    parts = ("ssd_bwd_states_kernel", "ssd_bwd_scan_kernel",
+             "ssd_bwd_bc_kernel", "ssd_bwd_a_kernel")
+    for steps in (1, 2, 4, 8):
+        prof = device_profile(
+            torch, lambda: [ssd_chunk_bwd(*ins, *cots) for _ in range(steps)],
+            steps=steps, kernel_name="ssd_bwd_", cpu=False)[0]
+        row["parts_ms"] = {p: sum(k["ms_per_step"] for k in prof["top_kernels"]
+                                  if p in k["name"]) for p in parts
+                           if any(p in k["name"] for k in prof["top_kernels"])}
+        row["parts_profiled_calls"] = steps
+        if len(row["parts_ms"]) == len(parts):
+            break
+    if len(row["parts_ms"]) != len(parts):
+        raise AssertionError(f"profiled backward kernels "
+                             f"{prof['kernel_names']}: want {parts}")
+    emit(dict(phase="ssd_bwd_timing", kernel=row))
+    del ins, ins32, cots
+    torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------------------
 # mamba path: mamba2-2.7b at full width
 # ---------------------------------------------------------------------------
 
 def mamba_path(torch, dev, ssd_ms: float):
+    """mamba2-2.7b whole: prefill, serve and the float32 checks; returns
+    the prefill's launches and the drawn weights (zoo_train trains their
+    first layers)."""
     from repro_torch import random as jr
     from repro_torch.configs import get_arch
     from repro_torch.kernels.ssd_chunk import ssd_chunk
@@ -4316,7 +4666,7 @@ def mamba_path(torch, dev, ssd_ms: float):
 
     # (b) prefill_32k's length, batch cut to 1
     long_ms, long_launches = run(prompt(32_768))
-    del params, batch
+    del batch
     torch.cuda.empty_cache()
 
     # (c) serve at full width: decode only, no ssd_chunk kernel
@@ -4366,7 +4716,7 @@ def mamba_path(torch, dev, ssd_ms: float):
               depth2_f32_card_vs_cpu_max_abs_err=card_vs_cpu,
               depth2_f32_prefill_vs_decode_max_abs_err=pre_vs_decode,
               logit_scale=float(cpu.abs().max())))
-    return launches
+    return launches, params
 
 
 def tree_leaves(tree):
@@ -4452,7 +4802,17 @@ def main(argv) -> int:
     flash_launches = sum(flash_by_path.values())
     ssd_err = phase("ssd_chunk", check_ssd_chunk, torch, dev)
     t_ssd = phase("ssd_timing", time_ssd, torch, dev)
-    ssd_launches = phase("mamba_path", mamba_path, torch, dev, t_ssd["ms"])
+    ssd_bwd_err = phase("ssd_backward", check_ssd_backward, torch, dev)
+    t_ssd_bwd = phase("ssd_bwd_timing", time_ssd_backward, torch, dev)
+    ssd_launches, mamba = phase("mamba_path", mamba_path, torch, dev,
+                                t_ssd["ms"])
+    from repro_torch.tree import tree_map
+    mamba = [tree_map(torch.clone,
+                      first_layers(mamba, ZOO_DEPTH[ZOO_MAMBA]))]
+    zoo_mamba = phase("zoo_train_mamba", zoo_train, torch, dev, ZOO_MAMBA,
+                      mamba)
+    ssd_by_path = {"mamba_path": ssd_launches,
+                   "zoo_train": zoo_mamba["ssd_chunk"]}
     emit(dict(phase="seconds_by_phase", **phase_s))
 
     src = "src/repro_torch/kernels/csrc/"
@@ -4465,7 +4825,8 @@ def main(argv) -> int:
              launches=(launches["fed_select"] + grid_launches["fed_select"]
                        + task_launches["fed_select"]
                        + host_launches["fed_select"]
-                       + client_launches["fed_select"] + zoo["fed_select"]),
+                       + client_launches["fed_select"] + zoo["fed_select"]
+                       + zoo_mamba["fed_select"]),
              max_abs_err=sel_err,
              shape=[1 << 20], **{k: t_sel[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
@@ -4487,7 +4848,8 @@ def main(argv) -> int:
                        + task_launches["fed_aggregate"]
                        + host_launches["fed_aggregate"]
                        + client_launches["fed_aggregate"]
-                       + zoo["fed_aggregate"]),
+                       + zoo["fed_aggregate"]
+                       + zoo_mamba["fed_aggregate"]),
              max_abs_err=agg_err,
              shape=[10, 1 << 24], **{k: t_agg[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -4530,7 +4892,8 @@ def main(argv) -> int:
                  "library_ms")} for r in t_bwd["at"]]),
         dict(name="ssd_chunk", route="cuda", source=src + "ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_chunk.py:52",
-             launches=ssd_launches, max_abs_err=ssd_err,
+             launches=sum(ssd_by_path.values()),
+             launches_by_path=ssd_by_path, max_abs_err=ssd_err,
              routes={"bfloat16": "tensor cores (mma.sync m16n8k16, M' split "
                                  "into bf16 hi + mid + lo, the states' "
                                  "weights into hi + lo); ms",
@@ -4538,6 +4901,20 @@ def main(argv) -> int:
              shape=list(MAMBA_SSD), **{k: t_ssd[k] for k in (
                  "ms", "f32_ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms")}),
+        dict(name="ssd_chunk_bwd", route="cuda",
+             source=src + "ssd_chunk_bwd.cu",
+             replaces="src/repro/models/ssm.py:71",
+             replaces_note="no Pallas backward exists: JAX trains by "
+                           "jax.grad of the plain _ssd_chunked",
+             launches=zoo_mamba["ssd_chunk_bwd"], max_abs_err=ssd_bwd_err,
+             routes={"bfloat16": "CUDA cores in float32 (four launches: "
+                                 "states, scan, B and C, dA; no atomics); "
+                                 "ms",
+                     "float32": "the same kernels; f32_ms"},
+             shape=list(TRAIN_SSD), a_rows=True,
+             **{k: t_ssd_bwd[k] for k in (
+                 "ms", "f32_ms", "plain_ms", "bound_ms", "bound_by",
+                 "bound_f32_cuda_cores_ms", "library_ms")}),
     ]
     print(gpu_line(), flush=True)
     emit(dict(kernels=kernels))

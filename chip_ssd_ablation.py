@@ -162,7 +162,7 @@ def main() -> int:
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                  Cm.data_ptr(), y.data_ptr(), st.data_ptr(), dec.data_ptr(),
                  1, B, nc, Q, H, P, N, *x.stride()[:4], *dt.stride()[:3],
-                 *Bm.stride()[:3], *Cm.stride()[:3],
+                 *Bm.stride()[:3], *Cm.stride()[:3], 0,
                  torch.cuda.current_stream().cuda_stream)
         _build.check(err, "ssd_chunk variant launch")
         return y, st, dec

@@ -35,6 +35,7 @@ SOURCES: Dict[str, tuple] = {
     "flash_attention": ("flash_attention.cu", ()),
     "flash_attention_bwd": ("flash_attention_bwd.cu", ()),
     "ssd_chunk": ("ssd_chunk.cu", ()),
+    "ssd_chunk_bwd": ("ssd_chunk_bwd.cu", ()),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -131,7 +132,12 @@ _SIGNATURES = {
                                        + [_I, _I, _F, _F, _VP], _I),
     },
     "ssd_chunk": {
-        "ssd_chunk_launch": ([_VP] * 8 + [_I] * 7 + [_I64] * 13 + [_VP], _I),
+        "ssd_chunk_launch": ([_VP] * 8 + [_I] * 7 + [_I64] * 14 + [_VP], _I),
+    },
+    "ssd_chunk_bwd": {
+        "ssd_chunk_bwd_workspace_floats": ([_I] * 7, _I64),
+        "ssd_chunk_bwd_launch": ([_VP] * 14 + [_I] * 7 + [_I64] * 14
+                                 + [_I, _VP], _I),
     },
 }
 

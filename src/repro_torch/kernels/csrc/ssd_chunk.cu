@@ -7,7 +7,9 @@
 //   decay    = exp(cum_{Q-1})
 //
 // x (B, nc, Q, H, P) and Bm, Cm (B, nc, Q, N) are float32 or bf16; dt
-// (B, nc, Q, H) and A (H,) float32; y (B, nc, Q, H, P), states (B, nc, H,
+// (B, nc, Q, H) and A float32, A one row of H read with a batch stride (0:
+// one A for every row; H: one per batch row, as the cohort's folded batch
+// carries it in training); y (B, nc, Q, H, P), states (B, nc, H,
 // N, P) and decays (B, nc, H) are written float32 and contiguous.  x, dt,
 // Bm and Cm are read through their strides (unit stride along the last
 // axis): the model's x is a view of the convolution's output, and no copy
@@ -104,6 +106,7 @@ struct Args {
   int64_t dsb, dsc, dsq;        // dt strides (b, c, q); unit along H
   int64_t bsb, bsc, bsq;        // Bm strides (b, c, q); unit along N
   int64_t csb, csc, csq;        // Cm strides
+  int64_t asb;                  // A's batch stride (0: one A for all rows)
   int vec_x, vec_bc;            // 16-byte copies allowed (bf16 route)
 };
 
@@ -224,7 +227,7 @@ ssd_chunk_kernel(const Args a) {
   // cum, one thread a head, left to right; padded positions repeat the
   // last value, so every exp below stays finite.
   if (tid < nh) {
-    const float Ah = a.A[h0 + tid];
+    const float Ah = a.A[b * a.asb + h0 + tid];
     const float* d = dts + tid * Qp;
     float* cu = cum + tid * Qp;
     float s = 0.0f;
@@ -546,7 +549,7 @@ ssd_chunk_kernel_mma(const Args a) {
   // cum, one lane a head, left to right (padded positions repeat the last
   // value, so every exp below stays finite), and the chunk's decay.
   if (warp == kWarps - 1 && lane < nh) {
-    const float Ah = a.A[h0 + lane];
+    const float Ah = a.A[b * a.asb + h0 + lane];
     const float* d = dts + lane * kMaxDim;
     float* cu = cum + lane * kMaxDim;
     float s = 0.0f;
@@ -755,7 +758,8 @@ extern "C" {
 // x (B, nc, Q, H, P), Bm and Cm (B, nc, Q, N) in the given dtype (0 =
 // float32, CUDA cores; 1 = bf16, tensor cores) and dt (B, nc, Q, H)
 // float32, each with unit stride along its last axis and the given element
-// strides along the others; A (H,) float32 contiguous.  y (B, nc, Q, H, P),
+// strides along the others; A float32 with unit stride along H and batch
+// stride asb (0 for one A (H,) shared by every row).  y (B, nc, Q, H, P),
 // st (B, nc, H, N, P) and dec (B, nc, H) are float32 and contiguous.
 // 1 <= Q, N, P <= 128.  Returns a cudaError_t.
 int ssd_chunk_launch(const void* x, const void* dt, const void* A,
@@ -764,7 +768,7 @@ int ssd_chunk_launch(const void* x, const void* dt, const void* A,
                      int N, int64_t xsb, int64_t xsc, int64_t xsq, int64_t xsh,
                      int64_t dsb, int64_t dsc, int64_t dsq, int64_t bsb,
                      int64_t bsc, int64_t bsq, int64_t csb, int64_t csc,
-                     int64_t csq, void* stream) {
+                     int64_t csq, int64_t asb, void* stream) {
   if (Q < 1 || Q > kMaxDim || N < 1 || N > kMaxDim || P < 1 || P > kMaxDim
       || H < 1 || nc < 1 || B < 1 || nc > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -778,7 +782,8 @@ int ssd_chunk_launch(const void* x, const void* dt, const void* A,
   const Args a{x, static_cast<const float*>(dt), static_cast<const float*>(A),
                bm, cm, static_cast<float*>(y), static_cast<float*>(st),
                static_cast<float*>(dec), nc, Q, H, P, N, xsb, xsc, xsq, xsh,
-               dsb, dsc, dsq, bsb, bsc, bsq, csb, csc, csq, vec_x, vec_bc};
+               dsb, dsc, dsq, bsb, bsc, bsq, csb, csc, csq, asb, vec_x,
+               vec_bc};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return simt::launch<float>(a, B, s);
   if (dtype == 1) return tc::launch(a, B, s);

@@ -323,34 +323,120 @@ def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
 # ---------------------------------------------------------------------------
 
 
+def _work_dtype(x: torch.Tensor) -> torch.dtype:
+    """float64 inputs are computed in float64 (the tests' exact checks),
+    anything else in float32, as the kernels compute."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _a_rows(A: torch.Tensor) -> torch.Tensor:
+    """A against (B, nc, Q, H): a shared (H,) A, or one row of A per batch
+    row (B, H), as the cohort's folded batch carries it."""
+    return A[:, None, None, :] if A.dim() == 2 else A[None, None, None, :]
+
+
 def ssd_chunk_ref(x, dt, A, Bm, Cm):
     """Intra-chunk SSD pieces (``repro.kernels.ref.ssd_chunk_ref``).
 
-    x: (B, nc, Q, H, P); dt: (B, nc, Q, H) float32; A: (H,) float32;
-    Bm, Cm: (B, nc, Q, N).  Returns float32 (y_intra (B, nc, Q, H, P),
-    states (B, nc, H, N, P), decays (B, nc, H)).
+    x: (B, nc, Q, H, P); dt: (B, nc, Q, H) float32; A: (H,) float32, or
+    (B, H) for one A per batch row; Bm, Cm: (B, nc, Q, N).  Returns float32
+    (float64 for float64 x) (y_intra (B, nc, Q, H, P), states (B, nc, H,
+    N, P), decays (B, nc, H)).
 
     L is masked before the exp, as ``ssd_ref`` masks it: the same values
     as JAX's exp-then-mask (exp(-1e30) is 0), and a finite gradient, where
     exp of the upper triangle's positive differences would overflow and
     give 0 * inf in the backward."""
-    a = dt * A[None, None, None, :]                       # (B, nc, Q, H)
+    f = _work_dtype(x)
+    a = dt * _a_rows(A)                                   # (B, nc, Q, H)
     cum = torch.cumsum(a, dim=2)
     Q = x.shape[2]
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
     tri = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
     L = torch.exp(torch.where(tri[None, None, :, :, None], diff,
                               torch.full((), -1e30, device=x.device)))
-    scores = torch.einsum("bcin,bcjn->bcij", Cm.to(torch.float32),
-                          Bm.to(torch.float32))
+    scores = torch.einsum("bcin,bcjn->bcij", Cm.to(f), Bm.to(f))
     M = scores[..., None] * L
-    xdt = x.to(torch.float32) * dt[..., None]
+    xdt = x.to(f) * dt[..., None]
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", M, xdt)
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)
     states = torch.einsum("bcjh,bcjn,bcjhp->bchnp", decay_to_end * dt,
-                          Bm.to(torch.float32), x.to(torch.float32))
+                          Bm.to(f), x.to(f))
     decays = torch.exp(cum[:, :, -1, :])
     return y_intra, states, decays
+
+
+def ssd_chunk_bwd(x, dt, A, Bm, Cm, dy, dstates=None, ddecays=None):
+    """(dx, ddt, dA, dBm, dCm): the gradient of :func:`ssd_chunk_ref`
+    against the cotangents dy (B, nc, Q, H, P), dstates (B, nc, H, N, P)
+    and ddecays (B, nc, H), derived by hand op by op (no autograd), as the
+    ``ssd_chunk_bwd`` kernel computes it.  ``None`` for dstates or
+    ddecays is a zero gradient.
+
+    Per (b, c, h), with xdt = dt x, M = (C B^T) o L, w_j = exp(cum_{Q-1} -
+    cum_j) and G = dM o M:
+
+      d(xdt) = M^T dy + w o (B dstate),   dM = dy xdt^T,
+      d(C B^T) = sum_h dM o L,
+      dcum_k = sum_j G_kj - sum_i G_ik - dw_k w_k
+               (+ sum_j dw_j w_j + ddecay decay at k = Q-1),
+        with dw_j = xdt_j . (B dstate)_j,
+      da_r = sum_{k >= r} dcum_k, whose G part is sum_{i >= r > j} G_ij,
+      ddt = da A + sum_p d(xdt) x,  dx = d(xdt) dt,  dA = sum da dt,
+      dC = d(C B^T) B,  dB = d(C B^T)^T C + sum_h (w o xdt) dstate^T.
+
+    G's part of da is summed as that block of G, not as the reverse sum of
+    G's row sums minus its column sums, which cancel in float32: so dA at
+    Q = N = 128 comes closer to its float64 value than JAX's float32
+    gradient does (``tests/test_torch_ssd_grad.py``).
+
+    Bm and Cm are shared by the heads, so their gradients sum over H.  dA
+    has A's shape: summed over the batch and chunks for a shared (H,) A,
+    per row for a (B, H) one.  dx, dBm and dCm are returned in their
+    input's dtype, ddt and dA in float32 (float64 for float64 inputs)."""
+    f = _work_dtype(x)
+    xf, Bf, Cf, dtf = x.to(f), Bm.to(f), Cm.to(f), dt.to(f)
+    Af = _a_rows(A.to(f))
+    cum = torch.cumsum(dtf * Af, dim=2)                   # (B, nc, Q, H)
+    Q = x.shape[2]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    tri = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
+    L = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                              torch.full((), -1e30, device=x.device)))
+    M = torch.einsum("bcin,bcjn->bcij", Cf, Bf)[..., None] * L
+    xdt = xf * dtf[..., None]
+    dy = dy.to(f)
+    dxdt = torch.einsum("bcijh,bcihp->bcjhp", M, dy)
+    dM = torch.einsum("bcihp,bcjhp->bcijh", dy, xdt)      # (B, nc, i, j, H)
+    dS = (dM * L).sum(-1)                                 # d(C B^T)
+    G = dM * M
+    # sum_{j < r} G_ir at (i, r), summed over i >= r: G's block i >= r > j
+    pre = torch.nn.functional.pad(torch.cumsum(G[:, :, :, :-1], dim=3),
+                                  (0, 0, 1, 0))
+    daG = torch.diagonal(torch.flip(torch.cumsum(torch.flip(pre, (2,)),
+                                                 dim=2), (2,)),
+                         dim1=2, dim2=3).permute(0, 1, 3, 2)
+    dcum = torch.zeros_like(daG)          # dcum's other terms (B, nc, Q, H)
+    dB = torch.einsum("bcij,bcin->bcjn", dS, Cf)
+    dC = torch.einsum("bcij,bcjn->bcin", dS, Bf)
+    if dstates is not None:
+        w = torch.exp(cum[:, :, -1:, :] - cum)
+        dst = dstates.to(f)
+        U = torch.einsum("bcjn,bchnp->bcjhp", Bf, dst)    # B dstate
+        dxdt = dxdt + w[..., None] * U
+        dww = (U * xdt).sum(-1) * w                       # dw_j w_j
+        dcum = dcum - dww
+        dcum[:, :, -1] += dww.sum(2)
+        dB = dB + torch.einsum("bcjhp,bchnp->bcjn", w[..., None] * xdt, dst)
+    if ddecays is not None:
+        dcum[:, :, -1] += ddecays.to(f) * torch.exp(cum[:, :, -1])
+    da = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), dim=2), (2,)) + daG
+    ddt = da * Af + (dxdt * xf).sum(-1)
+    dA = (da * dtf).sum((1, 2))                           # (B, H)
+    if A.dim() == 1:
+        dA = dA.sum(0)
+    return (dxdt * dtf[..., None]).to(x.dtype), ddt, dA, dB.to(Bm.dtype), \
+        dC.to(Cm.dtype)
 
 
 def ssd_ref(x, dt, A, Bm, Cm, chunk: int):

@@ -23,25 +23,7 @@ from . import specs as S
 _ACC_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def check_trainable(cfg, device=None) -> None:
-    """Raise ``NotImplementedError`` where the port cannot train ``cfg``:
-    the ssm family on a CUDA device, whose ``ssd_chunk`` kernel has no
-    backward yet (ROADMAP.md queue 1 item 15).  On the CPU it trains on
-    the plain path.  The other families train on both: their attention's
-    gradient is the flash_attention_bwd kernel (held on the card at each
-    family's layers, whisper's non-causal encoder and cross-attention
-    among them), and the hybrid's RG-LRU is plain torch.  Decided before
-    anything is built."""
-    on_cuda = torch.device("cuda" if device is None else device).type \
-        == "cuda"
-    if cfg.family == "ssm" and on_cuda:
-        raise NotImplementedError(
-            f"{cfg.name}: training the ssm family on CUDA needs a backward "
-            f"for the ssd_chunk kernel, which is not written yet (ROADMAP.md "
-            f"queue 1 item 15); pass device='cpu' for the plain path")
-
-
-def build_train_step(arch: ArchSpec, shape_name: str, device=None):
+def build_train_step(arch: ArchSpec, shape_name: str):
     """The F3AST federated round of ``arch`` at a train shape, as the JAX
     package builds it: ``cfg.remat`` from ``arch.fed.remat`` (per-layer
     checkpoints), ``arch.fed.server_opt`` (lr 1.0 for sgd, else 1e-3), the
@@ -51,13 +33,13 @@ def build_train_step(arch: ArchSpec, shape_name: str, device=None):
     ``fed_round(params, opt_state, cohort_batch, weights, client_lr)`` as
     ``core.fedstep.make_fed_round`` gives it, the optimizer whose
     ``init(params)`` makes ``opt_state``, and
-    ``{"tokens": ShapeDtype((K, E, B, S), torch.int32)}``.  ``device``
-    (default CUDA) is where the round will run; only the refusal of
-    :func:`check_trainable` reads it.  A vlm's batch also holds its
-    ``patch_embeds``, the audio family's its ``frames``
-    (``specs.cohort_batch_specs``)."""
+    ``{"tokens": ShapeDtype((K, E, B, S), torch.int32)}``.  The round
+    runs where its tensors lie, every family on the CPU and on CUDA: the
+    attention's gradient is the flash_attention_bwd kernel, the ssm
+    family's the ssd_chunk_bwd kernel, and the hybrid's RG-LRU is plain
+    torch.  A vlm's batch also holds its ``patch_embeds``, the audio
+    family's its ``frames`` (``specs.cohort_batch_specs``)."""
     cfg = arch.model_for_shape(shape_name).replace(remat=arch.fed.remat)
-    check_trainable(cfg, device)
     batch_shapes = S.cohort_batch_specs(arch, shape_name)
     api = get_model_api(cfg)
     sgd = arch.fed.server_opt == "sgd"
@@ -108,13 +90,12 @@ def build_decode_step(arch: ArchSpec, shape_name: str):
             S.decode_tok_specs(arch, shape_name))
 
 
-def build_step(arch: ArchSpec, shape_name: str, device=None):
-    """Dispatch by the shape's kind: ``build_train_step(arch,
-    shape_name, device)``, ``build_prefill_step`` or
-    ``build_decode_step``."""
+def build_step(arch: ArchSpec, shape_name: str):
+    """Dispatch by the shape's kind: ``build_train_step``,
+    ``build_prefill_step`` or ``build_decode_step``."""
     kind = INPUT_SHAPES[shape_name]["kind"]
     if kind == "train":
-        return build_train_step(arch, shape_name, device)
+        return build_train_step(arch, shape_name)
     if kind == "prefill":
         return build_prefill_step(arch, shape_name)
     return build_decode_step(arch, shape_name)

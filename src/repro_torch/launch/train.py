@@ -28,9 +28,8 @@ architecture's smoke config (:func:`run_arch_smoke`, as the JAX CLI does;
   python -m repro_torch.launch.train --arch llama3.2-1b --smoke --device cpu
 
 What the port lacks fails before anything runs, with
-``NotImplementedError`` naming its ROADMAP.md queue 1 item: the ssm
-family's training on CUDA (item 15) and ``--mesh-shape C,M`` (the
-(clients, model) mesh, item 11).
+``NotImplementedError`` naming its ROADMAP.md queue 1 item:
+``--mesh-shape C,M`` (the (clients, model) mesh, item 11).
 """
 from __future__ import annotations
 
@@ -54,7 +53,6 @@ from ..sim.runner import (TrainResult, _legacy_server_lr, run_spec,
                           run_spec_dist)
 from ..sim.scenario import Scenario, list_scenarios
 from ..sim.spec import RunSpec
-from .steps import check_trainable
 
 __all__ = ["TrainResult", "run_federated", "federated_rounds",
            "run_arch_smoke", "main"]
@@ -144,7 +142,6 @@ def run_arch_smoke(arch_id: str, rounds: int = 3, seed: int = 0,
     CUDA).  Returns the round losses."""
     arch = get_arch(arch_id)
     cfg = arch.smoke_model
-    check_trainable(cfg, device)
     device = resolve_device(device)
     api = get_model_api(cfg)
     key = jr.PRNGKey(seed, device=device)

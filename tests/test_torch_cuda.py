@@ -618,3 +618,116 @@ def test_mamba2_smoke_prefill_card_matches_cpu(dev):
     assert ssd_chunk.launches == before + cfg.n_layers
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+# ssd_chunk_bwd.  Kernel and plain version both form every product and sum
+# in float32, in other orders: float32 gradients within 1e-4 of the lane
+# plus 1e-4 of the largest magnitude; bf16 ones (dx, dBm, dCm of bf16
+# inputs) are one float32 result rounded once on each side, so one bf16
+# step of the lane plus 1e-4 of the largest magnitude (chip_smoke.py's
+# SSD_BWD_TOL).
+def _check_ssd_bwd(got, want, dtype):
+    for name, g, w in zip(("dx", "ddt", "dA", "dBm", "dCm"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        gf, wf = g.float(), w.float()
+        scale = float(wf.abs().max())
+        bf16 = dtype == "bfloat16" and name in ("dx", "dBm", "dCm")
+        rtol = 2.0 ** -7 if bf16 else 1e-4
+        over = (gf - wf).abs() - rtol * wf.abs() - 1e-4 * scale
+        assert float(over.max()) <= 0.0, name
+
+
+def _ssd_bwd_inputs(dev, shape, dtype, seed, a_rows=False):
+    """(x, dt, A, Bm, Cm) on the card, A one row a batch row with
+    ``a_rows``, and the cotangents dy, dstates, ddecays ~ N(0, 1)."""
+    B, nc, Q, H, P, N = shape
+    ins = [torch.from_numpy(a).to(dev) for a in _ssd_inputs(shape, seed)]
+    rng = np.random.default_rng(seed + 1)
+    if a_rows:
+        ins[2] = torch.from_numpy((-np.exp(0.3 * rng.normal(size=(B, H))))
+                                  .astype(np.float32)).to(dev)
+    for i in (0, 3, 4):
+        ins[i] = ins[i].to(getattr(torch, dtype))
+    cots = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
+            for s in ((B, nc, Q, H, P), (B, nc, H, N, P), (B, nc, H))]
+    return ins, cots
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunk_bwd_kernel_allclose(dev, shape, dtype):
+    """The backward kernel against ``ref.ssd_chunk_bwd``, one launch, and
+    a rerun bitwise."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd
+    ins, cots = _ssd_bwd_inputs(dev, shape, dtype, sum(shape))
+    before = ssd_chunk_bwd.launches
+    got = ssd_chunk_bwd(*ins, *cots)
+    torch.cuda.synchronize()
+    assert ssd_chunk_bwd.launches == before + 1
+    _check_ssd_bwd(got, ref.ssd_chunk_bwd(*ins, *cots), dtype)
+    for g, a in zip(got, ssd_chunk_bwd(*ins, *cots)):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunk_bwd_folded_cohort_one_launch(dev, dtype):
+    """``vmap(grad)`` through ``ssd_chunk`` over a cohort of 3 clients,
+    each with its own A (the round from its second local step on): one
+    backward launch, equal bit for bit to the kernel called on the folded
+    batch with one A a row, which is within its limits of the plain
+    version."""
+    from torch.func import grad, vmap
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_bwd
+    ins, cots = _ssd_bwd_inputs(dev, (3, 2, 32, 12, 32, 16), dtype, 11,
+                                a_rows=True)
+    want = ssd_chunk_bwd(*ins, *cots)
+    _check_ssd_bwd(want, ref.ssd_chunk_bwd(*ins, *cots), dtype)
+
+    def loss(x, dt, A, Bm, Cm, dy, dst, ddec):
+        y, st, dec = ssd_chunk(x[None], dt[None], A, Bm[None], Cm[None])
+        return (y[0] * dy).sum() + (st[0] * dst).sum() + (dec[0] * ddec).sum()
+
+    before = ssd_chunk_bwd.launches
+    got = vmap(grad(loss, argnums=(0, 1, 2, 3, 4)))(*ins, *cots)
+    assert ssd_chunk_bwd.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_one_chunk_gradient_skips_the_states_pass(dev, dtype):
+    """``grad`` through a one-chunk ``ssd``, which reads neither states nor
+    decays: autograd passes None for both, and the gradient is the
+    kernel's called with None for them, bit for bit, one launch."""
+    from torch.func import grad
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_chunk import ssd, ssd_chunk_bwd
+    (x, dt, A, Bm, Cm), (dy, _, _) = _ssd_bwd_inputs(
+        dev, (2, 1, 64, 8, 32, 16), dtype, 13)
+    dy = dy.to(x.dtype).float()        # what reaches y through its rounding
+    want = ssd_chunk_bwd(x, dt, A, Bm, Cm, dy, None, None)
+    _check_ssd_bwd(want, ref.ssd_chunk_bwd(x, dt, A, Bm, Cm, dy, None, None),
+                   dtype)
+    before = ssd_chunk_bwd.launches
+    got = grad(lambda *a: (ssd(*a, 64).float() * dy[:, 0]).sum(),
+               argnums=(0, 1, 2, 3, 4))(x[:, 0], dt[:, 0], A, Bm[:, 0],
+                                        Cm[:, 0])
+    assert ssd_chunk_bwd.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w.reshape(g.shape))
+
+
+def test_mamba2_smoke_training_card_matches_cpu(dev):
+    """``run_arch_smoke`` (3 rounds, the smoke config) on the card, through
+    the ssd_chunk forward and backward kernels, against the CPU's plain
+    path: within 1e-5 relative."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd
+    from repro_torch.launch.train import run_arch_smoke
+    before = ssd_chunk_bwd.launches
+    card = run_arch_smoke("mamba2-2.7b", log_fn=lambda *a: None, device=dev)
+    assert ssd_chunk_bwd.launches > before
+    cpu = run_arch_smoke("mamba2-2.7b", log_fn=lambda *a: None,
+                         device="cpu")
+    np.testing.assert_allclose(card, cpu, rtol=1e-5, atol=0)

@@ -107,7 +107,7 @@ def test_skipped_shape_and_wrong_kinds_raise():
 
 def test_build_step_dispatches_by_kind():
     spec = tconfigs.get_arch("llama3.2-1b")
-    _, opt, shapes = tsteps.build_step(spec, "train_4k", device="cpu")
+    _, opt, shapes = tsteps.build_step(spec, "train_4k")
     assert shapes["tokens"].shape == (32, 2, 8, 4096) and hasattr(opt, "init")
     _, shapes = tsteps.build_step(spec, "prefill_32k")
     assert shapes["tokens"].shape == (32, 32768)
