@@ -361,16 +361,18 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  layer as the cohort folds it (2, 32 chunks, 128, 80, 64),
                  N = 128, with one A a row: float32 gradients within 1e-4
                  of the lane plus 1e-4 of the largest magnitude, bf16 ones
-                 within one bf16 step plus the same (SSD_BWD_TOL); each
+                 within one bf16 step plus the same (SSD_BWD_TOL), each
+                 case's worst lane reported as a share of its limit; each
                  case run twice, bitwise; at the training layer
                  ``vmap(grad)`` through ``ssd_chunk`` must equal the
                  kernel's gradient bit for bit in one backward launch;
 11b. ``ssd_bwd_timing`` median CUDA-event times of the backward at the
-                 training layer (bf16 and float32 inputs) and of its plain
-                 version, beside the bound (its products over the bf16
-                 tensor cores' 989 TFLOP/s, or its bytes; the products
-                 over the float32 CUDA cores' 67, where it runs them,
-                 beside) and each of its four launches' device ms; no
+                 training layer (bf16 inputs on the tensor cores, float32
+                 on the CUDA cores) and of its plain version, beside the
+                 bound (its products over the bf16 tensor cores' 989
+                 TFLOP/s, or its bytes; the products over the float32 CUDA
+                 cores' 67, where the float32 route runs them, beside) and
+                 each of the bf16 route's three launches' device ms; no
                  PyTorch call computes it;
 12. ``mamba_path`` drives mamba2-2.7b at full width after llama's weights
                  are freed (its ``init_params`` timed on the card): (a) one
@@ -394,8 +396,8 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  ssd_chunk 2 x depth x E times and ssd_chunk_bwd depth x
                  E times, with finite losses; the peak memory and a
                  profiled round whose ssd kernels must be the forward's
-                 tensor-core route and the backward's four kernels at
-                 bf16; then the depth-2 float32 round (K = 2, E = 1, S =
+                 and the backward's tensor-core routes (SSD_BWD_PARTS);
+                 then the depth-2 float32 round (K = 2, E = 1, S =
                  512) against a spawned CPU worker: masks bitwise, loss
                  and delta norm within ZOO_MAMBA_TOL, the delta's leaves
                  within ZOO_MAMBA_LEAF_NORM_TOL and ZOO_MAMBA_LEAF_MAX_TOL.
@@ -4056,16 +4058,14 @@ def zoo_kernels(arch_id: str, L: int, E: int):
         from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_bwd
 
         def names_ok(names):
-            # bf16: the forward's tensor-core route; the backward's four
-            # kernels, the three templated ones at bf16
+            # bf16: the forward's tensor-core route; the backward's three
+            # tensor-core launches, and none of its CUDA-core kernels
             fwd = [n for n in names if "ssd_chunk_kernel" in n]
             bwd = [n for n in names if "ssd_bwd_" in n]
             return (fwd and all("_mma" in n for n in fwd)
                     and len(fwd) + len(bwd) == len(names)
-                    and all(any(f"ssd_bwd_{k}_kernel" in n for n in bwd)
-                            for k in ("states", "scan", "bc", "a"))
-                    and all("bfloat16" in n for n in bwd
-                            if "ssd_bwd_a_kernel" not in n))
+                    and all(any(k in n for n in bwd) for k in SSD_BWD_PARTS)
+                    and all(any(k in n for k in SSD_BWD_PARTS) for n in bwd))
         return ((ssd_chunk, ssd_chunk_bwd),
                 dict(ssd_chunk=2 * L * E, ssd_chunk_bwd=L * E), "ssd_",
                 names_ok)
@@ -4415,6 +4415,10 @@ RAGGED_SSD = (2, 3, 13, 3, 10, 7)        # no dimension a multiple of 4
 # cancel to near zero.
 SSD_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (BF16_STEP, 1e-4)}
 SSD_BWD_NAMES = ("dx", "ddt", "dA", "dBm", "dCm")
+# the bf16 route's launches: the scan kernel (states and scan of 8 heads a
+# block), the B and C pass, dA
+SSD_BWD_PARTS = ("ssd_bwd_kernel_mma", "ssd_bwd_bc_kernel_mma",
+                 "ssd_bwd_a_kernel")
 
 
 def ssd_bwd_inputs(torch, dev, shape, dtype, seed, *, strided=False,
@@ -4452,6 +4456,7 @@ def ssd_grad_through_op(torch, ins, cots):
 
 def ssd_bwd_errors(torch, got, want, dtype):
     """{name: [max |err|, reference max, worst lane over its limit (<= 0
+    passes), the worst lane's error as a share of its limit (<= 1
     passes)]} of the five gradients, and whether all pass."""
     errs, ok = {}, True
     for name, g, w in zip(SSD_BWD_NAMES, got, want):
@@ -4461,7 +4466,8 @@ def ssd_bwd_errors(torch, got, want, dtype):
         low = dtype if name in ("dx", "dBm", "dCm") else torch.float32
         rt, at = SSD_BWD_TOL[str(low).split(".")[-1]]
         worst = float((diff - rt * wf.abs()).max()) - at * scale
-        errs[name] = [float(diff.max()), scale, worst]
+        share = float((diff / (rt * wf.abs() + at * scale)).max())
+        errs[name] = [float(diff.max()), scale, worst, share]
         ok = (ok and worst <= 0.0 and g.dtype == w.dtype
               and g.shape == w.shape and bool(torch.isfinite(gf).all()))
     return errs, ok
@@ -4501,7 +4507,8 @@ def check_ssd_backward(torch, dev):
         max_err[dname] = max([max_err.get(dname, 0.0)]
                              + [e[0] for e in errs.values()])
         row = dict(shape=list(shape), dtype=dname, **kw,
-                   max_abs_err_ref_max_worst_over=errs,
+                   max_abs_err_ref_max_worst_over_share=errs,
+                   worst_share_of_limit=max(e[3] for e in errs.values()),
                    bitwise_rerun=bitwise)
         if kw.get("a_rows"):
             before = ssd_chunk_bwd.launches
@@ -4545,13 +4552,15 @@ def ssd_bwd_work(shape, in_bytes: int):
 
 
 def time_ssd_backward(torch, dev):
-    """The backward at the training layer: bf16 inputs (``ms``), float32
-    (``f32_ms``) and the plain version, beside the bound: the products
-    over the card's peak for bf16 operands, the tensor cores' 989 TFLOP/s,
-    or the bytes, the larger (``bound_f32_cuda_cores_ms``: the products
-    over the float32 CUDA cores' 67, where this kernel runs them); and
-    each of the four launches' device ms (``parts_ms``), from a profile
-    taken again over more calls where the profiler dropped a launch."""
+    """The backward at the training layer: bf16 inputs (``ms``, the
+    tensor-core route), float32 (``f32_ms``, the CUDA cores) and the plain
+    version, beside the bound: the products over the card's peak for bf16
+    operands, the tensor cores' 989 TFLOP/s, or the bytes, the larger
+    (``bound_f32_cuda_cores_ms``: the products over the float32 CUDA
+    cores' 67, where the float32 route runs them); and each of the bf16
+    route's three launches' device ms (``parts_ms``, SSD_BWD_PARTS), from
+    a profile taken again over more calls where the profiler dropped a
+    launch."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd
 
@@ -4575,11 +4584,10 @@ def time_ssd_backward(torch, dev):
                flops=flops, bytes=nbytes)
     row["tflops_per_s"] = flops / row["ms"] / 1e9
     row["bound_share"] = b / row["ms"]
-    # the four launches of a call, by kernel; the profiler drops device
-    # events late in the script (a one-call trace here has come back with
-    # none of them), so a trace missing one is taken again over more calls
-    parts = ("ssd_bwd_states_kernel", "ssd_bwd_scan_kernel",
-             "ssd_bwd_bc_kernel", "ssd_bwd_a_kernel")
+    # the launches of a call, by kernel; the profiler drops device events
+    # late in the script (a one-call trace here has come back with none of
+    # them), so a trace missing one is taken again over more calls
+    parts = SSD_BWD_PARTS
     for steps in (1, 2, 4, 8):
         prof = device_profile(
             torch, lambda: [ssd_chunk_bwd(*ins, *cots) for _ in range(steps)],
@@ -4907,14 +4915,22 @@ def main(argv) -> int:
              replaces_note="no Pallas backward exists: JAX trains by "
                            "jax.grad of the plain _ssd_chunked",
              launches=zoo_mamba["ssd_chunk_bwd"], max_abs_err=ssd_bwd_err,
-             routes={"bfloat16": "CUDA cores in float32 (four launches: "
-                                 "states, scan, B and C, dA; no atomics); "
-                                 "ms",
-                     "float32": "the same kernels; f32_ms"},
+             routes={"bfloat16": "tensor cores (mma.sync m16n8k16; dy, "
+                                 "dstate and D split into bf16 hi + lo, M "
+                                 "into hi + lo with M^T dy's products "
+                                 "hi.hi, hi.lo, lo.hi, each split summed "
+                                 "from zero; three launches: "
+                                 + ", ".join(SSD_BWD_PARTS)
+                                 + ", launched by "
+                                 "ssd_chunk_bwd.launches; no atomics); ms, "
+                                 "parts_ms",
+                     "float32": "CUDA cores in float32 (four launches: "
+                                "states, scan, B and C, dA); f32_ms"},
              shape=list(TRAIN_SSD), a_rows=True,
              **{k: t_ssd_bwd[k] for k in (
-                 "ms", "f32_ms", "plain_ms", "bound_ms", "bound_by",
-                 "bound_f32_cuda_cores_ms", "library_ms")}),
+                 "ms", "queued_ms", "f32_ms", "plain_ms", "bound_ms",
+                 "bound_by", "bound_f32_cuda_cores_ms", "parts_ms",
+                 "library_ms")}),
     ]
     print(gpu_line(), flush=True)
     emit(dict(kernels=kernels))

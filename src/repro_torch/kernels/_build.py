@@ -135,7 +135,7 @@ _SIGNATURES = {
         "ssd_chunk_launch": ([_VP] * 8 + [_I] * 7 + [_I64] * 14 + [_VP], _I),
     },
     "ssd_chunk_bwd": {
-        "ssd_chunk_bwd_workspace_floats": ([_I] * 7, _I64),
+        "ssd_chunk_bwd_workspace_floats": ([_I] * 8, _I64),
         "ssd_chunk_bwd_launch": ([_VP] * 14 + [_I] * 7 + [_I64] * 14
                                  + [_I, _VP], _I),
     },

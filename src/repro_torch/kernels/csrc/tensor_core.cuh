@@ -1,7 +1,8 @@
 // PTX helpers shared by the tensor-core kernels (sm_90a): shared-memory
 // addresses, cp.async copies, ldmatrix and mma.sync m16n8k16 with bf16
 // operands and float32 accumulators; the swizzled tile layout that the
-// flash kernels read with ldmatrix.
+// flash and ssd backward kernels read with ldmatrix, and the staging of a
+// row's 8 bf16 values into it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -82,3 +83,27 @@ struct Swizzle {
         (r * kChunks + (c ^ ((r / kRowsPerLine) & kMask))) * 16);
   }
 };
+
+// Stage 8 bf16 values of a row: `valid` of them are real (none if the row
+// is out), the rest zeros.  With vec, one 16-byte cp.async (valid is then a
+// multiple of 8); otherwise plain loads and one 16-byte shared store.
+__device__ __forceinline__ void stage16(unsigned char* smem, uint32_t off,
+                                        const __nv_bfloat16* src, bool row_in,
+                                        int valid, bool vec,
+                                        const void* any) {
+  const bool in = row_in && valid > 0;
+  if (vec) {
+    cp_async16(smem_u32(smem) + off, in ? static_cast<const void*>(src) : any,
+               in ? 16 : 0);
+    return;
+  }
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const uint32_t lo = in && 2 * e < valid ? s[2 * e] : 0u;
+    const uint32_t hi = in && 2 * e + 1 < valid ? s[2 * e + 1] : 0u;
+    w[e] = lo | (hi << 16);
+  }
+  *reinterpret_cast<uint4*>(smem + off) = make_uint4(w[0], w[1], w[2], w[3]);
+}

@@ -13,8 +13,9 @@ The gradient: the TPU kernel has none (the JAX package differentiates the
 plain ``_ssd_chunked``).  Here ``ssd_chunk`` is a ``torch.autograd.
 Function`` whose backward is a second Function around ``ssd_chunk_bwd``:
 the kernels of ``csrc/ssd_chunk_bwd.cu`` on a CUDA tensor (counted by
-``ssd_chunk_bwd.launches``; float32 on the CUDA cores for float32 and
-bfloat16 inputs), the hand-derived ``ref.ssd_chunk_bwd`` on a CPU tensor.
+``ssd_chunk_bwd.launches``; bfloat16 inputs on the tensor cores, their
+float32 operands split into bf16 terms, float32 inputs on the CUDA cores),
+the hand-derived ``ref.ssd_chunk_bwd`` on a CPU tensor.
 Both Functions carry a ``vmap`` rule that folds the mapped axis into the
 batch, so ``torch.func.vmap(grad(loss))`` over a cohort launches one kernel
 a call for the whole cohort.  A, which each client's weights make its own
@@ -140,8 +141,8 @@ def ssd_chunk_bwd(x, dt, A, Bm, Cm, dy, dstates=None, ddecays=None):
         return dx, ddt, dA.zero_(), dBm.zero_(), dCm.zero_()
     lib = _build.load("ssd_chunk_bwd")
     ws = torch.empty(lib.ssd_chunk_bwd_workspace_floats(
-        B, nc, Q, H, P, N, int(dstates is not None)), dtype=torch.float32,
-        device=x.device)
+        B, nc, Q, H, P, N, int(dstates is not None), _DTYPES[x.dtype]),
+        dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()     # noqa: E731
     err = lib.ssd_chunk_bwd_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),

@@ -620,12 +620,14 @@ def test_mamba2_smoke_prefill_card_matches_cpu(dev):
                                atol=1e-4)
 
 
-# ssd_chunk_bwd.  Kernel and plain version both form every product and sum
-# in float32, in other orders: float32 gradients within 1e-4 of the lane
-# plus 1e-4 of the largest magnitude; bf16 ones (dx, dBm, dCm of bf16
-# inputs) are one float32 result rounded once on each side, so one bf16
-# step of the lane plus 1e-4 of the largest magnitude (chip_smoke.py's
-# SSD_BWD_TOL).
+# ssd_chunk_bwd.  The float32 route forms every product in float32; the
+# bf16 route forms them on the tensor cores, its float32 operands split
+# into bf16 terms (tests/test_torch_ssd_bwd_numerics.py emulates it); both
+# sum in float32, in other orders than the plain version: float32 gradients
+# within 1e-4 of the lane plus 1e-4 of the largest magnitude; bf16 ones
+# (dx, dBm, dCm of bf16 inputs) are one float32 result rounded once on each
+# side, so one bf16 step of the lane plus 1e-4 of the largest magnitude
+# (chip_smoke.py's SSD_BWD_TOL).
 def _check_ssd_bwd(got, want, dtype):
     for name, g, w in zip(("dx", "ddt", "dA", "dBm", "dCm"), got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, name
@@ -666,6 +668,26 @@ def test_ssd_chunk_bwd_kernel_allclose(dev, shape, dtype):
     torch.cuda.synchronize()
     assert ssd_chunk_bwd.launches == before + 1
     _check_ssd_bwd(got, ref.ssd_chunk_bwd(*ins, *cots), dtype)
+    for g, a in zip(got, ssd_chunk_bwd(*ins, *cots)):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 128, 80, 64, 128),
+                                   (2, 3, 40, 12, 24, 56)],
+                         ids=["training_layer", "not_multiples_of_16"])
+def test_ssd_chunk_bwd_bf16_tensor_cores(dev, shape):
+    """The bf16 route (tensor cores) at mamba2-2.7b's training layer as the
+    cohort folds it, one A a row, and at a Q, N and P that are not
+    multiples of 16 (zero-padded to the 16-wide tiles): against
+    ``ref.ssd_chunk_bwd``, one launch, a rerun bitwise."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd
+    ins, cots = _ssd_bwd_inputs(dev, shape, "bfloat16", 17, a_rows=True)
+    before = ssd_chunk_bwd.launches
+    got = ssd_chunk_bwd(*ins, *cots)
+    torch.cuda.synchronize()
+    assert ssd_chunk_bwd.launches == before + 1
+    _check_ssd_bwd(got, ref.ssd_chunk_bwd(*ins, *cots), "bfloat16")
     for g, a in zip(got, ssd_chunk_bwd(*ins, *cots)):
         assert torch.equal(g, a)
 
