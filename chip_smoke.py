@@ -117,7 +117,24 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  at N = 10^6 under both ``topk_impl``s (30 rounds, bitwise
                  the device run; NCCL too with 2 cards), and
                  ``run_spec(RunSpec(mesh_shape=(2,)))`` in the same group,
-                 bitwise main_path's device run; one line a cell;
+                 bitwise main_path's device run, and the same for the
+                 specs of model_axis' other (2, 2) cells; one line a cell;
+5e. ``model_axis`` the (clients, model) mesh: ``RunSpec(mesh_shape=(2,
+                 2))`` and ``(1, 4)`` over 4 gloo ranks on the one card
+                 (one spawn), each rank's parameters and server-optimizer
+                 state its blocks over the model axis: the main path at
+                 (2, 2) (300 rounds), scarce under f3ast at (1, 4) and
+                 under fedadam at both (GRID_ROUNDS), Shakespeare under
+                 fedadam at (2, 2) (PAPER_TASK_ROUNDS), each through
+                 ``run_spec`` inside the group (the (1, 4) f3ast cell on
+                 axes named ``data`` and ``tp``); masks, K_t,
+                 |avail| and r_k bitwise the card's device run of the
+                 same spec (main_path's, scenarios', paper_tasks'), losses
+                 within LOSS_TOL, the final parameters bitwise the
+                 clients phase's (2,) run of the same spec (at (2, 2)) or
+                 the device run (at (1, 4)), ``fed_select_mask`` and
+                 ``fed_aggregate`` once a round on each rank; one line a
+                 cell with its steady ms a round beside the reference's;
 6. ``init``      the card's ``init_params`` of the llama and mamba2 smoke
                  configs (float32 and bfloat16, two seeds) is bitwise
                  the CPU's, which the CPU tests hold to JAX's (A_log within
@@ -259,8 +276,11 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  (b) 8 decode steps through ``serve`` on those weights
                  (batch 4), with no flash launch; (c) on the same drawn
                  weights: the draw by ``init_windows_check``'s windows of
-                 every row; the first MOE_F32_LAYERS (1 each) layers cast to float32 on the card and, in a spawned CPU
-                 worker (from their bf16 copy saved under ``build/``),
+                 every row; the first MOE_F32_LAYERS (1 each) layers cast
+                 to float32 on the card and, in a spawned CPU worker
+                 (from their bf16 copy saved under ``build/``; ATen's
+                 and MKL's ISA pinned by MOE_CPU_ENV, its ISA, threads
+                 and CPU model printed),
                  prefill at S = 512 within 1e-4 with
                  every layer's chosen experts equal (the smallest gap
                  between the 2nd and 3rd probability reported),
@@ -415,6 +435,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -951,19 +972,21 @@ def scenarios(torch, dev):
     with ProcessPoolExecutor(CPU_WORKERS, mp_context=ctx) as pool:
         cpu = [pool.submit(cpu_cell, str(ROOT / "src"), spec_json)
                for _, _, _, spec_json in cells]
+        kept = {}
         try:
-            rows = [check_cell(torch, cell, card_cell(torch, dev, cell,
-                                                      totals, by_mode),
-                               fut.result(), "scenarios", LOSS_TOL,
-                               LOSS_TOL)
-                    for cell, fut in zip(cells, cpu)]
+            for cell, fut in zip(cells, cpu):
+                card = card_cell(torch, dev, cell, totals, by_mode)
+                check_cell(torch, cell, card, fut.result(), "scenarios",
+                           LOSS_TOL, LOSS_TOL)
+                if cell[:2] in MODEL_AXIS_REFS:
+                    kept[cell[:2]] = run_fields(card[0])
         finally:
             for fut in cpu:            # a failed cell fails the phase now
                 fut.cancel()
-    emit(dict(phase="scenarios_summary", cells=len(rows),
+    emit(dict(phase="scenarios_summary", cells=len(cells),
               wall_s=time.perf_counter() - t_phase, cpu_workers=CPU_WORKERS,
               launches=totals, fed_select_launches_by_mode=by_mode))
-    return totals
+    return totals, kept
 
 
 def card_cell(torch, dev, cell, totals, by_mode):
@@ -1372,6 +1395,9 @@ def paper_tasks(torch, dev):
                 check_cell(torch, cell, run, ref, "paper_tasks",
                            PAPER_TASK_LOSS_TOL[cell[0]],
                            PAPER_TASK_DNORM_TOL[cell[0]])
+            kept = {cell[:2]: run_fields(run[0])
+                    for cell, run in zip(cells, card)
+                    if cell[:2] in MODEL_AXIS_REFS}
         finally:
             for fut in cpu:
                 fut.cancel()
@@ -1386,7 +1412,7 @@ def paper_tasks(torch, dev):
                   tf32.sel_history.tobytes() == refs[cifar]["sel"].tobytes()),
               cpu_workers=len(cells), cpu_threads=PAPER_TASK_CPU_THREADS,
               launches=totals, fed_select_launches_by_mode=by_mode))
-    return totals, agg
+    return totals, agg, kept
 
 
 # ---------------------------------------------------------------------------
@@ -1499,7 +1525,8 @@ def run_fields(res) -> dict:
     return dict(sel=res.sel_history, comp=res.comp_history, k_t=res.k_t,
                 n_available=res.n_available, rates=res.rates,
                 train_loss=res.train_loss, delta_norm=res.delta_norm,
-                async_history=res.async_history, final=res.final_metrics)
+                async_history=res.async_history, final=res.final_metrics,
+                params=res.final_params)
 
 
 def cpu_host_async(src: str, spec_json: str, threads: int) -> dict:
@@ -2532,13 +2559,14 @@ def stream_errs(a: dict, b: dict, rounds: int) -> dict:
 
 
 def clients_mesh_rank(mesh, device: str, n: int, rounds: int,
-                      with_run_spec: bool):
+                      with_run_spec: bool, more=()):
     """One rank of cells 4 and 5 of :func:`clients`, in one spawn: the
     sharded engine driven ``rounds`` rounds under each ``topk_impl``,
     then (``with_run_spec``) ``run_spec(RunSpec(mesh_shape=(2,)))``
-    inside this initialized group, as under torchrun.  Each cell's
-    launches on this rank, and from rank 0 its streams, r_k, steady ms
-    and comm bytes (the run_spec cell: its result)."""
+    inside this initialized group, as under torchrun, and the same for
+    each (name, spec JSON) of ``more`` (cell ``"more:" + name``).  Each
+    cell's launches on this rank, and from rank 0 its streams, r_k,
+    steady ms and comm bytes (the run_spec cells: their results)."""
     import torch
     from repro_torch.sim import RunSpec, run_spec
     dev = torch.device(device)
@@ -2563,13 +2591,14 @@ def clients_mesh_rank(mesh, device: str, n: int, rounds: int,
         res, launches, wall = counted(torch, lambda: run_spec(
             RunSpec(mesh_shape=(mesh.size,)), device=dev,
             log_fn=lambda *a: None))
-        out["run_spec"] = dict(
-            launches=launches, wall_s=wall,
-            res=None if not lead else dict(
-                sel=res.sel_history, comp=res.comp_history, k_t=res.k_t,
-                n_available=res.n_available, rates=res.rates,
-                train_loss=res.train_loss, delta_norm=res.delta_norm,
-                final=res.final_metrics))
+        out["run_spec"] = dict(launches=launches, wall_s=wall,
+                               res=run_fields(res) if lead else None)
+    for name, spec_json in more:
+        spec = RunSpec.from_json(spec_json).replace(mesh_shape=(mesh.size,))
+        res, launches, wall = counted(torch, lambda: run_spec(
+            spec, device=dev, log_fn=lambda *a: None))
+        out["more:" + name] = dict(launches=launches, wall_s=wall,
+                                   res=run_fields(res) if lead else None)
     return out
 
 
@@ -2578,7 +2607,7 @@ def add_launches(totals, launches):
         totals[k] += v
 
 
-def clients(torch, dev, main_run):
+def clients(torch, dev, main_run, more=()):
     """The million-client path on the card (the JAX package's N-scaling
     cell, clients synthesized on demand, masks streamed packed):
 
@@ -2598,7 +2627,10 @@ def clients(torch, dev, main_run):
        across cards is ``chip_mesh_nccl.py``'s);
     5. ``run_spec(RunSpec(mesh_shape=(2,)))`` (gloo), 300 rounds, inside
        the same group of 2 spawned ranks: bitwise ``main_path``'s device
-       run, losses and delta norms within LOSS_TOL.
+       run, losses and delta norms within LOSS_TOL; then each (name, spec
+       JSON) of ``more`` the same way (the (2,) runs that ``model_axis``
+       holds its (2, 2) cells' parameters to; ``fed_select_mask`` and
+       ``fed_aggregate`` once a round a rank), returned by name.
     The CPU runs go first, in spawned workers of CLIENTS_CPU_THREADS
     threads, while the card runs."""
     import multiprocessing
@@ -2663,8 +2695,8 @@ def clients(torch, dev, main_run):
         # mesh_shape=(2,) in the same group
         t0 = time.perf_counter()
         ranks = spawn_ranks(clients_mesh_rank, 2, str(dev), CLIENTS_N,
-                            CLIENTS_SHARDED_ROUNDS, True, backend="gloo",
-                            threads=2)
+                            CLIENTS_SHARDED_ROUNDS, True, list(more),
+                            backend="gloo", threads=2)
         spawn_wall = time.perf_counter() - t0
         for r in ranks:
             for cell in r.values():
@@ -2764,13 +2796,166 @@ def clients(torch, dev, main_run):
            and res5["final"]["engine"] == "sharded"
            and launches5["fed_select_mask"] == 2 * rounds5
            and launches5["fed_aggregate"] == 2 * rounds5)
+    more_res = {}
+    for name, _ in more:
+        cells = [r["more:" + name] for r in ranks]
+        res = more_res[name] = cells[0]["res"]
+        launches = {k: sum(c["launches"][k] for c in cells) for k in totals}
+        rounds = int(res["sel"].shape[0])
+        rows.append(dict(
+            phase="clients", cell="run_spec_mesh", run=name, mesh_shape=[2],
+            backend="gloo", rounds=rounds, engine=res["final"]["engine"],
+            steady_round_ms=steady_ms(res["final"]), launches=launches,
+            wall_s=cells[0]["wall_s"]))
+        ok &= (res["final"]["engine"] == "sharded"
+               and launches["fed_select_mask"] == 2 * rounds
+               and launches["fed_aggregate"] == 2 * rounds
+               and bool(np.isfinite(res["train_loss"]).all()))
     for row in rows:
         emit(row)
     emit(dict(phase="clients_summary", cells=len(rows), launches=totals,
               wall_s=time.perf_counter() - t_phase))
     if not ok:
         raise AssertionError("clients: a cell departs from its reference")
-    return totals
+    return totals, res5, more_res
+
+
+# ---------------------------------------------------------------------------
+# model_axis: the (clients, model) mesh on 4 gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# (scenario, strategy) of the earlier phases' card runs the model_axis
+# cells are held to: scenarios' scarce cells (GRID_ROUNDS) and
+# paper_tasks' Shakespeare fedadam cell (PAPER_TASK_ROUNDS)
+MODEL_AXIS_REFS = (("scarce", "f3ast"), ("scarce", "fedadam"),
+                   ("shakespeare", "fedadam"))
+MODEL_AXIS_RANKS = 4
+MODEL_AXIS_THREADS = 2
+
+
+def model_axis_cells():
+    """(cell, mesh shape, spec JSON, reference, parameters' reference) of
+    the phase; every cell's final parameters are bitwise their reference.
+    A (2, 2) cell's parameters are held to the same spec's (2,) run of the
+    ``clients`` phase (``clients_2`` for the main path, ``cell@2`` for the
+    others): the all-gather is exact and slicing commutes with a 2-term
+    sum.  A (1, 4) cell's are the device run's (one client shard sums
+    nothing).  The (1, 4) f3ast cell names its axes ``data`` and ``tp``."""
+    from repro_torch.sim import RunSpec
+    grid = {(sc, algo): js for sc, algo, _, js in scenario_cells()}
+    tasks = {(t, algo): js for t, algo, _, js in paper_task_cells()}
+    main = RunSpec().to_json()
+    renamed = RunSpec.from_json(grid["scarce", "f3ast"]).replace(
+        clients_axis="data", model_axis="tp").to_json()
+    return [
+        ("main_path", (2, 2), main, "main_path", "clients_2"),
+        ("scarce/f3ast", (1, 4), renamed, "scarce/f3ast", "scarce/f3ast"),
+        ("scarce/fedadam", (2, 2), grid["scarce", "fedadam"],
+         "scarce/fedadam", "scarce/fedadam@2"),
+        ("scarce/fedadam", (1, 4), grid["scarce", "fedadam"],
+         "scarce/fedadam", "scarce/fedadam"),
+        ("shakespeare/fedadam", (2, 2), tasks["shakespeare", "fedadam"],
+         "shakespeare/fedadam", "shakespeare/fedadam@2"),
+    ]
+
+
+def model_axis_one_axis_specs():
+    """(name, spec JSON) of the (2,) runs the ``clients`` phase makes for
+    :func:`model_axis_cells`' (2, 2) cells other than the main path."""
+    return [(p_name, js) for _, shape, js, _, p_name in model_axis_cells()
+            if p_name.endswith("@2")]
+
+
+def model_axis_rank(mesh, device: str, cells):
+    """One of the phase's gloo ranks: each (cell, shape, spec JSON) run
+    through ``run_spec(RunSpec(mesh_shape=shape))`` inside this group (as
+    under torchrun: ``run_spec`` builds the mesh over the spec's axis
+    names), with the kernels' launches counted; the global rank 0 also
+    returns each run's fields and whole final parameters."""
+    import torch
+    from repro_torch.sim import RunSpec, run_spec
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    out = []
+    for _, shape, spec_json in cells:
+        spec = RunSpec.from_json(spec_json).replace(mesh_shape=shape)
+        res, launches, wall = counted(torch, lambda: run_spec(
+            spec, device=dev, log_fn=lambda *a: None))
+        out.append(dict(launches=launches, wall_s=wall,
+                        steady_round_ms=steady_ms(res.final_metrics),
+                        res=run_fields(res) if mesh.rank == 0 else None))
+    return out
+
+
+def model_axis(torch, dev, refs):
+    """``RunSpec(mesh_shape=(2, 2))`` and ``(1, 4)`` over MODEL_AXIS_RANKS
+    gloo ranks on the one card (one spawn), every cell of
+    :func:`model_axis_cells`: masks, K_t, |avail| and final r_k bitwise
+    the reference card run, train loss and delta norm within LOSS_TOL,
+    the final parameters bitwise their reference (whose masks, K_t,
+    |avail| and r_k must be the same bits too), and ``fed_select_mask``
+    (each rank's candidate cut) and ``fed_aggregate`` launched once a
+    round on every rank.  ``refs``: {name: run_fields of the reference
+    run}.  Returns the launches and the cells' rounds, summed."""
+    import numpy as np
+    from repro_torch.launch.mesh import spawn_ranks
+
+    cells = model_axis_cells()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(model_axis_rank, MODEL_AXIS_RANKS, str(dev),
+                        [c[:3] for c in cells], backend="gloo",
+                        threads=MODEL_AXIS_THREADS)
+    spawn_wall = time.perf_counter() - t0
+    totals = dict(fed_select=0, fed_select_mask=0, fed_aggregate=0)
+    ok, total_rounds = True, 0
+    for k, (name, shape, _, ref_name, p_name) in enumerate(cells):
+        got = ranks[0][k]["res"]
+        ref, p_ref = refs[ref_name], refs[p_name]
+        rounds = int(got["sel"].shape[0])
+        total_rounds += rounds
+        bit = same_bits(got, ref, SELECTION)
+        p_bit = same_bits(got, p_ref, SELECTION)
+        errs = {f + "_max_abs_err": float(np.abs(got[f] - ref[f]).max())
+                for f in ("train_loss", "delta_norm")}
+        p_same = all(a.tobytes() == b.tobytes()
+                     for a, b in zip(got["params"], p_ref["params"]))
+        p_err = max(float(np.abs(a - b).max())
+                    for a, b in zip(got["params"], p_ref["params"]))
+        launches = {f: sum(r[k]["launches"][f] for r in ranks)
+                    for f in totals}
+        add_launches(totals, launches)
+        want = dict(fed_select=0, fed_select_mask=MODEL_AXIS_RANKS * rounds,
+                    fed_aggregate=MODEL_AXIS_RANKS * rounds)
+        emit(dict(phase="model_axis", cell=name, mesh_shape=list(shape),
+                  backend="gloo", ranks=MODEL_AXIS_RANKS, rounds=rounds,
+                  engine=got["final"]["engine"],
+                  steady_round_ms=ranks[0][k]["steady_round_ms"],
+                  rank_steady_round_ms=[r[k]["steady_round_ms"]
+                                        for r in ranks],
+                  reference_steady_round_ms=steady_ms(ref["final"]),
+                  one_axis_2_steady_round_ms=steady_ms(
+                      refs["clients_2"]["final"]),
+                  wall_s=ranks[0][k]["wall_s"], launches=launches,
+                  launches_per_round={f: v / rounds
+                                      for f, v in launches.items()},
+                  reference=ref_name, bitwise_vs_reference=bit, **errs,
+                  tol=LOSS_TOL, params_reference=p_name,
+                  bitwise_vs_params_reference=p_bit,
+                  params_bitwise=p_same, params_max_abs_diff=p_err,
+                  n_params=[list(a.shape) for a in got["params"]],
+                  test_acc=got["final"]["test_acc"],
+                  reference_test_acc=ref["final"]["test_acc"]))
+        ok &= (all(bit.values()) and all(p_bit.values())
+               and max(errs.values()) <= LOSS_TOL
+               and got["final"]["engine"] == "sharded"
+               and p_same and launches == want
+               and all(np.isfinite(got["train_loss"])))
+    emit(dict(phase="model_axis_summary", cells=len(cells),
+              spawn_wall_s=spawn_wall, launches=totals, gpu=gpu_line()))
+    if not ok:
+        raise AssertionError("model_axis: a cell departs from its "
+                             "reference")
+    return totals, total_rounds
 
 
 # ---------------------------------------------------------------------------
@@ -3256,6 +3441,11 @@ MOE_BLOCK_RTOL = 1e-4       # y's largest gap over y's largest lane
 MOE_LB_RTOL = 1e-6          # lb_loss: a mean over tokens, summed in
 #                             another order on the card
 MOE_CPU_THREADS = 6
+# the worker's float32 arithmetic pinned to one code path on every x86
+# host: ATen's kernels and MKL's GEMMs at AVX2 (chip_moe_cpu_pin.py
+# measures what the thread count and each ISA choice move; ROADMAP.md
+# queue 3 item 1)
+MOE_CPU_ENV = {"ATEN_CPU_CAPABILITY": "avx2", "MKL_CBWR": "AVX2"}
 TIED_ROWS = [[0.125] * 8, [0.1, 0.3, 0.3, 0.3, 0, 0, 0, 0],
              [0.25, 0.25, 0, 0, 0.25, 0.25, 0, 0], [0] * 7 + [1]]
 
@@ -3344,10 +3534,41 @@ def moe_cpu_side(torch, name, params):
                 top_k=(tv.cpu(), ti.cpu()))
 
 
+def cpu_runtime(torch) -> dict:
+    """What this process's float32 CPU arithmetic ran with: the vector ISA
+    ATen's kernels dispatch to, the intra-op threads, MKL's code-path
+    setting and the CPU (model name, vendor and its wide-vector flags from
+    /proc/cpuinfo)."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                key = key.strip()
+                if key in ("model name", "vendor_id", "flags") \
+                        and key not in info:
+                    info[key] = value.strip()
+                if len(info) == 3:
+                    break
+    except OSError:
+        pass
+    flags = set(info.get("flags", "").split())
+    return dict(isa=torch.backends.cpu.get_cpu_capability(),
+                threads=torch.get_num_threads(),
+                mkl_cbwr=os.environ.get("MKL_CBWR"),
+                aten_cpu_capability=os.environ.get("ATEN_CPU_CAPABILITY"),
+                cpu_model=info.get("model name"),
+                cpu_vendor=info.get("vendor_id"),
+                cpu_flags=sorted(f for f in flags if f.startswith(
+                    ("avx512", "amx")) or f in ("avx2", "fma")))
+
+
 def moe_cpu(src: str, name: str, path: str, threads: int, results) -> None:
-    """:func:`moe_cpu_side` on the CPU (a spawned worker), from the card's
-    first layers saved at ``path`` in bfloat16 and cast here; the result
-    goes back as numpy arrays."""
+    """:func:`moe_cpu_side` on the CPU (a spawned worker, MOE_CPU_ENV set
+    before torch is imported), from the card's first layers saved at
+    ``path`` in bfloat16 and cast here; the result goes back as numpy
+    arrays, with what the worker ran with (:func:`cpu_runtime`)."""
+    os.environ.update(MOE_CPU_ENV)
     if src not in sys.path:
         sys.path.insert(0, src)
     import torch
@@ -3364,6 +3585,7 @@ def moe_cpu(src: str, name: str, path: str, threads: int, results) -> None:
         return x.numpy()
     out = to_np(out)
     out["wall_s"] = time.perf_counter() - t0
+    out["runtime"] = cpu_runtime(torch)
     results.put(out)
 
 
@@ -3511,7 +3733,8 @@ def moe_path(torch, dev):
                                                   MOE_BLOCK_GROUP],
                                  flash_launches=card_launches,
                                  cpu_wall_s=cpu["wall_s"],
-                                 cpu_threads=MOE_CPU_THREADS, **check)))
+                                 cpu_threads=MOE_CPU_THREADS,
+                                 cpu_runtime=cpu["runtime"], **check)))
         if not ok:
             raise AssertionError(f"{name} card vs CPU: {check} "
                                  f"({card_launches} launches)")
@@ -4785,11 +5008,20 @@ def main(argv) -> int:
     agg_err = phase("fed_aggregate", check_fed_aggregate, torch, dev)
     timing = phase("timing", time_kernels, torch, dev)
     launches, main_run = phase("main_path", main_path, torch, dev)
-    grid_launches = phase("scenarios", scenarios, torch, dev)
-    task_launches, agg_resnet18 = phase("paper_tasks", paper_tasks, torch,
-                                        dev)
+    grid_launches, grid_refs = phase("scenarios", scenarios, torch, dev)
+    task_launches, agg_resnet18, task_refs = phase("paper_tasks",
+                                                   paper_tasks, torch, dev)
     host_launches = phase("host_async", host_async, torch, dev, main_run)
-    client_launches = phase("clients", clients, torch, dev, main_run)
+    client_launches, clients_2, one_axis = phase(
+        "clients", clients, torch, dev, main_run,
+        model_axis_one_axis_specs())
+    refs = {"/".join(key): run for key, run in {**grid_refs,
+                                                **task_refs}.items()}
+    refs.update(main_path=run_fields(main_run), clients_2=clients_2,
+                **one_axis)
+    axis_launches, axis_rounds = phase("model_axis", model_axis, torch, dev,
+                                       refs)
+    del refs
     phase("init", check_init, torch, dev)
     attn_err = phase("flash_attention", check_flash_attention, torch, dev)
     t_attn = phase("flash_timing", time_flash_attention, torch, dev)
@@ -4844,7 +5076,11 @@ def main(argv) -> int:
              launches=(launches["fed_select_mask"]
                        + grid_launches["fed_select_mask"]
                        + host_launches["fed_select_mask"]
-                       + client_launches["fed_select_mask"]),
+                       + client_launches["fed_select_mask"]
+                       + axis_launches["fed_select_mask"]),
+             launches_model_axis=axis_launches["fed_select_mask"],
+             model_axis_launches_per_round=(
+                 axis_launches["fed_select_mask"] / axis_rounds),
              max_abs_err=mask_err,
              shape=[1 << 20], **{k: t_mask[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
@@ -4856,8 +5092,12 @@ def main(argv) -> int:
                        + task_launches["fed_aggregate"]
                        + host_launches["fed_aggregate"]
                        + client_launches["fed_aggregate"]
+                       + axis_launches["fed_aggregate"]
                        + zoo["fed_aggregate"]
                        + zoo_mamba["fed_aggregate"]),
+             launches_model_axis=axis_launches["fed_aggregate"],
+             model_axis_launches_per_round=(
+                 axis_launches["fed_aggregate"] / axis_rounds),
              max_abs_err=agg_err,
              shape=[10, 1 << 24], **{k: t_agg[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

@@ -24,10 +24,14 @@ Batch layout: every leaf of ``cohort_batch`` has shape (K, E, B, ...).
 With ``cohort_axis`` (a ``launch.mesh.ClientMesh``) the round is the
 client-sharded engine's: each shard trains its slice of the cohort slots,
 reduces its weighted deltas with one ``fed_aggregate`` call and sums the
-shards' Δ with one ``all_reduce`` (JAX's ``psum``).
+shards' Δ with one ``all_reduce`` (JAX's ``psum``).  With ``model_axis``
+too (the model axis of the (clients, model) mesh) the parameters and the
+server optimizer's state are stored as this rank's blocks: the round
+gathers them to full width, trains, and keeps its block of Δ.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import torch
@@ -36,7 +40,9 @@ from torch.func import grad_and_value, vmap
 from ..kernels.fed_aggregate import fed_aggregate, fed_aggregate_tree
 from ..optim.optimizers import Optimizer, apply_updates
 from ..remat import checkpoint
-from ..tree import tree_leaves, tree_map
+from ..sharding.rules import (gather_full, local_blocks, model_dim,
+                              specs_up_to)
+from ..tree import tree_leaves, tree_map, tree_unflatten
 from .aggregation import streaming_aggregate_add, streaming_aggregate_init
 
 
@@ -107,29 +113,49 @@ def make_fed_round(loss_fn: Callable, server_opt: Optimizer, *,
     ``remat`` recomputes each local step's activations in its backward
     instead of keeping them (the same values, less memory).
     ``acc_dtype`` is the sequential mode's Δ accumulator (float32 by
-    default).  The model axis of the (clients, model) mesh
-    (``model_axis``, ``param_specs``, ``param_shardings``) is not ported
-    and raises ``NotImplementedError`` (ROADMAP.md queue 1 item 11).
+    default).  ``param_shardings`` (the sequential mode's FSDP carries)
+    is not ported and raises ``NotImplementedError`` (ROADMAP.md queue 1
+    item 11, its second half).
 
-    ``cohort_axis``: the client mesh (a ``launch.mesh.ClientMesh``) of the
-    sharded engine.  The returned function then takes this shard's slice
-    of the cohort (batch, weights and a ``slot_mask`` flagging the slots
-    of the real K-slot cohort against the shard-count padding), trains it
-    in parallel mode, and sums Δ, the loss and the gradient norm over the
-    shards; ``cohort_slots`` is the real cohort size K the loss and
-    gradient-norm means divide by, as the single-device mean over K
+    ``cohort_axis``: the client mesh axis (a ``launch.mesh.ClientMesh``)
+    of the sharded engine.  The returned function then takes this shard's
+    slice of the cohort (batch, weights and a ``slot_mask`` flagging the
+    slots of the real K-slot cohort against the shard-count padding),
+    trains it in parallel mode, and sums Δ, the loss and the gradient norm
+    over the shards; ``cohort_slots`` is the real cohort size K the loss
+    and gradient-norm means divide by, as the single-device mean over K
     slots.  The sum order differs from the single-device round's, so the
     sharded round is held to it within float tolerance, not bitwise.
+
+    ``model_axis`` (with ``cohort_axis``): the model mesh axis (a
+    ``ClientMesh``) over which the stored parameters and optimizer state
+    are split, leaf by leaf as ``param_specs`` says (a spec tree from
+    ``sharding.rules.model_specs``, whose entries name the axis by
+    ``model_axis.axis``).  The round all-gathers each split leaf along its
+    model dim (exact), trains the cohort slice at full width (every rank
+    of the model axis computes the same), aggregates all of Δ with one
+    ``fed_aggregate`` call, slices this rank's block of each leaf out of
+    it before the clients-axis ``all_reduce`` (slicing commutes with the
+    sum, so the blocks are the 1-D round's Δ sliced) and applies the
+    elementwise server update to the blocks.  The delta norm adds the
+    replicated leaves' sum of squares to the model-axis ``all_reduce`` of
+    the split leaves' partial sums.  The returned function carries the
+    spec tree as ``param_specs`` (None without a model axis), by which
+    ``sim.engine_sharded.ShardedEngine`` stores its blocks.
     """
     if mode not in ("parallel", "sequential"):
         raise ValueError(f"mode must be 'parallel' or 'sequential', "
                          f"got {mode!r}")
-    if (model_axis is not None or param_specs is not None
-            or param_shardings is not None):
+    if param_shardings is not None:
         raise NotImplementedError(
-            "make_fed_round's model axis (model_axis=, param_specs=, "
-            "param_shardings=) is not ported yet: ROADMAP.md queue 1 "
-            "item 11")
+            "make_fed_round(param_shardings=), the sequential mode's FSDP "
+            "carries, is not ported yet: the step builders with shardings "
+            "are ROADMAP.md queue 1 item 11, its second half")
+    if (model_axis is not None or param_specs is not None) \
+            and cohort_axis is None:
+        raise ValueError("model_axis and param_specs split the sharded "
+                         "engine's stored parameters: they need "
+                         "cohort_axis=")
     if remat:
         loss_fn = _rematted(loss_fn)
     if cohort_axis is not None:
@@ -137,8 +163,13 @@ def make_fed_round(loss_fn: Callable, server_opt: Optimizer, *,
             raise ValueError("sharded cohort execution is parallel-mode")
         if cohort_slots is None:
             raise ValueError("cohort_axis needs cohort_slots=K")
+        if model_axis is not None and param_specs is None:
+            raise ValueError("model_axis needs param_specs (a spec tree "
+                             "from sharding.rules.model_specs)")
+        if model_axis is None and param_specs is not None:
+            raise ValueError("param_specs needs model_axis=")
         return _sharded_round(loss_fn, server_opt, prox_mu, cohort_axis,
-                              int(cohort_slots))
+                              int(cohort_slots), model_axis, param_specs)
 
     def cohort_parallel(params, cohort_batch, weights, lr):
         deltas, losses, gnorms = vmap(
@@ -176,15 +207,18 @@ def make_fed_round(loss_fn: Callable, server_opt: Optimizer, *,
 
 
 def _sharded_round(loss_fn: Callable, server_opt: Optimizer, prox_mu: float,
-                   axis, cohort_slots: int):
-    """The parallel round over one shard's cohort slots, its Δ and
-    metrics summed over the mesh ``axis`` in one ``all_reduce``."""
-
+                   axis, cohort_slots: int, model_axis=None,
+                   param_specs=None):
+    """The parallel round over one shard's cohort slots, its Δ (this
+    rank's blocks of it, with a ``model_axis``) and metrics summed over
+    the clients ``axis`` in one ``all_reduce``."""
     def fed_round_sharded(params, opt_state, cohort_batch, weights,
                           client_lr, slot_mask):
         lr = float(client_lr)
+        p_full = (params if model_axis is None
+                  else gather_full(params, param_specs, model_axis))
         deltas, losses, gnorms = vmap(
-            lambda b: _local_sgd(loss_fn, params, b, lr, prox_mu))(
+            lambda b: _local_sgd(loss_fn, p_full, b, lr, prox_mu))(
                 cohort_batch)
         leaves = tree_leaves(deltas)
         k_rows = leaves[0].shape[0]
@@ -192,16 +226,41 @@ def _sharded_round(loss_fn: Callable, server_opt: Optimizer, prox_mu: float,
         part = fed_aggregate(flat, weights.to(torch.float32))
         sums = torch.stack([(losses * slot_mask).sum(),
                             (gnorms * slot_mask).sum()]).to(part.dtype)
+        if model_axis is None:
+            shapes = [x.shape[1:] for x in leaves]
+        else:
+            # this rank's block of each leaf of the whole Δ
+            pieces = torch.split(part, [x[0].numel() for x in leaves])
+            whole = tree_unflatten(params, [
+                p.reshape(x.shape[1:]) for p, x in zip(pieces, leaves)])
+            blocks = tree_leaves(local_blocks(whole, param_specs,
+                                              model_axis))
+            part = torch.cat([b.reshape(-1) for b in blocks])
+            shapes = [b.shape for b in blocks]
         total = axis.all_reduce(torch.cat([part, sums]))
-        pieces = iter(torch.split(total[:-2],
-                                  [x[0].numel() for x in leaves]))
-        delta = tree_map(lambda x: next(pieces).reshape(x.shape[1:]),
-                         deltas)
+        pieces = iter(torch.split(total[:-2], [math.prod(s) for s in shapes]))
+        shape_it = iter(shapes)
+        delta = tree_map(lambda _: next(pieces).reshape(next(shape_it)),
+                         params)
         loss, gnorm = total[-2] / cohort_slots, total[-1] / cohort_slots
-        dnorm = torch.sqrt(_sq_norm(delta))
+        if model_axis is None:
+            dnorm = torch.sqrt(_sq_norm(delta))
+        else:
+            # the replicated leaves are whole on every rank of the model
+            # axis: counted once, the split ones summed over it
+            sq = {True: [], False: []}
+            for x, spec in zip(tree_leaves(delta),
+                               specs_up_to(params, param_specs)):
+                split = model_dim(spec, model_axis.axis) is not None
+                sq[split].append(torch.sum(x * x).to(torch.float32))
+            zero = torch.zeros((), dtype=torch.float32, device=part.device)
+            dnorm = torch.sqrt(sum(sq[False], zero)
+                               + model_axis.all_reduce(sum(sq[True], zero)))
         updates, opt_state = server_opt.update(delta, opt_state, params)
         params = apply_updates(params, updates)
         return params, opt_state, RoundMetrics(loss=loss, delta_norm=dnorm,
                                                grad_norm=gnorm)
 
+    # the layout the sharded engine stores its carry by
+    fed_round_sharded.param_specs = param_specs
     return fed_round_sharded

@@ -20,8 +20,9 @@ Unselected cohort slots repeat a valid client and get zero weight.
   client data is staged at all; each round synthesizes the selected
   cohort's (K, S, ...) block and gathers from it with the same draw.
 
-Under a client mesh (the sharded engine) each rank stages only its own
-block of the client dimension, padded to a multiple of (mesh size × 32).
+Under a mesh (the sharded engine) each rank stages only its own block of
+the client dimension, padded to a multiple of (the clients axis' size ×
+32); the ranks of a model axis stage the same block.
 """
 from __future__ import annotations
 
@@ -102,14 +103,15 @@ SHARD_PAD_QUANTUM = 32
 
 
 def stage_client_arrays(arrays: dict, counts: np.ndarray, device, *,
-                        mesh=None) -> StagedData:
+                        mesh=None, axis: str = "clients") -> StagedData:
     """Place pre-stacked per-client arrays ({feature: (N, S, ...)}, counts
     (N,)) on ``device`` as a :class:`StagedData`.
 
-    ``mesh=None``: every client.  With a client mesh (a
-    ``launch.mesh.ClientMesh``) the client dimension is padded to a
-    multiple of (mesh size × 32) and this rank stages only its own block
-    ``[rank · nl, (rank + 1) · nl)`` of the arrays; ``counts`` stay whole
+    ``mesh=None``: every client.  With a mesh (``launch.mesh``) the
+    client dimension is padded to a multiple of (the size of its ``axis``
+    × 32) and this rank stages only its own block ``[i · nl, (i + 1) ·
+    nl)`` of the arrays, i its index on that axis (replicated over a
+    model axis, as JAX's ``P(axis)`` specs place it); ``counts`` stay whole
     (n_pad,), read for any cohort id on every rank, and a padded client
     gets sample count 1 so a bounded ``randint`` stays defined (it is
     never selected).  Zero rows pad the arrays."""
@@ -119,11 +121,12 @@ def stage_client_arrays(arrays: dict, counts: np.ndarray, device, *,
             arrays={k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                     for k, v in arrays.items()},
             counts=torch.from_numpy(counts).to(device))
+    cm = mesh.axis_mesh(axis)
     n = counts.shape[0]
-    quantum = mesh.size * SHARD_PAD_QUANTUM
+    quantum = cm.size * SHARD_PAD_QUANTUM
     n_pad = -(-n // quantum) * quantum
-    nl = n_pad // mesh.size
-    lo = mesh.rank * nl
+    nl = n_pad // cm.size
+    lo = cm.rank * nl
     m = max(0, min(lo + nl, n) - lo)
     placed = {}
     for name, arr in arrays.items():
@@ -137,7 +140,7 @@ def stage_client_arrays(arrays: dict, counts: np.ndarray, device, *,
 
 
 def stage_synth_task(task: SynthTask, device, *, mesh=None,
-                     block: int = 8192) -> StagedData:
+                     axis: str = "clients", block: int = 8192) -> StagedData:
     """Materialize a :class:`SynthTask` into :class:`StagedData`, generated
     in blocks of ``block`` clients through the same keyed generator the
     on-demand path uses (on ``device``), so ``staged_cohort_batch`` on the
@@ -153,7 +156,7 @@ def stage_synth_task(task: SynthTask, device, *, mesh=None,
         for name, v in blk.items():
             arrays[name][lo:lo + ids.shape[0]] = v
     return stage_client_arrays(arrays, task.counts().numpy(), device,
-                               mesh=mesh)
+                               mesh=mesh, axis=axis)
 
 
 @dataclasses.dataclass
@@ -170,9 +173,10 @@ class CohortSampler:
     def __post_init__(self):
         self._rng = np.random.default_rng(self.seed)
 
-    def stage_device(self, device, mesh=None) -> StagedData:
+    def stage_device(self, device, mesh=None,
+                     axis: str = "clients") -> StagedData:
         """Stage every client's train split onto ``device`` (one transfer);
-        with a client ``mesh``, this rank's padded block of it
+        with a ``mesh``, this rank's padded block of it over ``axis``
         (:func:`stage_client_arrays`)."""
         clients = self.data.clients
         counts = np.asarray(
@@ -185,7 +189,8 @@ class CohortSampler:
             for i, c in enumerate(clients):
                 stacked[i, :counts[i]] = c.train[name]
             arrays[name] = stacked
-        return stage_client_arrays(arrays, counts, device, mesh=mesh)
+        return stage_client_arrays(arrays, counts, device, mesh=mesh,
+                                   axis=axis)
 
     def cohort_batch(self, selected: Sequence[int],
                      key: Optional[torch.Tensor] = None):

@@ -1,29 +1,44 @@
-"""The client mesh of the sharded engine over ``torch.distributed`` (port
-of ``repro.launch.mesh``'s ``make_client_mesh`` and ``make_fed_mesh``).
+"""The meshes of the sharded engine over ``torch.distributed`` (port of
+``repro.launch.mesh``'s ``make_client_mesh`` and ``make_fed_mesh``).
 
 JAX runs one process over a ``shard_map``; the port runs one process a
-shard, each with the same round body, and a :class:`ClientMesh` carries
-what a shard needs to know of the others: its rank (``axis_index``), the
-mesh size, the axis name and the process group.  Its three collectives are
-the ones the engine's round is made of:
+rank, each with the same round body.  A :class:`ClientMesh` is one mesh
+axis as a rank sees it: its index on the axis (``axis_index``), the
+axis' size and name, and the axis' process group.  Its three collectives
+are the ones the engine's round is made of:
 
-* :meth:`ClientMesh.all_reduce` — ``psum`` (a sum over ranks);
-* :meth:`ClientMesh.all_gather` — ``all_gather(tiled=True)`` (the ranks'
-  blocks concatenated in rank order);
+* :meth:`ClientMesh.all_reduce` — ``psum`` (a sum over the axis);
+* :meth:`ClientMesh.all_gather` — ``all_gather(tiled=True)`` (the axis'
+  blocks concatenated in axis order, along any dim);
 * :meth:`ClientMesh.exchange` — ``ppermute`` (a paired ``send``/``recv``
-  through ``batch_isend_irecv``).
+  through ``batch_isend_irecv``; the peers are axis indices, mapped to
+  their global ranks).
 
-A mesh of one shard needs no process group: every collective is the
-identity.  :func:`spawn_ranks` starts the ranks of a mesh on this host
+A 1-D ``(c,)`` mesh is the :class:`ClientMesh` of its one axis over the
+default group.  A 2-D ``(c, m)`` mesh is a :class:`FedMesh`: c × m ranks
+laid out row-major as JAX's ``_grid_mesh`` lays its devices out (global
+rank = client index × m + model index), with a ``ClientMesh`` for each
+axis (:meth:`FedMesh.axis_mesh`): the clients axis over the c ranks that
+share a model index, the model axis over the m ranks that share a client
+index.  An axis of one rank needs no process group (every collective is
+the identity); an axis over every rank takes the default group.  The
+others are ``dist.new_group`` groups, which every rank creates, all of
+them in the same order.  ``torch.distributed.device_mesh`` is not used:
+it binds each rank to a card of its own, and the gloo ranks of a mesh on
+one card share it.
+
+:func:`spawn_ranks` starts the ranks of a mesh on this host
 (``torch.multiprocessing``, start method ``spawn``), each with its own
 process group, and returns what each rank's function returned.
 
-Only the 1-D ``(c,)`` mesh is ported: the ``(clients, model)`` mesh and
-the production meshes are ROADMAP.md queue 1 item 11.
+``make_production_mesh``, ``make_debug_mesh`` and ``data_axes`` serve the
+step builders with shardings, which are not ported (ROADMAP.md queue 1
+item 11, its second half).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import queue
 import tempfile
@@ -33,46 +48,68 @@ from typing import Any, Callable, Optional
 import torch
 import torch.distributed as dist
 
-__all__ = ["ClientMesh", "make_client_mesh", "make_fed_mesh",
+__all__ = ["ClientMesh", "FedMesh", "make_client_mesh", "make_fed_mesh",
+           "make_production_mesh", "make_debug_mesh", "data_axes",
            "spawn_ranks"]
+
+_SECOND_HALF = ("is not ported to repro_torch yet: the step builders with "
+                "shardings are ROADMAP.md queue 1 item 11, its second half")
 
 
 @dataclasses.dataclass(frozen=True)
 class ClientMesh:
-    """A 1-D ``(clients,)`` mesh: this process's ``rank`` of ``size``
-    shards over the process ``group`` (the default group; None for one
-    shard), whose ``backend`` is ``"gloo"`` or ``"nccl"``."""
+    """One mesh axis as this process sees it: its index ``rank`` of the
+    axis' ``size`` ranks, named ``axis``, over the process ``group``
+    (None for one rank), whose ``backend`` is ``"gloo"`` or ``"nccl"``.
+    ``ranks`` are the axis' members' global ranks in axis order (None: the
+    default group, whose index is the global rank)."""
 
     rank: int = 0
     size: int = 1
     axis: str = "clients"
     group: Any = None
     backend: Optional[str] = None
+    ranks: Optional[tuple] = None
+
+    @property
+    def shape(self) -> dict:
+        """{axis name: size}, as a JAX mesh's ``shape``."""
+        return {self.axis: self.size}
+
+    @property
+    def axis_names(self) -> tuple:
+        return (self.axis,)
+
+    def axis_mesh(self, name: str) -> "ClientMesh":
+        """The mesh's axis ``name``: this mesh itself."""
+        if name != self.axis:
+            raise ValueError(f"mesh {self.axis_names} has no {name!r} axis")
+        return self
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """``psum``: the elementwise sum of ``t`` over the ranks, the same
-        on every rank."""
+        """``psum``: the elementwise sum of ``t`` over the axis, the same
+        on every rank of it."""
         if self.size == 1:
             return t
         buf = t.clone()
         dist.all_reduce(buf, group=self.group)
         return buf
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """``all_gather(tiled=True)``: the ranks' ``t`` concatenated along
-        dim 0 in rank order."""
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """``all_gather(tiled=True)``: the axis' ``t`` concatenated along
+        ``dim`` in axis order."""
         if self.size == 1:
             return t
         if t.dtype == torch.bool:          # gathered as bytes
-            return self.all_gather(t.to(torch.uint8)).to(torch.bool)
+            return self.all_gather(t.to(torch.uint8), dim).to(torch.bool)
         src = t.contiguous()
         bufs = [torch.empty_like(src) for _ in range(self.size)]
         dist.all_gather(bufs, src, group=self.group)
-        return torch.cat(bufs)
+        return torch.cat(bufs, dim=dim)
 
     def exchange(self, t: torch.Tensor, dst: int, src: int) -> torch.Tensor:
-        """One step of ``ppermute``: send ``t`` to shard ``dst`` and
-        receive a tensor of its shape and dtype from shard ``src``."""
+        """One step of ``ppermute``: send ``t`` to the axis' index ``dst``
+        and receive a tensor of its shape and dtype from index ``src``."""
         if self.size == 1:
             return t
         # gloo's point-to-point ops take host tensors only (its
@@ -82,11 +119,63 @@ class ClientMesh:
         host = self.backend == "gloo" and t.is_cuda
         out = t.cpu() if host else t.contiguous()
         buf = torch.empty_like(out)
-        ops = [dist.P2POp(dist.isend, out, dst, self.group),
-               dist.P2POp(dist.irecv, buf, src, self.group)]
+        # a P2POp's peer is a global rank, also in a group of a few ranks
+        to, frm = ((dst, src) if self.ranks is None
+                   else (self.ranks[dst], self.ranks[src]))
+        ops = [dist.P2POp(dist.isend, out, to, self.group),
+               dist.P2POp(dist.irecv, buf, frm, self.group)]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return buf.to(t.device) if host else buf
+
+
+@dataclasses.dataclass(frozen=True)
+class FedMesh:
+    """A 2-D (clients, model) mesh as this process sees it: its global
+    ``rank`` of ``size`` and one :class:`ClientMesh` an axis (``axes``,
+    in the mesh's order)."""
+
+    axes: tuple
+    rank: int = 0
+    backend: Optional[str] = None
+
+    @property
+    def size(self) -> int:
+        return math.prod(a.size for a in self.axes)
+
+    @property
+    def shape(self) -> dict:
+        """{axis name: size}, as a JAX mesh's ``shape``."""
+        return {a.axis: a.size for a in self.axes}
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(a.axis for a in self.axes)
+
+    def axis_mesh(self, name: str) -> ClientMesh:
+        """The :class:`ClientMesh` of axis ``name``: this rank's index on
+        it and its collectives."""
+        for a in self.axes:
+            if a.axis == name:
+                return a
+        raise ValueError(f"mesh {self.axis_names} has no {name!r} axis")
+
+
+def _validate_axis_names(axis_names) -> tuple:
+    names = tuple(axis_names)
+    if not all(isinstance(a, str) and a for a in names):
+        raise ValueError(f"mesh axis names must be non-empty strings: "
+                         f"{names!r}")
+    if len(set(names)) != len(names):
+        raise ValueError(f"mesh axis names collide: {names!r}")
+    return names
+
+
+def _group_size() -> Optional[int]:
+    """The default group's size, None when no group is initialized."""
+    if not dist.is_available() or not dist.is_initialized():
+        return None
+    return dist.get_world_size(dist.group.WORLD)
 
 
 def make_client_mesh(num_shards: Optional[int] = None, *,
@@ -94,7 +183,8 @@ def make_client_mesh(num_shards: Optional[int] = None, *,
     """The 1-D mesh over the default process group (no group at all for
     one shard).  ``num_shards`` (None or <= 0: the group's size) must
     equal the group's size: each process is one shard."""
-    if not dist.is_available() or not dist.is_initialized():
+    size = _group_size()
+    if size is None:
         if num_shards not in (None, 0, 1) and (num_shards or 0) > 0:
             raise RuntimeError(
                 f"a client mesh of {num_shards} shards needs an initialized "
@@ -102,7 +192,6 @@ def make_client_mesh(num_shards: Optional[int] = None, *,
                 f"(run_spec launches them itself when none is initialized)")
         return ClientMesh(axis=axis_name)
     group = dist.group.WORLD
-    size = dist.get_world_size(group)
     if num_shards is not None and num_shards > 0 and num_shards != size:
         raise ValueError(f"mesh of {num_shards} shards over a process group "
                          f"of {size} ranks: one rank a shard")
@@ -110,20 +199,86 @@ def make_client_mesh(num_shards: Optional[int] = None, *,
                       group=group, backend=dist.get_backend(group))
 
 
-def make_fed_mesh(mesh_shape, *,
-                  axis_names=("clients", "model")) -> ClientMesh:
-    """``(c,)`` → :func:`make_client_mesh` (0: the group's size).  A 2-D
-    ``(c, m)`` mesh raises ``NotImplementedError``."""
+def _axis(index: int, members_by_line: list, line: int, name: str,
+          world: int, backend) -> tuple:
+    """(the groups of one axis, one a line of the grid; this rank's
+    ClientMesh on it).  Every rank calls this for every axis in the same
+    order: ``dist.new_group`` is collective over the default group."""
+    size = len(members_by_line[0])
+    if size == 1:
+        return ClientMesh(axis=name)
+    if size == world:
+        return ClientMesh(rank=index, size=size, axis=name,
+                          group=dist.group.WORLD, backend=backend)
+    groups = [dist.new_group(list(m)) for m in members_by_line]
+    return ClientMesh(rank=index, size=size, axis=name, group=groups[line],
+                      backend=backend, ranks=tuple(members_by_line[line]))
+
+
+def make_fed_mesh(mesh_shape, *, axis_names=("clients", "model")):
+    """``(c,)`` → :func:`make_client_mesh` (0: the group's size);
+    ``(c, m)`` → the :class:`FedMesh` of c × m ranks, row-major, over the
+    default group (its size must be c × m; at most one entry may be 0,
+    meaning the group's size divided by the other).  With no group
+    initialized only a mesh of one rank can be made."""
     shape = tuple(int(s) for s in mesh_shape)
-    if len(shape) == 2:
-        raise NotImplementedError(
-            f"mesh_shape {shape}: the (clients, model) mesh is not ported "
-            f"to repro_torch yet (ROADMAP.md queue 1 item 11); use a 1-D "
-            f"mesh_shape (c,)")
-    if len(shape) != 1 or shape[0] < 0:
-        raise ValueError(f"mesh_shape must be (c,) with c >= 0, got "
-                         f"{mesh_shape!r}")
-    return make_client_mesh(shape[0], axis_name=axis_names[0])
+    if len(shape) not in (1, 2) or any(s < 0 for s in shape):
+        raise ValueError(f"mesh_shape must be 1 or 2 non-negative ints, "
+                         f"got {mesh_shape!r}")
+    names = _validate_axis_names(axis_names)[:len(shape)]
+    if len(shape) == 1:
+        return make_client_mesh(shape[0], axis_name=names[0])
+    if len(names) != 2:
+        raise ValueError(f"mesh shape {shape} has 2 dims but "
+                         f"{len(names)} axis names: {names!r}")
+    if shape.count(0) > 1:
+        raise ValueError(f"at most one mesh_shape entry may be 0 (= fill "
+                         f"with the group's ranks), got {mesh_shape!r}")
+    world = _group_size()
+    if 0 in shape:
+        fill = (world or 1) // max(shape)
+        if fill < 1:
+            raise ValueError(f"mesh_shape {mesh_shape!r} cannot be filled: "
+                             f"the group has {world or 1} ranks")
+        shape = tuple(s if s else fill for s in shape)
+    c, m = shape
+    if world is None:
+        if c * m != 1:
+            raise RuntimeError(
+                f"a (clients, model) mesh of {c} x {m} ranks needs an "
+                f"initialized torch.distributed process group of {c * m} "
+                f"ranks (run_spec launches them itself when none is "
+                f"initialized)")
+        return FedMesh(axes=(ClientMesh(axis=names[0]),
+                             ClientMesh(axis=names[1])))
+    if c * m != world:
+        raise ValueError(f"mesh of {c} x {m} ranks over a process group of "
+                         f"{world} ranks: one rank a mesh position")
+    rank = dist.get_rank(dist.group.WORLD)
+    backend = dist.get_backend(dist.group.WORLD)
+    i, j = divmod(rank, m)
+    clients = _axis(i, [[r * m + jj for r in range(c)] for jj in range(m)],
+                    j, names[0], world, backend)
+    model = _axis(j, [[ii * m + r for r in range(m)] for ii in range(c)],
+                  i, names[1], world, backend)
+    return FedMesh(axes=(clients, model), rank=rank, backend=backend)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production (data, model) mesh: raises ``NotImplementedError``."""
+    raise NotImplementedError(f"make_production_mesh {_SECOND_HALF}")
+
+
+def make_debug_mesh():
+    """The (n, 1) (data, model) debug mesh: raises
+    ``NotImplementedError``."""
+    raise NotImplementedError(f"make_debug_mesh {_SECOND_HALF}")
+
+
+def data_axes(mesh) -> tuple:
+    """The axes carrying batch and FSDP splits: raises
+    ``NotImplementedError``."""
+    raise NotImplementedError(f"data_axes {_SECOND_HALF}")
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +286,8 @@ def make_fed_mesh(mesh_shape, *,
 # ---------------------------------------------------------------------------
 
 def _rank_main(rank: int, size: int, init_method: str, backend: str,
-               threads: int, fn: Callable, args: tuple, results) -> None:
+               threads: int, fn: Callable, args: tuple, results,
+               mesh_shape=None, axis_names=("clients", "model")) -> None:
     """One spawned rank: join the group, run ``fn(mesh, *args)``, report
     ``(rank, ok, value or traceback)``."""
     try:
@@ -141,7 +297,9 @@ def _rank_main(rank: int, size: int, init_method: str, backend: str,
         dist.init_process_group(backend, init_method=init_method,
                                 world_size=size, rank=rank)
         try:
-            value = fn(make_client_mesh(size), *args)
+            mesh = (make_client_mesh(size) if mesh_shape is None else
+                    make_fed_mesh(mesh_shape, axis_names=axis_names))
+            value = fn(mesh, *args)
         finally:
             dist.destroy_process_group()
         results.put((rank, True, value))
@@ -150,13 +308,16 @@ def _rank_main(rank: int, size: int, init_method: str, backend: str,
 
 
 def spawn_ranks(fn: Callable, size: int, *args, backend: str = "gloo",
-                threads: Optional[int] = None) -> list:
+                threads: Optional[int] = None, mesh_shape=None,
+                axis_names=("clients", "model")) -> list:
     """Run ``fn(mesh, *args)`` in ``size`` spawned processes, one a shard
     of a ``(size,)`` :class:`ClientMesh` over a new process group
     (``backend``; its store a file in a fresh temporary directory), and
-    return the ranks' values in rank order.  ``fn`` and ``args`` must
-    pickle (a module-level function).  ``threads`` is each rank's
-    intra-op thread count (default: this process's share).  A rank that
+    return the ranks' values in rank order.  With ``mesh_shape`` (c × m
+    = ``size``) the mesh is ``make_fed_mesh(mesh_shape, axis_names=)``.
+    ``fn`` and ``args`` must pickle (a module-level function).
+    ``threads`` is each rank's intra-op thread count (default: this
+    process's share).  A rank that
     fails fails the call with its traceback, after every rank is
     stopped."""
     if threads is None:
@@ -167,7 +328,8 @@ def spawn_ranks(fn: Callable, size: int, *args, backend: str = "gloo",
         init = "file://" + os.path.join(tmp, "store")
         procs = [ctx.Process(target=_rank_main,
                              args=(r, size, init, backend, threads, fn, args,
-                                   results), daemon=True)
+                                   results, mesh_shape, axis_names),
+                             daemon=True)
                  for r in range(size)]
         for p in procs:
             p.start()

@@ -7,8 +7,10 @@
   decode  — one serve step against the KV caches or recurrent state
             (``build_decode_step``)
 
-``build_step`` dispatches by the shape's kind.  All run on one card: no
-mesh and no shardings (ROADMAP.md queue 1 item 11).
+``build_step`` dispatches by the shape's kind.  All run on one card: a
+``mesh=`` (JAX's sharded programs) raises ``NotImplementedError`` (the
+step builders with shardings are ROADMAP.md queue 1 item 11, its second
+half).
 """
 from __future__ import annotations
 
@@ -23,7 +25,15 @@ from . import specs as S
 _ACC_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def build_train_step(arch: ArchSpec, shape_name: str):
+def _one_card(name: str, mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{name}(mesh=...): the step builders with shardings are not "
+            f"ported yet (ROADMAP.md queue 1 item 11, its second half); "
+            f"without a mesh the program runs on one card")
+
+
+def build_train_step(arch: ArchSpec, shape_name: str, mesh=None):
     """The F3AST federated round of ``arch`` at a train shape, as the JAX
     package builds it: ``cfg.remat`` from ``arch.fed.remat`` (per-layer
     checkpoints), ``arch.fed.server_opt`` (lr 1.0 for sgd, else 1e-3), the
@@ -39,6 +49,7 @@ def build_train_step(arch: ArchSpec, shape_name: str):
     family's the ssd_chunk_bwd kernel, and the hybrid's RG-LRU is plain
     torch.  A vlm's batch also holds its ``patch_embeds``, the audio
     family's its ``frames`` (``specs.cohort_batch_specs``)."""
+    _one_card("build_train_step", mesh)
     cfg = arch.model_for_shape(shape_name).replace(remat=arch.fed.remat)
     batch_shapes = S.cohort_batch_specs(arch, shape_name)
     api = get_model_api(cfg)
@@ -64,18 +75,19 @@ def _check_kind(shape_name: str, kind: str) -> None:
         raise ValueError(f"the {kind} shapes are {names}{where}")
 
 
-def build_prefill_step(arch: ArchSpec, shape_name: str):
+def build_prefill_step(arch: ArchSpec, shape_name: str, mesh=None):
     """Returns ``(prefill, batch_shapes)``: ``prefill(params, batch)`` gives
     the last position's logits (B, 1, V), and ``batch_shapes`` is
     ``{"tokens": ShapeDtype((B, S), torch.int32)}``, with a vlm's
     ``patch_embeds`` or the audio family's ``frames``
     (``specs.prefill_batch_specs``)."""
+    _one_card("build_prefill_step", mesh)
     _check_kind(shape_name, "prefill")
     api = get_model_api(arch.model_for_shape(shape_name))
     return api.prefill, S.prefill_batch_specs(arch, shape_name)
 
 
-def build_decode_step(arch: ArchSpec, shape_name: str):
+def build_decode_step(arch: ArchSpec, shape_name: str, mesh=None):
     """Returns ``(decode_step, state_shapes, tok_shape)`` at a decode
     shape: ``decode_step(params, state, tok)`` -> (logits (B, 1, V),
     state), the model's ``decode_step`` for ``arch.model_for_shape``
@@ -83,6 +95,7 @@ def build_decode_step(arch: ArchSpec, shape_name: str):
     ``long_context_window`` slots); the state's shapes and dtypes
     (``specs.decode_state_specs``, nothing allocated) and the token's,
     (B, 1) int32.  An arch that skips the shape raises ``ValueError``."""
+    _one_card("build_decode_step", mesh)
     _check_kind(shape_name, "decode")
     state_shapes = S.decode_state_specs(arch, shape_name)
     api = get_model_api(arch.model_for_shape(shape_name))
@@ -90,9 +103,10 @@ def build_decode_step(arch: ArchSpec, shape_name: str):
             S.decode_tok_specs(arch, shape_name))
 
 
-def build_step(arch: ArchSpec, shape_name: str):
+def build_step(arch: ArchSpec, shape_name: str, mesh=None):
     """Dispatch by the shape's kind: ``build_train_step``,
     ``build_prefill_step`` or ``build_decode_step``."""
+    _one_card("build_step", mesh)
     kind = INPUT_SHAPES[shape_name]["kind"]
     if kind == "train":
         return build_train_step(arch, shape_name)

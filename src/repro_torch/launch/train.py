@@ -19,17 +19,14 @@ package's CLI.  ``--engine host`` runs the reference host loop,
 ``--buffer-size``, ``--staleness-power``, ``--staleness-discount``),
 ``--ckpt-dir`` writes checkpoints and ``--algo poc`` runs Power-of-Choice
 (on the host loop).  ``--mesh-shape C`` runs the client-sharded engine
-over C ranks (``--dist-backend`` gloo or nccl).
+over C ranks, ``--mesh-shape C,M`` the (clients, model) mesh of C × M
+ranks (``--dist-backend`` gloo or nccl).
 
 ``--arch X [--smoke]`` runs a few federated rounds of an assigned
 architecture's smoke config (:func:`run_arch_smoke`, as the JAX CLI does;
 ``--smoke`` is accepted for its spelling and is the only mode):
 
   python -m repro_torch.launch.train --arch llama3.2-1b --smoke --device cpu
-
-What the port lacks fails before anything runs, with
-``NotImplementedError`` naming its ROADMAP.md queue 1 item:
-``--mesh-shape C,M`` (the (clients, model) mesh, item 11).
 """
 from __future__ import annotations
 

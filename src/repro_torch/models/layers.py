@@ -6,7 +6,8 @@ routed Mixture-of-Experts block.
 
 Layers are plain functions over nested dicts of tensors.  The sharding
 annotations of the JAX package (``hooks.constrain``) are identity on one
-card and are left out (ROADMAP.md queue 1 item 11).  ``remat`` is applied
+card and are left out (ROADMAP.md queue 1 item 11, its second half).
+``remat`` is applied
 per layer by ``transformer.backbone``.
 """
 from __future__ import annotations

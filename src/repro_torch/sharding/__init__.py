@@ -1,3 +1,5 @@
-"""Sharding rules of the port: the client dimension (the model-axis rules
-are ROADMAP.md queue 1 item 11)."""
-from .rules import client_dim_flags, pad_client_dim
+"""Sharding rules of the port: the model axis of the (clients, model)
+mesh and the client dimension."""
+from .rules import (P, STACKED_KEYS, client_dim_flags, client_model_specs,
+                    model_specs, pad_client_dim, spec_for_leaf,
+                    state_specs_like)

@@ -43,6 +43,7 @@ from torch.profiler import record_function
 
 from .. import random as jr
 from ..checkpoint import save_checkpoint
+from ..convert import params_to_numpy
 from ..core.bitmask import pack_bits, unpack_bits_np
 from ..core.fedstep import make_fed_round
 from ..core.keys import COMPLETION as KEY_FOLD
@@ -54,6 +55,8 @@ from ..data.pipeline import staged_cohort_batch, synth_cohort_batch
 from ..data.synthetic import SynthTask
 from ..device import resolve_device
 from ..optim import make_optimizer
+from ..sharding.rules import model_specs
+from ..tree import tree_leaves
 from .scenario import Scenario, get_scenario
 
 __all__ = ["DeviceEngine", "RoundStream", "build_engine",
@@ -230,12 +233,13 @@ def build_engine(scenario, algo_name: str = "f3ast", *, seed: int = 0,
     Returns ``(engine, ctx)`` where ``ctx`` carries what the run loop needs
     on the host side (eval fns, test batch, rounds default, N).  ``seed``
     selects the data realization; the cell's model seed is what
-    ``init_carry`` takes.  ``mesh`` (a ``launch.mesh.ClientMesh``, a shard
-    count or a 1-D shape, resolved over ``clients_axis``) builds the
-    client-sharded engine, this process one shard of it, with
-    ``topk_impl`` its distributed cut (``core.selection.TOPK_IMPLS``).  A
-    2-D ``(c, m)`` shape, the model axis, raises ``NotImplementedError``
-    (ROADMAP.md queue 1 item 11).
+    ``init_carry`` takes.  ``mesh`` (a ``launch.mesh`` mesh, a shard
+    count or a 1- or 2-D shape, resolved over ``clients_axis`` and
+    ``model_axis``) builds the client-sharded engine, this process one
+    rank of it, with ``topk_impl`` its distributed cut
+    (``core.selection.TOPK_IMPLS``).  A mesh with the model axis (``(c,
+    m)``) stores the parameters and the server optimizer's state split
+    over it by ``sharding.rules.model_specs``.
     """
     from .runner import build_task   # local import: runner ↔ engine
     from .engine_sharded import ShardedEngine, resolve_client_mesh
@@ -283,12 +287,25 @@ def build_engine(scenario, algo_name: str = "f3ast", *, seed: int = 0,
             raise ValueError("the client-sharded engine runs the cohort in "
                              "parallel mode only (the mesh axis carries the "
                              f"cohort split); got fed_mode={fed_mode!r}")
-        fed_round = make_fed_round(loss, opt, mode="parallel",
-                                   prox_mu=prox_mu, cohort_axis=mesh,
-                                   cohort_slots=budget.k_max)
+        use_model = model_axis in mesh.axis_names
+        p_specs = None
+        if use_model:
+            # the per-leaf layout over the model axis, from the parameters'
+            # shapes: one tree for the round and the engine's carry
+            with torch.no_grad():
+                p_specs = model_specs(init(jr.PRNGKey(0, device=device)),
+                                      mesh, model_axis=model_axis)
+        fed_round = make_fed_round(
+            loss, opt, mode="parallel", prox_mu=prox_mu,
+            cohort_axis=mesh.axis_mesh(clients_axis),
+            cohort_slots=budget.k_max,
+            model_axis=mesh.axis_mesh(model_axis) if use_model else None,
+            param_specs=p_specs)
         engine = ShardedEngine(
             mesh=mesh, axis=clients_axis,
-            staged=CohortSampler(fed).stage_device(device, mesh=mesh),
+            model_axis=model_axis if use_model else None,
+            staged=CohortSampler(fed).stage_device(device, mesh=mesh,
+                                                   axis=clients_axis),
             fed_round=fed_round, n_clients=n, topk_impl=topk_impl, **common)
     else:
         fed_round = make_fed_round(loss, opt, mode=fed_mode,
@@ -341,7 +358,9 @@ def run_scenario_device(scenario, algo_name: str = "f3ast", *,
     ``ckpt_dir``, at chunk boundaries).  With a client ``mesh`` this
     process runs its shard of the sharded engine; every shard returns the
     same result, and only shard 0 logs and writes the metrics file and
-    checkpoints."""
+    checkpoints.  With a model axis the evaluations, the checkpoints and
+    the result's ``final_params`` are of the whole parameters, gathered
+    over it."""
     device = resolve_device(device)
     engine, ctx = build_engine(
         scenario, algo_name, device=device, seed=seed,
@@ -352,8 +371,11 @@ def run_scenario_device(scenario, algo_name: str = "f3ast", *,
         completion_kwargs=completion_kwargs, select_impl=select_impl,
         mesh=mesh, clients_axis=clients_axis, model_axis=model_axis,
         topk_impl=topk_impl)
-    mesh = getattr(engine, "mesh", None)    # the resolved client mesh
-    lead = mesh is None or mesh.rank == 0
+    mesh = getattr(engine, "mesh", None)    # the resolved mesh
+    lead = mesh is None or mesh.rank == 0   # the global rank 0
+    full_params = getattr(engine, "full_params", lambda p: p)
+    # gathering the parameters is collective: every rank at the same chunks
+    gather_each_chunk = bool(ckpt_dir)
     if not lead:
         metrics_path = ckpt_dir = None
         log_fn = _silent
@@ -385,11 +407,13 @@ def run_scenario_device(scenario, algo_name: str = "f3ast", *,
             streams.append(out_np)
             do_eval = (t1 == rounds
                        or any(t % eval_every == 0 for t in range(t0, t1)))
+            if do_eval or gather_each_chunk:
+                params = full_params(carry.params)
             if do_eval:
                 with torch.no_grad():
-                    test_loss = float(ctx["eval_loss"](carry.params,
+                    test_loss = float(ctx["eval_loss"](params,
                                                        ctx["test_batch"]))
-                    test_acc = float(ctx["eval_acc"](carry.params,
+                    test_acc = float(ctx["eval_acc"](params,
                                                      ctx["test_batch"]))
                 history.append(dict(
                     round=t1 - 1, train_loss=float(out_np.train_loss[-1]),
@@ -419,7 +443,7 @@ def run_scenario_device(scenario, algo_name: str = "f3ast", *,
                 metrics_file.flush()
             if ckpt_dir:
                 save_checkpoint(ckpt_dir, t1,
-                                {"params": carry.params,
+                                {"params": params,
                                  "rates": _rates_np(engine.strategy,
                                                     carry.algo_state,
                                                     n_real)})
@@ -445,6 +469,7 @@ def run_scenario_device(scenario, algo_name: str = "f3ast", *,
                        empirical_rates=sel_history.mean(0),
                        sel_history=sel_history, comp_history=comp_history
                        ).with_streams(
+        final_params=tree_leaves(params_to_numpy(params)),
         k_t=np.concatenate([s.k_t for s in streams]),
         n_available=np.concatenate([s.n_available for s in streams]),
         train_loss=np.concatenate([s.train_loss for s in streams]),

@@ -1,5 +1,6 @@
-"""Client-sharded round engine: the client dimension N split over a 1-D
-client mesh (port of ``repro.sim.engine_sharded``).
+"""Client-sharded round engine: the client dimension N split over the
+clients axis of a mesh, and optionally the stored model over its model
+axis (port of ``repro.sim.engine_sharded``).
 
 The device engine (:mod:`repro_torch.sim.engine`) keeps every (N,)-shaped
 object — availability state, scores, the staged (N, S, ...) client data —
@@ -48,6 +49,16 @@ Per round, step by step as the JAX ``round_step``:
 Masks, K_t, |avail| and r_k are bitwise the single-device engine's for
 the same seed; losses and parameters agree within float tolerance (the
 Δ sum runs in another order).
+
+**The model axis** (``model_axis=``, a ``(c, m)`` mesh): the carry holds
+this rank's blocks of the parameters and of the server optimizer's state,
+leaf by leaf as ``sharding.rules.model_specs`` and ``state_specs_like``
+lay them out (``sharding.rules.local_blocks``), by the one spec tree
+``fed_round`` was built with (``make_fed_round(model_axis=,
+param_specs=)``, which the round carries as ``param_specs``).  Every client-side
+step above uses the clients axis alone (its index and size, its
+collectives), so every rank of a model axis computes the same masks, K_t
+and r_k.
 """
 from __future__ import annotations
 
@@ -63,9 +74,10 @@ from ..core.strategies import SelectCtx, as_sharded
 from ..data.pipeline import SHARD_PAD_QUANTUM, synth_cohort_batch
 from ..data.synthetic import SynthTask
 from ..device import resolve_device
-from ..launch.mesh import ClientMesh, make_fed_mesh
+from ..launch.mesh import ClientMesh, FedMesh, make_fed_mesh
 from ..sharding.rules import (any_client_leaf, client_dim_flags,
-                              map_client_leaves, pad_client_dim)
+                              gather_full, local_blocks, map_client_leaves,
+                              pad_client_dim, state_specs_like)
 from .engine import EngineCarry, _stack, _staged_nbytes
 
 __all__ = ["ShardedEngine", "resolve_client_mesh"]
@@ -98,14 +110,17 @@ def _selection_comm_bytes(*, d: int, nl: int, k: int, topk_impl: str,
 
 
 def resolve_client_mesh(mesh, axis: str = "clients",
-                        model_axis: str = "model") -> Optional[ClientMesh]:
-    """Accept a :class:`ClientMesh`, a shard count (<= 0: the group's
-    size), a 1-D ``mesh_shape`` ``(c,)`` or None.  A 2-D ``(c, m)`` shape
-    raises ``NotImplementedError`` (ROADMAP.md queue 1 item 11)."""
-    if mesh is None or isinstance(mesh, ClientMesh):
+                        model_axis: str = "model"):
+    """Accept a :class:`ClientMesh` or :class:`FedMesh` (it must have the
+    ``axis``), a shard count (<= 0: the group's size), a 1- or 2-D
+    ``mesh_shape`` (``(c,)``, ``(c, m)``; 0 fills with the group's ranks)
+    or None."""
+    if mesh is None or isinstance(mesh, (ClientMesh, FedMesh)):
+        if mesh is not None and axis not in mesh.axis_names:
+            raise ValueError(f"mesh {mesh.axis_names} has no {axis!r} axis")
         return mesh
     if isinstance(mesh, int):
-        mesh = (max(mesh, 0),)
+        mesh = (max(mesh, 0),)      # legacy shard count: <= 0 → all ranks
     return make_fed_mesh(tuple(mesh), axis_names=(axis, model_axis))
 
 
@@ -118,20 +133,34 @@ class ShardedEngine:
     ``data.stage_client_arrays(mesh=...)``) or a ``SynthTask``.
     ``topk_impl`` picks the distributed cut's reduction
     (``core.selection.TOPK_IMPLS``); ``device`` (None: CUDA) is where
-    this shard's tensors go.  ``axis`` names the mesh's client axis; a
-    ``model_axis`` (the (clients, model) mesh) raises
-    ``NotImplementedError`` (ROADMAP.md queue 1 item 11)."""
+    this shard's tensors go.  ``axis`` names the mesh's client axis;
+    ``model_axis`` its model axis (a ``make_fed_mesh((c, m))`` mesh),
+    over which the stored parameters and optimizer state are split by the
+    spec tree ``fed_round`` was built with (its ``param_specs``)."""
 
-    def __init__(self, *, mesh: ClientMesh, axis: str = "clients",
+    def __init__(self, *, mesh, axis: str = "clients",
                  avail_model, budget, strategy, staged, fed_round,
                  init_params, opt, client_lr, local_steps, local_batch,
                  n_clients: int, completion=None, topk_impl: str = "stream",
                  model_axis: Optional[str] = None, device=None):
-        if model_axis is not None:
-            raise NotImplementedError(
-                "ShardedEngine's model axis (model_axis=) is not ported "
-                "yet: ROADMAP.md queue 1 item 11")
         self.mesh, self.axis = mesh, axis
+        self.model_axis = model_axis
+        if model_axis is not None:
+            if model_axis == axis:
+                raise ValueError(f"model_axis {model_axis!r} collides with "
+                                 f"the client axis")
+            if model_axis not in mesh.axis_names:
+                raise ValueError(f"mesh {mesh.axis_names} has no "
+                                 f"{model_axis!r} axis; build it with "
+                                 f"launch.mesh.make_fed_mesh((c, m))")
+        others = [a for a, size in mesh.shape.items()
+                  if a not in (axis, model_axis) and size > 1]
+        if others:
+            raise ValueError(f"mesh axes {others} of {mesh.axis_names} are "
+                             f"neither the client axis nor model_axis; a "
+                             f"2-D mesh needs model_axis=")
+        # the clients axis: this rank's shard of the client dimension
+        self._cm = cm = mesh.axis_mesh(axis)
         self.avail_model = avail_model
         self.budget = budget
         self.strategy = strategy
@@ -141,7 +170,7 @@ class ShardedEngine:
         self.n_clients = n = int(n_clients)
         self.k_max = k = budget.k_max
         self._synth = isinstance(staged, SynthTask)
-        d = mesh.size
+        d = cm.size
         if self._synth:
             if staged.n_clients != n:
                 raise ValueError(f"SynthTask of {staged.n_clients} clients "
@@ -156,7 +185,7 @@ class ShardedEngine:
                 f"blocks of a multiple of {SHARD_PAD_QUANTUM}: stage through "
                 f"data.pipeline.stage_client_arrays(mesh=...)")
         self._n_pad, self._nl = n_pad, n_pad // d
-        self._off = mesh.rank * self._nl
+        self._off = cm.rank * self._nl
         self._k_pad = -(-k // d) * d
         self._kb = self._k_pad // d
         self._staged = staged
@@ -181,12 +210,29 @@ class ShardedEngine:
                        and strategy.score_block is None else 0)
         self.selection_comm_bytes_per_round = _selection_comm_bytes(
             d=d, nl=self._nl, k=k, topk_impl=topk_impl, gathers=gathers)
-        self._select_blk = as_sharded(strategy, axis=mesh, k_max=k,
+        self._select_blk = as_sharded(strategy, axis=cm, k_max=k,
                                       n_pad=n_pad, topk_impl=topk_impl)
         self._slot_mask = (torch.arange(self._k_pad, device=device)
                            < k).to(torch.float32)
         self._r0 = None
         self._caps = {}
+        # the stored model: whole, or this rank's blocks over model_axis,
+        # laid out by the spec tree fed_round gathers and slices by
+        self._mm = None
+        self.param_specs = getattr(fed_round, "param_specs", None)
+        if model_axis is not None:
+            if self.param_specs is None:
+                raise ValueError("model_axis needs a fed_round built with "
+                                 "make_fed_round(model_axis=, param_specs=)"
+                                 ": the carry is stored by its spec tree")
+            self._mm = mesh.axis_mesh(model_axis)
+
+    def full_params(self, params):
+        """The whole parameters from this rank's blocks (an all-gather
+        over the model axis, exact; every rank of it must call this)."""
+        if self._mm is None:
+            return params
+        return gather_full(params, self.param_specs, self._mm)
 
     def _block(self, leaf: torch.Tensor) -> torch.Tensor:
         """This shard's block of a full-width (N, ...) tensor, padded."""
@@ -199,8 +245,17 @@ class ShardedEngine:
 
     def init_carry(self, key: torch.Tensor) -> EngineCarry:
         params = self._init_params(key)
+        opt_state = self._opt.init(params)
+        if self._mm is not None:
+            # every rank draws the same full parameters and keeps its
+            # blocks, each in a storage of its own
+            opt_specs = state_specs_like(opt_state, params, self.param_specs)
+            params = local_blocks(params, self.param_specs, self._mm,
+                                  copy=True)
+            opt_state = local_blocks(opt_state, opt_specs, self._mm,
+                                     copy=True)
         return EngineCarry(
-            key=key, params=params, opt_state=self._opt.init(params),
+            key=key, params=params, opt_state=opt_state,
             algo_state=self.strategy.init(self.n_clients, r0=self._r0),
             avail_state=map_client_leaves(self._block,
                                           self.avail_model.init(),
@@ -216,7 +271,7 @@ class ShardedEngine:
                    k_cap: Optional[int] = None):
         """One round of this shard; returns (carry', per-round outputs)
         with this shard's packed mask blocks."""
-        mesh, n, nl, off = self.mesh, self.n_clients, self._nl, self._off
+        mesh, n, nl, off = self._cm, self.n_clients, self._nl, self._off
         k, k_pad, kb = self.k_max, self._k_pad, self._kb
         key, k_av, k_sel, k_bud, k_batch = jr.split(carry.key, 5)
         if self._block_avail:
@@ -312,6 +367,6 @@ class ShardedEngine:
         s = _stack(outs)
 
         def whole(words):                # (C, nl/32) blocks, rank order
-            return self.mesh.all_gather(words.T.contiguous()).T
+            return self._cm.all_gather(words.T.contiguous()).T
         return carry, s._replace(sel_mask=whole(s.sel_mask),
                                  completed=whole(s.completed))

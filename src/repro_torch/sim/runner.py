@@ -14,9 +14,11 @@ package does:
 * ``engine="device"`` (default) — the device engine
   (:mod:`repro_torch.sim.engine`); with ``mesh_shape=(c,)`` the
   client-sharded engine (:mod:`repro_torch.sim.engine_sharded`) over c
-  ranks: inside an initialized ``torch.distributed`` group (``torchrun``)
-  this process is its rank of that group; otherwise ``run_spec`` spawns
-  the c ranks itself and returns rank 0's result;
+  ranks, with ``(c, m)`` over c × m ranks whose model axis splits the
+  stored parameters and server-optimizer state: inside an initialized
+  ``torch.distributed`` group (``torchrun``) this process is its rank of
+  that group; otherwise ``run_spec`` spawns the ranks itself and returns
+  rank 0's result (its ``final_params`` whole);
 * ``engine="host"`` — the reference loop below: availability step →
   strategy ``select`` (completion-aware) → static-shape cohort batch
   assembled in numpy → the federated round on the device → per-round
@@ -36,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 import os
 import time
 import warnings
@@ -85,10 +88,15 @@ class TrainResult:
                                                          init=False)
     delta_norm: Optional[np.ndarray] = dataclasses.field(default=None,
                                                          init=False)
+    # the device and sharded engines' final parameters, whole (gathered
+    # over a model axis), their leaves in JAX's order as numpy
+    final_params: Optional[list] = dataclasses.field(default=None,
+                                                     init=False)
 
     def with_streams(self, **streams) -> "TrainResult":
         """Set the per-round streams (``k_t``, ``n_available``,
-        ``train_loss``, ``delta_norm``); returns ``self``."""
+        ``train_loss``, ``delta_norm``) and ``final_params``; returns
+        ``self``."""
         for name, value in streams.items():
             setattr(self, name, value)
         return self
@@ -217,8 +225,8 @@ def run_spec(spec: RunSpec, *, log_fn: Callable = print,
     Host-only strategies (``needs_losses``/``host_only`` registry flags)
     fall back from the device engine to the host loop, on the same device,
     with a warning; ``final_metrics["engine"]`` names the engine that ran.
-    ``mesh_shape=(c,)`` spawns c ranks on the default collective backend
-    (:func:`run_spec_dist` names another).
+    ``mesh_shape=(c,)`` spawns c ranks, ``(c, m)`` c × m, on the default
+    collective backend (:func:`run_spec_dist` names another).
     """
     return run_spec_dist(spec, log_fn=log_fn, device=device)
 
@@ -229,9 +237,10 @@ def run_spec_dist(spec: RunSpec, *, dist_backend: Optional[str] = None,
     chosen (the CLIs' ``--dist-backend``).
 
     ``dist_backend`` is the sharded engine's collective backend
-    (``mesh_shape=(c,)``; ignored otherwise).  None means gloo on the CPU
-    and NCCL on CUDA, one card a rank (``RuntimeError`` when c exceeds the
-    cards); ``"gloo"`` on CUDA puts every rank on ``device``.
+    (``mesh_shape=(c,)`` or ``(c, m)``; ignored otherwise).  None means
+    gloo on the CPU and NCCL on CUDA, one card a rank (``RuntimeError``
+    when the ranks outnumber the cards); ``"gloo"`` on CUDA puts every
+    rank on ``device``.
     """
     dev = resolve_device(device)
     rs = spec.resolved()
@@ -296,13 +305,15 @@ def _run_device(rs: RunSpec, algo_label: str, dev, log_fn,
         metrics_path=rs.metrics_path, fed_mode=rs.fed_mode,
         strategy_kwargs=rs.strategy_kwargs, completion=rs.completion,
         completion_kwargs=rs.completion_kwargs, select_impl=rs.select_impl,
-        mesh=mesh, topk_impl=rs.topk_impl, log_fn=log_fn)
+        mesh=mesh, clients_axis=rs.clients_axis, model_axis=rs.model_axis,
+        topk_impl=rs.topk_impl, log_fn=log_fn)
 
 
 def _run_sharded(rs: RunSpec, algo_label: str, dev, log_fn,
                  dist_backend: Optional[str]) -> TrainResult:
-    """``mesh_shape=(c,)``: this process's rank of an initialized group,
-    or c spawned ranks (rank 0's result; its log lines replayed here)."""
+    """``mesh_shape=(c,)`` or ``(c, m)``: this process's rank of an
+    initialized group, or c × m spawned ranks (the global rank 0's
+    result; its log lines replayed here)."""
     from ..launch.mesh import make_fed_mesh, spawn_ranks
     axes = (rs.clients_axis, rs.model_axis)
     if dist.is_available() and dist.is_initialized():
@@ -311,30 +322,36 @@ def _run_sharded(rs: RunSpec, algo_label: str, dev, log_fn,
             dev = torch.device("cuda", int(os.environ.get(
                 "LOCAL_RANK", mesh.rank % torch.cuda.device_count())))
         return _run_device(rs, algo_label, dev, log_fn, mesh)
-    c = rs.mesh_shape[0] or (torch.cuda.device_count()
-                             if dev.type == "cuda" else 1)
-    if c == 1:
+    # 0 fills with the visible cards (one rank on the CPU)
+    ranks = torch.cuda.device_count() if dev.type == "cuda" else 1
+    shape = tuple(rs.mesh_shape)
+    if 0 in shape:
+        fixed = math.prod(s for s in shape if s)
+        shape = tuple(s if s else max(ranks // fixed, 1) for s in shape)
+    size = math.prod(shape)
+    if size == 1:
         return _run_device(rs, algo_label, dev, log_fn,
-                           make_fed_mesh((1,), axis_names=axes))
+                           make_fed_mesh(shape, axis_names=axes))
     backend = dist_backend or ("nccl" if dev.type == "cuda" else "gloo")
     if backend == "nccl":
         if dev.type != "cuda":
             raise ValueError("dist_backend='nccl' needs a CUDA device")
-        if c > torch.cuda.device_count():
+        if size > torch.cuda.device_count():
             raise RuntimeError(
-                f"mesh_shape ({c},) on NCCL needs one card a rank, and "
-                f"{torch.cuda.device_count()} are visible; pass "
-                f'dist_backend="gloo" to put every rank on {dev}')
-    res, lines = spawn_ranks(_sharded_rank, c, rs.to_json(), algo_label,
-                             str(dev), backend=backend)[0]
+                f"mesh_shape {shape} on NCCL needs one card a rank "
+                f"({size}), and {torch.cuda.device_count()} are visible; "
+                f'pass dist_backend="gloo" to put every rank on {dev}')
+    res, lines = spawn_ranks(_sharded_rank, size, rs.to_json(), algo_label,
+                             str(dev), backend=backend, mesh_shape=shape,
+                             axis_names=axes)[0]
     for line in lines:
         log_fn(line)
     return res
 
 
 def _sharded_rank(mesh, spec_json: str, algo_label: str, device: str):
-    """One spawned rank of :func:`_run_sharded`: rank 0 returns (result,
-    log lines), the others None."""
+    """One spawned rank of :func:`_run_sharded`: the global rank 0 returns
+    (result, log lines), the others None."""
     dev = torch.device(device)
     if mesh.backend == "nccl":
         dev = torch.device("cuda", mesh.rank)

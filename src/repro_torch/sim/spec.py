@@ -7,13 +7,12 @@ Port of ``repro.sim.spec`` with every field and the same
     repro.sim.run_spec(spec)                      # JAX package
     repro_torch.sim.run_spec(spec)                # this port, on CUDA
 
-``resolved()`` validates as the JAX package does, then rejects with
-``NotImplementedError`` — before anything runs — what this port does not
-have yet: a 2-D ``mesh_shape`` ``(c, m)`` (the (clients, model) mesh,
-ROADMAP.md queue 1 item 11).  A 1-D ``(c,)`` runs the client-sharded
-engine; its collective backend is an argument of ``runner.run_spec_dist``
-(``dist_backend=``), not a field, so a spec file crosses between the
-packages.
+``resolved()`` validates as the JAX package does, then checks that this
+port has every registered name the spec uses, before anything runs.  A
+1-D ``mesh_shape`` ``(c,)`` runs the client-sharded engine, a 2-D ``(c,
+m)`` the (clients, model) mesh; the collective backend is an argument of
+``runner.run_spec_dist`` (``dist_backend=``), not a field, so a spec file
+crosses between the packages.
 """
 from __future__ import annotations
 
@@ -220,7 +219,7 @@ class RunSpec:
             if val is not None and (not isinstance(val, str) or not val):
                 raise ValueError(f"RunSpec.{fname} must be None or a "
                                  f"non-empty path string, got {val!r}")
-        _reject_unported(self, sc, mesh_shape, server_opt)
+        _reject_unported(sc, server_opt)
         return dataclasses.replace(self, strategy=name,
                                    server_opt=server_opt,
                                    server_lr=server_lr,
@@ -266,16 +265,10 @@ class RunSpec:
             return cls.from_json(f.read())
 
 
-def _reject_unported(spec: "RunSpec", sc: Scenario, mesh_shape,
-                     server_opt: str) -> None:
-    """Fail fast on what the port does not run yet (after the JAX
+def _reject_unported(sc: Scenario, server_opt: str) -> None:
+    """Fail fast on a name the port's registries lack (after the JAX
     package's own validation, so an invalid spec still raises what it
     raises there)."""
-    if mesh_shape is not None and len(mesh_shape) == 2:
-        raise NotImplementedError(
-            f"mesh_shape {mesh_shape}: the (clients, model) mesh is not "
-            f"ported to repro_torch yet (ROADMAP.md queue 1 item 11); a 1-D "
-            f"mesh_shape (c,) runs the client-sharded engine")
     make_optimizer(server_opt)
     check_budget(sc.budget)
     check_process(sc.availability)

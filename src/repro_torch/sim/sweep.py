@@ -16,9 +16,9 @@ metrics, keyed ``"<scenario>|<algorithm>"`` — the JAX sweep's layout.
 FedBuff-style buffered server).  Every cell's spec is resolved before the
 first one runs, so an invalid cell fails before any work.  Runs on CUDA
 unless ``--device cpu``.  ``--mesh-shape C`` runs every cell on the
-client-sharded engine over C ranks (``--dist-backend``: gloo or nccl,
-default gloo on the CPU and NCCL on CUDA); ``C,M`` (the (clients, model)
-mesh) raises ``NotImplementedError`` naming ROADMAP.md queue 1 item 11.
+client-sharded engine over C ranks, ``C,M`` on the (clients, model) mesh
+of C × M ranks (``--dist-backend``: gloo or nccl, default gloo on the CPU
+and NCCL on CUDA).
 """
 from __future__ import annotations
 
@@ -141,10 +141,10 @@ def main(argv=None) -> None:
     ap.add_argument("--engine", default="device", choices=["device", "host"],
                     help="the device engine (default) or the reference "
                          "host loop")
-    ap.add_argument("--mesh-shape", default=None, metavar="C",
+    ap.add_argument("--mesh-shape", default=None, metavar="C[,M]",
                     help="run every cell on the client-sharded engine over "
-                         "C ranks ('C,M', the (clients, model) mesh, is not "
-                         "ported: ROADMAP.md queue 1 item 11)")
+                         "C ranks, or on the (clients, model) mesh of C x M "
+                         "ranks")
     ap.add_argument("--dist-backend", default=None, choices=["gloo", "nccl"],
                     help="the sharded engine's collectives (default: gloo "
                          "on the CPU, NCCL on CUDA with one card a rank)")

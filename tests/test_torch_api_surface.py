@@ -428,23 +428,40 @@ def test_make_fed_round_acc_dtype_is_the_accumulator():
                                 dict(param_specs={}),
                                 dict(param_shardings={})])
 def test_make_fed_round_model_axis_raises_naming_item_11(kw):
+    """The model axis is ported (item 11's engine half): it needs the
+    sharded round's ``cohort_axis`` (a ``ValueError`` without it, as the
+    model axis and its specs go together); ``param_shardings=``, the
+    sequential mode's FSDP carries, still raises naming item 11."""
     loss, opt, *_ = _round_inputs()
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    if "param_shardings" in kw:
+        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+            tcore.make_fed_round(loss, opt, **kw)
+        return
+    with pytest.raises(ValueError, match="cohort_axis"):
         tcore.make_fed_round(loss, opt, **kw)
+    with pytest.raises(ValueError, match="model_axis"):
+        tcore.make_fed_round(loss, opt, cohort_axis=ClientMesh(),
+                             cohort_slots=4, **kw)
 
 
 def test_engines_model_axis_raises_naming_item_11():
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """A (c, m) mesh builds without raising item 11: with no process
+    group only a mesh of one rank can be made, as for the 1-D mesh, and a
+    model axis the mesh lacks is JAX's ``ValueError``."""
+    with pytest.raises(RuntimeError, match="process group of 2 ranks"):
         tsim.build_engine("scarce", mesh=(1, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(RuntimeError, match="process group of 4 ranks"):
         tsim.run_scenario_device("scarce", mesh=(2, 2), rounds=1,
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="no 'model' axis"):
         tsim.ShardedEngine(mesh=ClientMesh(), model_axis="model",
                            avail_model=None, budget=None, strategy=None,
                            staged=None, fed_round=None, init_params=None,
                            opt=None, client_lr=0.1, local_steps=1,
                            local_batch=1, n_clients=4, device="cpu")
+    engine, _ = tsim.build_engine("scarce", mesh=(1, 1), device="cpu")
+    assert engine.model_axis == "model"
+    assert engine.mesh.axis_names == ("clients", "model")
 
 
 def test_build_engine_resolves_a_shard_count_as_jax_does():

@@ -117,13 +117,17 @@ def test_history_and_final_metrics(runs):
 
 @pytest.mark.parametrize("override", [dict(mesh_shape=(2, 2))])
 def test_resolve_rejects_unported(override):
-    """What the port lacks fails at resolve time, before anything runs —
-    and the same spec is valid in the JAX package: the (clients, model)
-    mesh (item 11).  The 1-D mesh, ported, resolves as in JAX."""
-    jsim.RunSpec(**override).resolved()
+    """A spec valid in the JAX package resolves in the port as it does
+    there: the (clients, model) mesh (item 11's engine half, ported) and
+    the 1-D mesh.  Its mesh has both axes; what is left of item 11, the
+    production mesh of the step builders, raises naming it."""
+    from repro_torch.launch.mesh import make_fed_mesh, make_production_mesh
+    want = jsim.RunSpec(**override).resolved()
     spec = tsim.RunSpec.from_json(jsim.RunSpec(**override).to_json())
+    assert spec.resolved().mesh_shape == want.mesh_shape == (2, 2)
+    assert make_fed_mesh((1, 1)).axis_names == ("clients", "model")
     with pytest.raises(NotImplementedError, match="item 11"):
-        spec.resolved()
+        make_production_mesh()
     one_d = jsim.RunSpec(mesh_shape=(2,)).to_json()
     assert tsim.RunSpec.from_json(one_d).resolved().mesh_shape == \
         jsim.RunSpec.from_json(one_d).resolved().mesh_shape == (2,)

@@ -14,8 +14,8 @@ single-device one.
   masks, K_t, |avail| and r_k bitwise JAX's device engine, losses within
   1e-5;
 * ``selection_comm_bytes_per_round`` equal to JAX's formula, JAX's errors,
-  the (clients, model) mesh raising naming queue 1 item 11, and NCCL with
-  more ranks than cards raising.
+  the (clients, model) mesh resolving (what is left of queue 1 item 11
+  raising naming it), and NCCL with more ranks than cards raising.
 
 Each world size is one spawn of its ranks (each rank one intra-op
 thread), running all of its cells.  The engine on a ``SynthTask`` and
@@ -194,17 +194,25 @@ def test_jax_errors_are_kept():
 
 
 def test_two_axis_mesh_raises_naming_item_11(tmp_path):
+    """The (clients, model) mesh is ported (item 11's engine half): a 2-D
+    spec resolves, a mesh of one rank has both axes and the sweep parses
+    ``C,M``; a 2-D mesh of several ranks needs their process group (the
+    runs are ``test_torch_engine_model_axis.py``'s).  What is left of
+    item 11, the step builders' meshes, raises naming it."""
+    from repro_torch.launch import mesh as tmesh
     from repro_torch.sim import sweep
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tsim.RunSpec(mesh_shape=(2, 2)).resolved()
-    with pytest.raises(NotImplementedError, match="item 11"):
+    assert tsim.RunSpec(mesh_shape=(2, 2)).resolved().mesh_shape == (2, 2)
+    assert sweep._parse_mesh_shape("2,2") == (2, 2)
+    with pytest.raises(RuntimeError, match="process group of 4 ranks"):
         make_fed_mesh((2, 2))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(RuntimeError, match="process group of 2 ranks"):
         engine_sharded.resolve_client_mesh((1, 2))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        sweep.main(["--scenarios", "scarce", "--mesh-shape", "2,2",
-                    "--rounds", "1", "--device", "cpu", "--out",
-                    str(tmp_path)])
+    one = engine_sharded.resolve_client_mesh((1, 1))
+    assert one.axis_names == ("clients", "model") and one.size == 1
+    for fn in (tmesh.make_production_mesh, tmesh.make_debug_mesh,
+               lambda: tmesh.data_axes(one)):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            fn()
     assert not list(tmp_path.iterdir())
     assert engine_sharded.resolve_client_mesh((1,)) == ClientMesh()
 

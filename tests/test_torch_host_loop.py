@@ -201,10 +201,7 @@ def test_run_scenario_shim_warns_and_rejects_as_jax():
                                        mesh_shape=(2,), device="cpu"),
              TypeError),
             (lambda: tsim.run_scenario("scarce", "f3ast", mesh="2",
-                                       device="cpu"), TypeError),
-            (lambda: tsim.run_scenario("scarce", "f3ast",
-                                       mesh_shape=(2, 2), device="cpu"),
-             NotImplementedError)):
+                                       device="cpu"), TypeError)):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", DeprecationWarning)
             with pytest.raises(exc):
@@ -213,6 +210,11 @@ def test_run_scenario_shim_warns_and_rejects_as_jax():
     with pytest.warns(DeprecationWarning):
         assert tsim.runner._legacy_spec("scarce", "f3ast", {"mesh": 2}) \
             .resolved().mesh_shape == (2,)
+    # and a 2-D mesh_shape, the (clients, model) mesh, is taken as in JAX
+    with pytest.warns(DeprecationWarning):
+        assert tsim.runner._legacy_spec(
+            "scarce", "f3ast", {"mesh_shape": (2, 2)}).resolved() \
+            .mesh_shape == (2, 2)
     # the legacy server_lr default: 1.0, which only an alias reads as unset
     with pytest.warns(DeprecationWarning):
         spec = tsim.runner._legacy_spec("scarce", "fedadam", {})

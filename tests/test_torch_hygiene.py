@@ -48,7 +48,7 @@ SLICE_MODULES = [
     "repro_torch.sharding", "repro_torch.sharding.rules",
     "repro_torch.launch.mesh", "repro_torch.sim.engine_sharded",
     "repro_torch.remat", "repro_torch.models.losses",
-    "repro_torch.launch.specs"]
+    "repro_torch.launch.specs", "repro_torch.tree"]
 
 
 def test_import_pulls_in_no_jax_and_no_repro():
@@ -85,7 +85,9 @@ def test_chip_scripts_import_no_jax_or_repro():
     assert {f.name for f in scripts} >= {"chip_smoke.py",
                                          "chip_flash_ablation.py",
                                          "chip_ssd_ablation.py",
-                                         "chip_select_ablation.py"}
+                                         "chip_select_ablation.py",
+                                         "chip_mesh_nccl.py",
+                                         "chip_moe_cpu_pin.py"}
     hits = [(f.name, m.group(0).strip())
             for f in scripts for m in IMPORT_RE.finditer(f.read_text())]
     assert hits == []

@@ -64,11 +64,21 @@ def test_spec_file_runs(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [(["--mesh-shape", "2,2"], 11)])
-def test_unported_flags_raise_naming_their_item(flags, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
-        train.main(["--task", "cifar", "--device", "cpu",
-                    "--save-spec", str(tmp_path / "s.json")] + flags)
-    assert not (tmp_path / "s.json").exists()
+def test_unported_flags_raise_naming_their_item(flags, item, tmp_path,
+                                                monkeypatch):
+    """``--mesh-shape 2,2`` (item 11's engine half, ported) parses into
+    the spec that runs and the spec file; the run itself, 4 spawned
+    ranks, is ``tests/test_torch_engine_model_axis.py``'s."""
+    ran = []
+    monkeypatch.setattr(train, "run_spec_dist",
+                        lambda spec, **kw: ran.append(spec) or
+                        train.TrainResult([], {}, None, None))
+    train.main(["--task", "cifar", "--device", "cpu",
+                "--save-spec", str(tmp_path / "s.json")] + flags)
+    assert [s.mesh_shape for s in ran] == [(2, 2)]
+    assert train.RunSpec.load(str(tmp_path / "s.json")).resolved() \
+        .mesh_shape == (2, 2)
+    assert f"item {item}" not in train.__doc__
 
 
 def test_arch_runs_two_rounds_on_the_cpu(capsys):

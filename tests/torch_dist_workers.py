@@ -137,3 +137,51 @@ def synth_engines(mesh, n, rounds, k, topk_impl, seed):
                  comm=eng.selection_comm_bytes_per_round,
                  staged=eng.n_staged_bytes)
             if mesh.rank == 0 else None)
+
+
+def _result_np(res) -> dict:
+    """A run's streams, final r_k, final metrics and whole final
+    parameters (numpy)."""
+    return dict(sel=res.sel_history, comp=res.comp_history, k_t=res.k_t,
+                n_available=res.n_available, rates=res.rates,
+                train_loss=res.train_loss, delta_norm=res.delta_norm,
+                final=res.final_metrics, params=res.final_params)
+
+
+def model_axis_runs(mesh, runs, blocks=None):
+    """``run_spec`` inside this group, as under torchrun, for each (spec
+    JSON, mesh shape) of ``runs``, the shape put into the spec's
+    ``mesh_shape`` (``run_spec`` builds the mesh over the spec's axis
+    names): rank 0 returns the results in order, the others None.  With
+    ``blocks`` = (spec JSON, shapes) every rank also returns, for that
+    spec on each shape, the element count and the storage's element count
+    of each leaf its engine's ``init_carry`` keeps (parameters, then the
+    server optimizer's state), and the (2, 2) mesh's clients-axis
+    ``exchange`` of its global rank."""
+    from repro_torch.launch.mesh import make_fed_mesh
+    from repro_torch.sim import RunSpec, run_spec
+    from repro_torch.sim.engine import build_engine
+    from repro_torch.tree import tree_leaves
+    out = {"runs": [], "blocks": {}, "exchange": None}
+    for js, shape in runs:
+        res = run_spec(RunSpec.from_json(js).replace(mesh_shape=tuple(shape)),
+                       device="cpu", log_fn=lambda *a: None)
+        out["runs"].append(_result_np(res) if mesh.rank == 0 else None)
+    js, shapes = blocks if blocks is not None else (None, ())
+    for shape in shapes:
+        fmesh = make_fed_mesh(shape)
+        rs = RunSpec.from_json(js).resolved()
+        engine, _ = build_engine(rs.scenario, rs.strategy, device="cpu",
+                                 server_opt=rs.server_opt,
+                                 server_lr=rs.server_lr, mesh=fmesh)
+        carry = engine.init_carry(tr.PRNGKey(0, device="cpu"))
+        out["blocks"][shape] = [
+            (x.numel(), x.untyped_storage().nbytes() // x.element_size())
+            for x in tree_leaves((carry.params, carry.opt_state))
+            if torch.is_tensor(x)]
+        if shape == (2, 2):
+            c = fmesh.axis_mesh("clients")
+            got = c.exchange(torch.tensor([fmesh.rank]), (c.rank + 1) % 2,
+                             (c.rank + 1) % 2)
+            out["exchange"] = int(got)
+    return out
