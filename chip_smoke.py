@@ -165,7 +165,12 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  both dtypes: the encoder (1, 1500, 12, 12, 64) non-causal
                  (a ragged edge), the decoder's self-attention (1, 8192,
                  12, 12, 64) causal and its cross-attention, 8,192 and 448
-                 queries over 1,500 frames, non-causal; it reports each
+                 queries over 1,500 frames, non-causal; and a rank's heads
+                 under a model split (MESH_ATTN), causal in both dtypes:
+                 mesh_serve's (1, 2048, 16, 4, 64), llama's (1, 8192, 16,
+                 4, 64) and (1, 8192, 8, 2, 64) at m = 2 and 4, qwen3-14b's
+                 (1, 8192, 20, 4, 128) and (1, 8192, 10, 2, 128), and
+                 gemma-7b's (1, 8192, 4, 4, 256) at m = 4; it reports each
                  reference's RMS;
 8. ``flash_timing`` median CUDA-event times of the kernel (its bf16 route,
                  on the tensor cores, and its float32 route, on the CUDA
@@ -245,6 +250,22 @@ Drives ``repro_torch`` only (no JAX, nothing of the JAX package ``repro``):
                  layers in float32 on one cache (2 rows of decode_32k's,
                  long_500k's whole), the same steps on the card and the
                  CPU: logits and caches within 1e-4;
+9c. ``mesh_serve`` the serving programs over a (data, model) mesh: 4 gloo
+                 ranks share the card at (2, 2), each building
+                 ``build_prefill_step(arch, "prefill_32k", mesh)`` and
+                 ``build_decode_step(arch, "decode_32k", mesh)`` for
+                 llama3.2-1b at full width and 2 layers, cut to B = 2,
+                 S = 2,048, and running on its blocks (carved from the
+                 full weights drawn from the seed): a prefill in bfloat16
+                 and one in float32, each with the flash count at 0 just
+                 before (one launch a layer on every rank, at H/m = 16
+                 query and 4 kv heads), then 8 greedy decode steps (the
+                 distributed argmax, no flash launch) from a cache filled
+                 at random by blocks; held to one process on the card on
+                 the same weights and tokens: float32 logits within 1e-5
+                 and bfloat16 within 2e-2 of their largest magnitude, the
+                 greedy tokens equal (near-ties counted); each rank's
+                 parameter bytes and the bytes all-reduced a layer;
 9b. ``dense_path`` drives qwen3-8b, qwen3-14b and gemma-7b at full width
                  and about an eighth of their depth (DENSE_DEPTH: 5, 5 and
                  4 layers),
@@ -1120,7 +1141,8 @@ def device_profile(torch, fn, steps: int = 1, kernel_name=None,
     those (``round/*``) are not kernels.  ``cpu=False`` traces the device
     alone: a round of tens of thousands of launches with its host ops
     takes over a minute to read back (mamba2's 44-layer round on an H100
-    80GB HBM3's host).
+    80GB HBM3's host; Shakespeare's round 31 s), so every profile but the
+    main path's (which reads its host spans) traces the device alone.
     Returns (stats, the profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1178,7 +1200,7 @@ def profile_task_round(torch, dev, task: str):
 
     def step():
         box[0], _ = engine.chunk(box[0], range(1, 2))
-    return device_profile(torch, step)[0]
+    return device_profile(torch, step, cpu=False)[0]
 
 
 def resnet18_macs(cfg, img: int) -> int:
@@ -1302,7 +1324,8 @@ def resnet18(torch, dev):
         if mode == "parallel":
             modes[mode]["profile"] = device_profile(
                 torch, lambda: fed_round(params, opt.init(params),
-                                         batches[0], weights, lr))[0]
+                                         batches[0], weights, lr),
+                cpu=False)[0]
         if not (np.isfinite(losses).all() and np.isfinite(dnorms).all()):
             raise AssertionError(f"resnet18 {mode}: non-finite round")
         if launches != (RESNET18_ROUNDS if mode == "parallel" else 0):
@@ -1914,6 +1937,16 @@ HD128_ATTN = (1, 4096, 32, 8, 128)  # two KV tiles a row at head dim 128
 HD256_ATTN = (1, 512, 4, 2, 256)    # gemma's head dim, GQA
 GEMMA_ATTN = (1, 8192, 16, 16, 256)  # gemma-7b prefill layer, B = 1
 QWEN14_ATTN = (1, 2048, 40, 8, 128)  # qwen3-14b's group of 5 heads a KV head
+# a rank's heads over a model axis of m (H/m query, KV/m kv heads), one
+# sequence of the batch: mesh_serve's llama at m = 2 and S = 2,048; the
+# NCCL cells' llama at m = 2 and 4, qwen3-14b at m = 2 and 4; gemma-7b
+# at m = 4
+MESH_ATTN = {"mesh_serve_llama_m2": (1, 2048, 16, 4, 64),
+             "llama_m2": (1, 8192, 16, 4, 64),
+             "llama_m4": (1, 8192, 8, 2, 64),
+             "qwen3_14b_m2": (1, 8192, 20, 4, 128),
+             "qwen3_14b_m4": (1, 8192, 10, 2, 128),
+             "gemma_7b_m4": (1, 8192, 4, 4, 256)}
 # mixtral-8x22b's and grok-1-314b's prefill layer, B = 1: mixtral's with
 # its sliding window of 4096, grok's with its logit soft-cap of 30
 MOE_ATTN = (1, 8192, 48, 8, 128)
@@ -1985,6 +2018,8 @@ def check_flash_attention(torch, dev):
     cases += [(shape, dtype, "causal") for shape in (GEMMA_ATTN, QWEN14_ATTN)
               for dtype in (torch.bfloat16, torch.float32)]
     cases += [(MOE_ATTN, torch.bfloat16, mode) for mode in MOE_MODES.values()]
+    cases += [(shape, dtype, "causal") for shape in MESH_ATTN.values()
+              for dtype in (torch.bfloat16, torch.float32)]
     cases += [(shape, dtype, mode)
               for shape, mode in ((RG_ATTN, "window2048"),
                                   (LLAVA_ATTN, "causal"),
@@ -1992,9 +2027,10 @@ def check_flash_attention(torch, dev):
               for dtype in (torch.bfloat16, torch.float32)]
     modes = FLASH_MODES
     rows, max_err, llama, gemma, moe = [], {}, {}, {}, {}
-    hybrid_vlm, whisper = {}, {}
+    hybrid_vlm, whisper, mesh_heads = {}, {}, {}
     whisper_layer = {shape: layer for layer, (shape, _)
                      in WHISPER_ATTN.items()}
+    mesh_layer = {shape: name for name, shape in MESH_ATTN.items()}
     for i, (shape, dtype, mode) in enumerate(cases):
         q, k, v = attn_inputs(torch, dev, shape, dtype, i)
         got = flash_attention(q, k, v, **modes[mode])
@@ -2026,6 +2062,10 @@ def check_flash_attention(torch, dev):
             hybrid_vlm[f"{'recurrentgemma' if shape == RG_ATTN else 'llava'}"
                        f"_{dname}"] = dict(max_abs_err=err, ref_rms=rms,
                                            err_over_rms=err / rms)
+        if shape in mesh_layer and mode == "causal":
+            mesh_heads[f"{mesh_layer[shape]}_{dname}"] = dict(
+                shape=list(shape), max_abs_err=err, ref_rms=rms,
+                err_over_rms=err / rms)
         if shape in whisper_layer:
             whisper[f"{whisper_layer[shape]}_{dname}"] = dict(
                 shape=list(shape), mode=mode, max_abs_err=err, ref_rms=rms,
@@ -2040,7 +2080,8 @@ def check_flash_attention(torch, dev):
     emit(dict(phase="flash_attention", checks=rows,
               max_abs_err_by_dtype=max_err, llama_shape=llama,
               gemma_shape=gemma, moe_shape=moe,
-              hybrid_vlm_shapes=hybrid_vlm, whisper_shapes=whisper))
+              hybrid_vlm_shapes=hybrid_vlm, whisper_shapes=whisper,
+              mesh_rank_shapes=mesh_heads))
     return llama["bfloat16"]["max_abs_err"]
 
 
@@ -2666,7 +2707,7 @@ def clients(torch, dev, main_run, more=()):
         def window():
             box[0], _ = engine.chunk(box[0], range(rounds1, rounds1 + 3))
         (prof, _), launches, _ = counted(torch, lambda: device_profile(
-            torch, window, steps=3, kernel_name="fed_select"))
+            torch, window, steps=3, kernel_name="fed_select", cpu=False))
         add_launches(totals, launches)
         emit(dict(phase="clients", cell="profile", n=CLIENTS_N, rounds=3,
                   **prof))
@@ -4178,6 +4219,284 @@ def decode_shapes(torch, dev, params):
 
 
 # ---------------------------------------------------------------------------
+# mesh_serve: the serving programs over a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+MESH_ARCH = "llama3.2-1b"
+MESH_SERVE_SHAPE = (2, 2)            # (data, model): 4 gloo ranks, one card
+MESH_SERVE_LAYERS = 2
+MESH_SERVE_BATCH = 2
+MESH_SERVE_SEQ = 2048
+MESH_SERVE_STEPS = 8
+MESH_SERVE_THREADS = 2
+MESH_SEED = 17
+MESH_KV_BLOCK = 1                  # cache rows drawn together (fill_kv)
+# the gathered logits against one process on the card, over the largest
+# magnitude: float32 as the CPU tests hold the mesh programs to the
+# one-process ones, bfloat16 at tests/test_torch_transformer.py's
+# LOGIT_TOL (each rank's partials float32, summed, rounded to bf16 once)
+MESH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def mesh_arch(dtype: str, n_layers: int):
+    """MESH_ARCH at full width, its first ``n_layers`` layers, in
+    ``dtype``."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    arch = get_arch(MESH_ARCH)
+    return dataclasses.replace(arch, model=arch.model.replace(
+        n_layers=n_layers, dtype=dtype))
+
+
+def mesh_tokens(torch, vocab: int, batch: int, seq: int, dev, seed: int):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, vocab, (batch, seq), generator=gen, device=dev,
+                         dtype=torch.int32)
+
+
+def fill_kv(torch, caches, seed: int, *, row0: int = 0, kv0: int = 0,
+            kv_heads: int, block: int):
+    """Fill ``caches`` {"k", "v"} (layers, rows, M, kv, hd), the rows
+    ``row0``... and kv heads ``kv0``... of a full cache of ``kv_heads`` kv
+    heads, with that cache's values: each layer's K and V drawn ``block``
+    rows at a time, each block (block, M, kv_heads, hd) from a generator
+    of its own (seeded by the layer, K or V, and the block's index), so
+    that any rows can be filled alone (a block's draw at a time)."""
+    L, rows, M, kv, hd = caches["k"].shape
+    first, last = row0 // block, (row0 + rows - 1) // block
+    for layer in range(L):
+        for j, name in enumerate(("k", "v")):
+            t = caches[name]
+            for bi in range(first, last + 1):
+                gen = torch.Generator(device=t.device).manual_seed(
+                    seed + 7919 * (2 * layer + j) + bi)
+                full = torch.empty((block, M, kv_heads, hd), dtype=t.dtype,
+                                   device=t.device).normal_(generator=gen)
+                lo = max(row0, bi * block)
+                hi = min(row0 + rows, (bi + 1) * block)
+                t[layer, lo - row0:hi - row0].copy_(
+                    full[lo - bi * block:hi - bi * block, :,
+                         kv0:kv0 + kv])
+                del full
+
+
+def rank_offsets(mesh, spec, shape) -> list:
+    """Per dim of a block of ``shape`` laid out by ``spec``, the offset of
+    this rank's block in the full tensor."""
+    out = []
+    for entry, n in zip(spec, shape):
+        out.append(0 if entry is None else mesh.axes_mesh(entry).rank * n)
+    return out
+
+
+def mesh_serve_rank(mesh, device: str, layers_n: int, batch: int, seq: int,
+                    steps: int):
+    """One rank of ``mesh_serve``: for bfloat16, then float32, the prefill
+    and decode programs over ``mesh`` on this rank's blocks of
+    ``mesh_params``, the flash launches (and the heads each saw) and the
+    all-reduced bytes counted from 0; the greedy tokens are the
+    distributed argmax, each rank's rows fed back.  Rank 0 also returns
+    the gathered logits (float32, on the host)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.models import layers
+    from repro_torch.sharding.rules import gather_full
+    from repro_torch.tree import tree_map
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    heads = []
+    plain = layers.flash_attention
+
+    def recording(q, k, v, **kw):
+        heads.append((q.shape[2], k.shape[2]))
+        return plain(q, k, v, **kw)
+    layers.flash_attention = recording
+    out = []
+    t0 = time.perf_counter()
+    drawn = mesh_params(torch, mesh_arch("bfloat16", layers_n).model, dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    try:
+        for dtype in ("bfloat16", "float32"):
+            arch = mesh_arch(dtype, layers_n)
+            cfg = arch.model
+            pre = build_prefill_step(arch, "prefill_32k", mesh)
+            dec = build_decode_step(arch, "decode_32k", mesh)
+            tokens = mesh_tokens(torch, cfg.vocab, batch, seq, dev,
+                                 MESH_SEED)
+            p_loc, b_loc = pre.shard((_tree_to(drawn, cfg.torch_dtype),
+                                      {"tokens": tokens}), batch)
+            p_loc = tree_map(torch.clone, p_loc)   # a storage of its own
+            torch.cuda.empty_cache()
+            param_bytes = sum(x.numel() * x.element_size()
+                              for x in tree_leaves(p_loc))
+            pre.fn(p_loc, b_loc)                   # warm-up
+            flash_attention.launches = 0
+            layers.sum_partials.calls = layers.sum_partials.bytes = 0
+            heads.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = pre.fn(p_loc, b_loc)
+            torch.cuda.synchronize()
+            prefill_ms = 1e3 * (time.perf_counter() - t0)
+            pre_launches, pre_heads = flash_attention.launches, list(heads)
+            reduced = (layers.sum_partials.calls, layers.sum_partials.bytes)
+            tok = pre.greedy(logits)
+            (_, st_spec, tok_spec), _ = dec.specs(batch)
+            toks = [gather_full(tok, tok_spec, mesh).cpu()]
+            full = [pre.gather(logits, batch).float().cpu()]
+            state = dec.init_state(batch, seq + steps, dev)
+            caches = state["caches"]
+            spec = st_spec["caches"]["k"]
+            off = rank_offsets(mesh, spec, caches["k"].shape)
+            fill_kv(torch, caches, MESH_SEED, row0=off[1], kv0=off[3],
+                    kv_heads=cfg.n_kv_heads, block=MESH_KV_BLOCK)
+            state["index"].fill_(seq)
+            flash_attention.launches = 0
+            walls = []
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, state = dec.fn(p_loc, state, tok)
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+                full.append(dec.gather(lg, batch).float().cpu())
+                tok = dec.greedy(lg)
+                toks.append(gather_full(tok, tok_spec, mesh).cpu())
+            row = dict(dtype=dtype, rank=mesh.rank, param_bytes=param_bytes,
+                       draw_s=draw_s,
+                       prefill_flash_launches=pre_launches,
+                       flash_heads=[list(h) for h in sorted(set(pre_heads))],
+                       decode_flash_launches=flash_attention.launches,
+                       allreduce_calls=reduced[0],
+                       allreduce_bytes=reduced[1], prefill_ms=prefill_ms,
+                       step_ms=walls, cache_shape=list(caches["k"].shape),
+                       local_batch=list(b_loc["tokens"].shape))
+            if mesh.rank == 0:       # numpy: a tensor would go by fd
+                row.update(logits=[x.numpy() for x in full],
+                           tokens=torch.cat(toks, dim=1).numpy())
+            out.append(row)
+            del p_loc, b_loc, state, caches
+            torch.cuda.empty_cache()
+    finally:
+        layers.flash_attention = plain
+    return out
+
+
+def mesh_params(torch, cfg, dev, seed: int = MESH_SEED):
+    """``cfg``'s weights drawn in bfloat16 from ``seed`` (the same bits in
+    every process on the card), cast to ``cfg``'s dtype."""
+    from repro_torch import random as jr
+    from repro_torch.models import transformer
+    p = transformer.init_params(cfg.replace(dtype="bfloat16"),
+                                jr.PRNGKey(seed, device=dev), dev)
+    return _tree_to(p, cfg.torch_dtype)
+
+
+def mesh_serve(torch, dev):
+    """The (2, 2) mesh's 4 gloo ranks on the card (one spawn), then one
+    process on the card on the same weights: the prefill's and each
+    decode step's logits, fed the mesh's greedy tokens, within MESH_TOL
+    of their largest magnitude, and the mesh's greedy tokens the one
+    process's argmax (a token where they differ is a near-tie when the
+    one process' logit gap between them is within the limit: counted,
+    else the check fails).  Returns the flash launches, summed over the
+    ranks."""
+    import numpy as np
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import transformer
+
+    L, B, S, n = (MESH_SERVE_LAYERS, MESH_SERVE_BATCH, MESH_SERVE_SEQ,
+                  MESH_SERVE_STEPS)
+    d, m = MESH_SERVE_SHAPE
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(mesh_serve_rank, d * m, str(dev), L, B, S, n,
+                        backend="gloo", threads=MESH_SERVE_THREADS,
+                        mesh_shape=MESH_SERVE_SHAPE,
+                        axis_names=("data", "model"))
+    spawn_wall = time.perf_counter() - t0
+    launches, ok = 0, True
+    drawn = mesh_params(torch, mesh_arch("bfloat16", L).model, dev)
+    for k, dtype in enumerate(("bfloat16", "float32")):
+        r0 = ranks[0][k]
+        cfg = mesh_arch(dtype, L).model
+        params = _tree_to(drawn, cfg.torch_dtype)
+        tokens = mesh_tokens(torch, cfg.vocab, B, S, dev, MESH_SEED)
+        want = [transformer.prefill(cfg, params, {"tokens": tokens})]
+        state = transformer.init_decode_state(cfg, B, S + n, dev)
+        fill_kv(torch, state["caches"], MESH_SEED, kv_heads=cfg.n_kv_heads,
+                block=MESH_KV_BLOCK)
+        state["index"].fill_(S)
+        fed = torch.from_numpy(r0["tokens"]).to(dev)
+        for t in range(n):
+            lg, state = transformer.decode_step(cfg, params, state,
+                                                fed[:, t:t + 1])
+            want.append(lg)
+        want = [w.float().cpu() for w in want]
+        del params, state
+        torch.cuda.empty_cache()
+        scale = max(float(w.abs().max()) for w in want)
+        errs = [float((torch.from_numpy(g) - w).abs().max()) / scale
+                for g, w in zip(r0["logits"], want)]
+        ties, flips = 0, 0
+        for t, w in enumerate(want):
+            mine = torch.from_numpy(r0["tokens"][:, t]).long()
+            best = w[:, 0].argmax(-1)
+            for b in range(B):
+                if int(mine[b]) == int(best[b]):
+                    continue
+                gap = float(w[b, 0, best[b]] - w[b, 0, mine[b]]) / scale
+                if gap <= MESH_TOL[dtype]:
+                    ties += 1
+                else:
+                    flips += 1
+        per_rank = [r[k] for r in ranks]
+        rank_launches = [r["prefill_flash_launches"] for r in per_rank]
+        launches += sum(rank_launches)
+        b_loc = B // d
+        embed_bytes = b_loc * S * cfg.d_model * 4
+        h_m, kv_m = cfg.n_heads // m, cfg.n_kv_heads // m
+        row = dict(phase="mesh_serve", arch=MESH_ARCH, dtype=dtype,
+                   mesh_shape=list(MESH_SERVE_SHAPE), backend="gloo",
+                   layers=L, batch=B, seq_len=S, decode_steps=n,
+                   prefill_shape="prefill_32k", decode_shape="decode_32k",
+                   local_batch=r0["local_batch"],
+                   cache_shape_per_rank=r0["cache_shape"],
+                   prefill_flash_launches=rank_launches,
+                   flash_heads=[r["flash_heads"] for r in per_rank],
+                   decode_flash_launches=[r["decode_flash_launches"]
+                                          for r in per_rank],
+                   param_bytes_per_rank=[r["param_bytes"]
+                                         for r in per_rank],
+                   allreduce_calls_prefill=r0["allreduce_calls"],
+                   allreduce_bytes_prefill=r0["allreduce_bytes"],
+                   allreduce_bytes_per_layer=(r0["allreduce_bytes"]
+                                              - embed_bytes) / L,
+                   prefill_ms=[r["prefill_ms"] for r in per_rank],
+                   step_ms_median=[sorted(r["step_ms"])[n // 2]
+                                   for r in per_rank],
+                   prefill_max_rel_err=errs[0],
+                   decode_max_rel_err=max(errs[1:]), logit_scale=scale,
+                   tol=MESH_TOL[dtype], greedy_near_ties=ties,
+                   greedy_flips=flips, spawn_wall_s=spawn_wall,
+                   rank_draw_s=[r["draw_s"] for r in per_rank],
+                   gpu=gpu_line())
+        emit(row)
+        ok &= (all(x == L for x in rank_launches)
+               and all(r["flash_heads"] == [[h_m, kv_m]] for r in per_rank)
+               and all(r["decode_flash_launches"] == 0 for r in per_rank)
+               and max(errs) <= MESH_TOL[dtype] and flips == 0
+               and all(np.isfinite(e) for e in errs))
+    del drawn
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("mesh_serve: a check failed (see its lines)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # zoo_train: llama3.2-1b's federated round at full width
 # ---------------------------------------------------------------------------
 
@@ -5033,6 +5352,8 @@ def main(argv) -> int:
                      "decode_shapes": phase("decode_shapes", decode_shapes,
                                             torch, dev, llama)}
     del llama
+    torch.cuda.empty_cache()
+    flash_by_path["mesh_serve"] = phase("mesh_serve", mesh_serve, torch, dev)
     for name, fn in (("dense_path", dense_path), ("moe_path", moe_path),
                      ("hybrid_path", hybrid_path), ("vlm_path", vlm_path),
                      ("audio_path", audio_path)):

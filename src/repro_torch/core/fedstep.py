@@ -115,7 +115,7 @@ def make_fed_round(loss_fn: Callable, server_opt: Optimizer, *,
     ``acc_dtype`` is the sequential mode's Δ accumulator (float32 by
     default).  ``param_shardings`` (the sequential mode's FSDP carries)
     is not ported and raises ``NotImplementedError`` (ROADMAP.md queue 1
-    item 11, its second half).
+    item 11, the training programs over a mesh).
 
     ``cohort_axis``: the client mesh axis (a ``launch.mesh.ClientMesh``)
     of the sharded engine.  The returned function then takes this shard's
@@ -149,8 +149,8 @@ def make_fed_round(loss_fn: Callable, server_opt: Optimizer, *,
     if param_shardings is not None:
         raise NotImplementedError(
             "make_fed_round(param_shardings=), the sequential mode's FSDP "
-            "carries, is not ported yet: the step builders with shardings "
-            "are ROADMAP.md queue 1 item 11, its second half")
+            "carries, is not ported yet: the training programs over a "
+            "mesh are ROADMAP.md queue 1 item 11")
     if (model_axis is not None or param_specs is not None) \
             and cohort_axis is None:
         raise ValueError("model_axis and param_specs split the sharded "

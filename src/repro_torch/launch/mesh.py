@@ -31,9 +31,13 @@ one card share it.
 (``torch.multiprocessing``, start method ``spawn``), each with its own
 process group, and returns what each rank's function returned.
 
-``make_production_mesh``, ``make_debug_mesh`` and ``data_axes`` serve the
-step builders with shardings, which are not ported (ROADMAP.md queue 1
-item 11, its second half).
+The serving programs' meshes are :class:`FedMesh` es too, over axes named
+``("data", "model")`` or ``("pod", "data", "model")``
+(``make_fed_mesh(shape, axis_names=)``, :func:`make_debug_mesh`,
+:func:`make_production_mesh`); a mesh of three or more axes also holds
+one group over its leading axes together (:meth:`FedMesh.axes_mesh` of
+``("pod", "data")``), which the batch's split spans.  :func:`data_axes`
+names the axes that carry the batch.
 """
 from __future__ import annotations
 
@@ -45,16 +49,13 @@ import tempfile
 import traceback
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 __all__ = ["ClientMesh", "FedMesh", "make_client_mesh", "make_fed_mesh",
            "make_production_mesh", "make_debug_mesh", "data_axes",
            "spawn_ranks"]
-
-_SECOND_HALF = ("is not ported to repro_torch yet: the step builders with "
-                "shardings are ROADMAP.md queue 1 item 11, its second half")
-
 
 @dataclasses.dataclass(frozen=True)
 class ClientMesh:
@@ -84,6 +85,14 @@ class ClientMesh:
         """The mesh's axis ``name``: this mesh itself."""
         if name != self.axis:
             raise ValueError(f"mesh {self.axis_names} has no {name!r} axis")
+        return self
+
+    def axes_mesh(self, names) -> "ClientMesh":
+        """The axes ``names`` together (a name, or a tuple of names):
+        this mesh itself, when they are its axis."""
+        names = (names,) if isinstance(names, str) else tuple(names)
+        if names not in ((self.axis,), self.axis):
+            raise ValueError(f"mesh {self.axis_names} has no axes {names!r}")
         return self
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
@@ -131,13 +140,16 @@ class ClientMesh:
 
 @dataclasses.dataclass(frozen=True)
 class FedMesh:
-    """A 2-D (clients, model) mesh as this process sees it: its global
-    ``rank`` of ``size`` and one :class:`ClientMesh` an axis (``axes``,
-    in the mesh's order)."""
+    """A mesh of two or more axes as this process sees it: its global
+    ``rank`` of ``size``, one :class:`ClientMesh` an axis (``axes``, in
+    the mesh's order) and, with three or more axes, one over the leading
+    axes together (``merged``: its ``axis`` the tuple of their names, its
+    index theirs in row-major order)."""
 
     axes: tuple
     rank: int = 0
     backend: Optional[str] = None
+    merged: tuple = ()
 
     @property
     def size(self) -> int:
@@ -159,6 +171,19 @@ class FedMesh:
             if a.axis == name:
                 return a
         raise ValueError(f"mesh {self.axis_names} has no {name!r} axis")
+
+    def axes_mesh(self, names) -> ClientMesh:
+        """The :class:`ClientMesh` over the axes ``names`` together (a
+        name, or a tuple of names in mesh order): one axis' own, or the
+        leading axes' merged one."""
+        names = (names,) if isinstance(names, str) else tuple(names)
+        if len(names) == 1:
+            return self.axis_mesh(names[0])
+        for a in self.merged:
+            if a.axis == names:
+                return a
+        raise ValueError(f"mesh {self.axis_names} has no group over the "
+                         f"axes {names!r} together")
 
 
 def _validate_axis_names(axis_names) -> tuple:
@@ -199,11 +224,12 @@ def make_client_mesh(num_shards: Optional[int] = None, *,
                       group=group, backend=dist.get_backend(group))
 
 
-def _axis(index: int, members_by_line: list, line: int, name: str,
-          world: int, backend) -> tuple:
-    """(the groups of one axis, one a line of the grid; this rank's
-    ClientMesh on it).  Every rank calls this for every axis in the same
-    order: ``dist.new_group`` is collective over the default group."""
+def _axis(index: int, members_by_line: list, line: int, name,
+          world: int, backend) -> ClientMesh:
+    """This rank's ClientMesh on one axis, whose groups are one a line of
+    the grid (``members_by_line``, global ranks in axis order).  Every
+    rank calls this for every axis in the same order: ``dist.new_group``
+    is collective over the default group."""
     size = len(members_by_line[0])
     if size == 1:
         return ClientMesh(axis=name)
@@ -215,12 +241,62 @@ def _axis(index: int, members_by_line: list, line: int, name: str,
                       backend=backend, ranks=tuple(members_by_line[line]))
 
 
+def _lines(shape: tuple, dims: tuple, rank: int):
+    """The lines of the row-major grid ``shape`` along ``dims`` (the
+    ranks that share every other coordinate, in the order of those
+    coordinates), this rank's line and its index on it (row-major over
+    ``dims``)."""
+    rest = [k for k in range(len(shape)) if k not in dims]
+    lines = np.arange(math.prod(shape)).reshape(shape).transpose(
+        rest + list(dims)).reshape(-1, math.prod(shape[k] for k in dims))
+    mine, index = (int(i) for i in np.argwhere(lines == rank)[0])
+    return lines.tolist(), mine, index
+
+
+def _grid_mesh(shape: tuple, names: tuple) -> FedMesh:
+    """The :class:`FedMesh` of ``shape`` over the default group (its size
+    must be the product; with no group initialized, a mesh of one rank),
+    its ranks laid out row-major as JAX's ``_grid_mesh`` lays its
+    devices out; with three or more axes also the group of the leading
+    axes together."""
+    total = math.prod(shape)
+    world = _group_size()
+    if world is None:
+        if total != 1:
+            raise RuntimeError(
+                f"a mesh of shape {shape} needs an initialized "
+                f"torch.distributed process group of {total} ranks "
+                f"(run_spec launches them itself when none is "
+                f"initialized)")
+        return FedMesh(axes=tuple(ClientMesh(axis=n) for n in names))
+    if total != world:
+        raise ValueError(f"mesh of shape {shape} ({total} ranks) over a "
+                         f"process group of {world} ranks: one rank a "
+                         f"mesh position")
+    rank = dist.get_rank(dist.group.WORLD)
+    backend = dist.get_backend(dist.group.WORLD)
+    axes = []
+    for k, name in enumerate(names):
+        lines, line, index = _lines(shape, (k,), rank)
+        axes.append(_axis(index, lines, line, name, world, backend))
+    merged = ()
+    if len(shape) >= 3:
+        lead = tuple(range(len(shape) - 1))
+        lines, line, index = _lines(shape, lead, rank)
+        merged = (_axis(index, lines, line, tuple(names[:-1]), world,
+                        backend),)
+    return FedMesh(axes=tuple(axes), rank=rank, backend=backend,
+                   merged=merged)
+
+
 def make_fed_mesh(mesh_shape, *, axis_names=("clients", "model")):
     """``(c,)`` → :func:`make_client_mesh` (0: the group's size);
     ``(c, m)`` → the :class:`FedMesh` of c × m ranks, row-major, over the
     default group (its size must be c × m; at most one entry may be 0,
     meaning the group's size divided by the other).  With no group
-    initialized only a mesh of one rank can be made."""
+    initialized only a mesh of one rank can be made.  The serving
+    programs' (data, model) mesh is ``make_fed_mesh((d, m),
+    axis_names=("data", "model"))``."""
     shape = tuple(int(s) for s in mesh_shape)
     if len(shape) not in (1, 2) or any(s < 0 for s in shape):
         raise ValueError(f"mesh_shape must be 1 or 2 non-negative ints, "
@@ -234,51 +310,47 @@ def make_fed_mesh(mesh_shape, *, axis_names=("clients", "model")):
     if shape.count(0) > 1:
         raise ValueError(f"at most one mesh_shape entry may be 0 (= fill "
                          f"with the group's ranks), got {mesh_shape!r}")
-    world = _group_size()
     if 0 in shape:
+        world = _group_size()
         fill = (world or 1) // max(shape)
         if fill < 1:
             raise ValueError(f"mesh_shape {mesh_shape!r} cannot be filled: "
                              f"the group has {world or 1} ranks")
         shape = tuple(s if s else fill for s in shape)
-    c, m = shape
-    if world is None:
-        if c * m != 1:
-            raise RuntimeError(
-                f"a (clients, model) mesh of {c} x {m} ranks needs an "
-                f"initialized torch.distributed process group of {c * m} "
-                f"ranks (run_spec launches them itself when none is "
-                f"initialized)")
-        return FedMesh(axes=(ClientMesh(axis=names[0]),
-                             ClientMesh(axis=names[1])))
-    if c * m != world:
-        raise ValueError(f"mesh of {c} x {m} ranks over a process group of "
-                         f"{world} ranks: one rank a mesh position")
-    rank = dist.get_rank(dist.group.WORLD)
-    backend = dist.get_backend(dist.group.WORLD)
-    i, j = divmod(rank, m)
-    clients = _axis(i, [[r * m + jj for r in range(c)] for jj in range(m)],
-                    j, names[0], world, backend)
-    model = _axis(j, [[ii * m + r for r in range(m)] for ii in range(c)],
-                  i, names[1], world, backend)
-    return FedMesh(axes=(clients, model), rank=rank, backend=backend)
+    return _grid_mesh(shape, names)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The production (data, model) mesh: raises ``NotImplementedError``."""
-    raise NotImplementedError(f"make_production_mesh {_SECOND_HALF}")
+def _sized_mesh(shape: tuple, names: tuple) -> FedMesh:
+    """JAX's ``_grid_mesh`` of a fixed shape: ``ValueError`` naming the
+    ranks it needs when the group (one process without one) has fewer."""
+    total = math.prod(shape)
+    world = _group_size() or 1
+    if total > world:
+        raise ValueError(f"mesh shape {shape} needs {total} ranks but the "
+                         f"process group has {world} (launch {total} "
+                         f"ranks, as spawn_ranks or torchrun do)")
+    return _grid_mesh(shape, names)
 
 
-def make_debug_mesh():
-    """The (n, 1) (data, model) debug mesh: raises
-    ``NotImplementedError``."""
-    raise NotImplementedError(f"make_debug_mesh {_SECOND_HALF}")
+def make_production_mesh(*, multi_pod: bool = False) -> FedMesh:
+    """The production mesh: (16, 16) over ("data", "model"), or with
+    ``multi_pod`` (2, 16, 16) over ("pod", "data", "model"), over a
+    process group of 256 or 512 ranks."""
+    if multi_pod:
+        return _sized_mesh((2, 16, 16), ("pod", "data", "model"))
+    return _sized_mesh((16, 16), ("data", "model"))
+
+
+def make_debug_mesh() -> FedMesh:
+    """The (n, 1) ("data", "model") mesh over the group's n ranks (one
+    rank without a group)."""
+    return _grid_mesh((_group_size() or 1, 1), ("data", "model"))
 
 
 def data_axes(mesh) -> tuple:
-    """The axes carrying batch and FSDP splits: raises
-    ``NotImplementedError``."""
-    raise NotImplementedError(f"data_axes {_SECOND_HALF}")
+    """The axes carrying the batch and FSDP splits, in mesh order
+    ("pod" folds into data)."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
 
 
 # ---------------------------------------------------------------------------
@@ -286,11 +358,12 @@ def data_axes(mesh) -> tuple:
 # ---------------------------------------------------------------------------
 
 def _rank_main(rank: int, size: int, init_method: str, backend: str,
-               threads: int, fn: Callable, args: tuple, results,
+               threads: int, fn: Callable, inputs, results,
                mesh_shape=None, axis_names=("clients", "model")) -> None:
-    """One spawned rank: join the group, run ``fn(mesh, *args)``, report
-    ``(rank, ok, value or traceback)``."""
+    """One spawned rank: take ``args`` from ``inputs``, join the group, run
+    ``fn(mesh, *args)``, report ``(rank, ok, value or traceback)``."""
     try:
+        args = inputs.get()
         torch.set_num_threads(threads)
         if backend == "nccl":          # one card a rank
             torch.cuda.set_device(rank)
@@ -324,11 +397,18 @@ def spawn_ranks(fn: Callable, size: int, *args, backend: str = "gloo",
         threads = max(1, torch.get_num_threads() // size)
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
+    # the arguments go through a queue, not the process objects: a start
+    # writes its process object to a pipe the child reads only once it
+    # has imported its modules, so large arguments there would start the
+    # ranks one after another
+    inputs = ctx.Queue()
+    for _ in range(size):
+        inputs.put(args)
     with tempfile.TemporaryDirectory() as tmp:
         init = "file://" + os.path.join(tmp, "store")
         procs = [ctx.Process(target=_rank_main,
-                             args=(r, size, init, backend, threads, fn, args,
-                                   results, mesh_shape, axis_names),
+                             args=(r, size, init, backend, threads, fn,
+                                   inputs, results, mesh_shape, axis_names),
                              daemon=True)
                  for r in range(size)]
         for p in procs:

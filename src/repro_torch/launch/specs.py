@@ -25,7 +25,7 @@ from ..tree import tree_leaves, tree_map
 
 __all__ = ["ShapeDtype", "cohort_batch_specs", "prefill_batch_specs",
            "decode_tok_specs", "decode_state_specs", "param_specs",
-           "count_params"]
+           "count_params", "is_shape"]
 
 
 class ShapeDtype(NamedTuple):
@@ -124,3 +124,8 @@ def param_specs(cfg) -> Dict:
 
 def count_params(cfg) -> int:
     return int(sum(t.numel() for t in tree_leaves(_shape_tree(cfg))))
+
+
+def is_shape(x) -> bool:
+    """Whether ``x`` is a :class:`ShapeDtype` (a leaf of a shapes tree)."""
+    return isinstance(x, ShapeDtype)

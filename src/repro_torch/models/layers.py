@@ -4,11 +4,24 @@ sliding-window, optional qk-norm and logit soft-cap) for the full sequence
 and for one decode step against a KV cache, the gated MLPs and the top-k
 routed Mixture-of-Experts block.
 
-Layers are plain functions over nested dicts of tensors.  The sharding
-annotations of the JAX package (``hooks.constrain``) are identity on one
-card and are left out (ROADMAP.md queue 1 item 11, its second half).
-``remat`` is applied
-per layer by ``transformer.backbone``.
+Layers are plain functions over nested dicts of tensors.  ``remat`` is
+applied per layer by ``transformer.backbone``.
+
+**Tensor parallelism** (the serving programs of ``launch.steps`` over a
+(data, model) mesh).  Where JAX pins activations with
+``hooks.constrain`` and XLA partitions, each rank here runs its own
+blocks of the weights with explicit collectives, Megatron-style.  The
+layers read their head counts and widths from the leaves they are given,
+not from ``cfg``: leaves narrower than ``cfg`` are the rank's blocks, and
+``sharding.hooks.axis_for`` names the model axis they are split over.
+The attention then runs on the rank's H/m query heads (the
+flash_attention kernel on local tensors) and the MLP on its d_ff/m
+columns; the row-parallel products after ``wo`` and ``w2`` are partial
+sums, each rank's in float32, all-reduced over the model axis and
+rounded once (:func:`row_parallel`).  A rank that holds H/m query heads
+but every kv head (their count does not divide the axis) reads the kv
+heads its queries share (:func:`_rank_kv`).  Whole leaves, on one card,
+take none of these steps.
 """
 from __future__ import annotations
 
@@ -21,14 +34,17 @@ import torch
 
 from .. import random as jr
 from .. import xla_math
+from ..sharding import hooks
 from ..kernels.flash_attention import flash_attention
 # The model's attention is the plain version of the flash_attention kernel
 # and lives beside it; it is the same function as the JAX layers' sdpa.
 from ..kernels.ref import ATTN_NEG, sdpa, sqrt_hd
 
 __all__ = ["ModelConfig", "rms_norm", "init_rms", "rotary", "init_attention",
-           "sdpa", "attention_block", "attention_decode", "init_mlp",
-           "mlp_block", "init_moe", "top_k", "moe_routing", "moe_block"]
+           "sdpa", "attention_block", "attention_decode", "sum_partials",
+           "row_parallel",
+           "init_mlp", "mlp_block", "init_moe", "top_k", "moe_routing",
+           "moe_block"]
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -209,11 +225,13 @@ def init_attention(key: torch.Tensor, cfg: ModelConfig):
 
 
 def _qkv(p, x, cfg: ModelConfig, positions):
+    """q (B, S, h, hd), k and v (B, S, kv, hd), with h and kv the heads
+    the given leaves hold (the rank's, under a model split)."""
     B, S, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, h, hd)
-    k = (x @ p["wk"]).reshape(B, S, kv, hd)
-    v = (x @ p["wv"]).reshape(B, S, kv, hd)
+    hd = cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, -1, hd)
+    k = (x @ p["wk"]).reshape(B, S, -1, hd)
+    v = (x @ p["wv"]).reshape(B, S, -1, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -223,16 +241,71 @@ def _qkv(p, x, cfg: ModelConfig, positions):
     return q, k, v
 
 
+def sum_partials(y: torch.Tensor, logical: str) -> torch.Tensor:
+    """The partial sums ``y`` all-reduced over the mesh axis ``logical``
+    maps to, in float32 (the result's dtype).  ``sum_partials.calls`` and
+    ``.bytes`` count the all-reduces and the bytes each rank hands
+    them."""
+    ax = hooks.axis_for(logical)
+    if ax is None:
+        raise RuntimeError(f"split {logical!r} leaves with no mesh axis "
+                           f"mapped to {logical!r} (sharding.hooks)")
+    sum_partials.calls += 1
+    sum_partials.bytes += y.numel() * 4
+    return ax.all_reduce(y.to(torch.float32))
+
+
+sum_partials.calls = 0
+sum_partials.bytes = 0
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, logical: str):
+    """``x @ w`` where ``w`` holds the rank's rows of a row-parallel
+    weight (and x its columns of the input): each rank's partial product
+    in float32, unrounded (a bfloat16 GEMM with a float32 output on the
+    card), summed over the mesh axis and rounded to x's dtype once, as a
+    single card's GEMM rounds its float32 accumulator once.  (Rounding
+    each partial to bfloat16 first put qwen3-14b's 40-layer logits 2.4e-2
+    of their scale off one card's.)"""
+    if x.dtype == torch.float32:
+        y = x @ w
+    elif x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                     out_dtype=torch.float32).reshape(
+            x.shape[:-1] + (w.shape[-1],))
+    else:
+        y = x.to(torch.float32) @ w.to(torch.float32)
+    return sum_partials(y, logical).to(x.dtype)
+
+
+def _rank_kv(k, v, n_q: int, cfg: ModelConfig):
+    """The kv heads the rank's ``n_q`` query heads read, where it holds
+    H/m of them but every kv head: its queries r·n_q, ..., (r+1)·n_q - 1
+    read kv heads q // (H/KV)."""
+    if n_q == cfg.n_heads or k.shape[2] < cfg.n_kv_heads:
+        return k, v
+    r = hooks.axis_for("heads").rank
+    g = cfg.n_heads // cfg.n_kv_heads
+    lo, hi = r * n_q // g, ((r + 1) * n_q - 1) // g + 1
+    return k[:, :, lo:hi], v[:, :, lo:hi]
+
+
 def attention_block(p, x, cfg: ModelConfig, positions, *, window: int):
     """Full-sequence causal attention (prefill / training): the
     flash_attention kernel on a CUDA tensor, the plain ``sdpa`` on a CPU
     tensor (the wrapper dispatches by device).  Its gradient is the
-    flash_attention_bwd kernel (``ref.sdpa_bwd`` on the CPU)."""
+    flash_attention_bwd kernel (``ref.sdpa_bwd`` on the CPU).  On the
+    rank's heads, its ``wo`` partials summed over the model axis."""
     q, k, v = _qkv(p, x, cfg, positions)
+    n_q = q.shape[2]
+    k, v = _rank_kv(k, v, n_q, cfg)
     out = flash_attention(q, k, v, causal=True, window=window,
                           softcap=cfg.attn_softcap)
     B, S = x.shape[:2]
-    return out.reshape(B, S, -1) @ p["wo"]
+    out = out.reshape(B, S, -1)
+    if n_q < cfg.n_heads:
+        return row_parallel(out, p["wo"], "heads")
+    return out @ p["wo"]
 
 
 def attention_decode(p, x, cfg: ModelConfig, cache, index, *, window: int):
@@ -242,7 +315,9 @@ def attention_decode(p, x, cfg: ModelConfig, cache, index, *, window: int):
     length (the full sequence, or a ring buffer of ``window`` slots when a
     window is set and the cache was allocated at exactly that size).
     ``index`` is the absolute position of the new token (int32 scalar
-    tensor, kept on the device).
+    tensor, kept on the device).  Under a model split the cache is the
+    rank's block: its kv heads (KV/m of them, or all of them where KV
+    does not divide the axis).
 
     Unlike the JAX package, the new K/V row is written INTO ``cache`` in
     place (``index_copy_``), and the same tensors are returned: no copy of
@@ -268,14 +343,18 @@ def attention_decode(p, x, cfg: ModelConfig, cache, index, *, window: int):
         valid = kpos <= index
         if window > 0:
             valid &= kpos > index - window
-    out = _decode_sdpa(q, ck, cv, valid, cfg)
-    y = out.reshape(B, 1, -1) @ p["wo"]
+    n_q = q.shape[2]
+    out = _decode_sdpa(q, *_rank_kv(ck, cv, n_q, cfg), valid, cfg)
+    out = out.reshape(B, 1, -1)
+    y = (row_parallel(out, p["wo"], "heads") if n_q < cfg.n_heads
+         else out @ p["wo"])
     return y, {"k": ck, "v": cv}
 
 
 def _decode_sdpa(q, k, v, valid, cfg: ModelConfig):
     """Attention of one query row over the cache (plain torch: the JAX
-    package computes decode attention outside any kernel too)."""
+    package computes decode attention outside any kernel too), with the
+    head counts of q and the cache it is given (the rank's)."""
     B, _, H, hd = q.shape
     KV = k.shape[2]
     g = H // KV
@@ -336,10 +415,17 @@ def _gelu(x):
 
 
 def mlp_block(p, x, cfg: ModelConfig):
+    """The MLP; with the rank's d_ff/m columns of ``w1`` and ``w3``
+    (column-parallel) and rows of ``w2`` (row-parallel), its partials
+    summed over the model axis."""
     if cfg.mlp == "gelu":
-        return _gelu(x @ p["w1"]) @ p["w2"]
-    act = _gelu if cfg.mlp == "geglu" else _silu
-    return (act(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+        h = _gelu(x @ p["w1"])
+    else:
+        act = _gelu if cfg.mlp == "geglu" else _silu
+        h = act(x @ p["w1"]) * (x @ p["w3"])
+    if p["w1"].shape[-1] < cfg.d_ff:
+        return row_parallel(h, p["w2"], "tensor")
+    return h @ p["w2"]
 
 
 # ---------------------------------------------------------------------------

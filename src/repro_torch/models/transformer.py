@@ -19,6 +19,14 @@ only.
     prefill(cfg, params, batch)                   -> last-position logits
 
 The audio family (whisper's encoder-decoder) is ``encdec``'s.
+
+Under the serving programs of ``launch.steps`` over a (data, model) mesh
+the dense family runs on each rank's blocks (``layers``' tensor
+parallelism): the embedding is looked up vocab-parallel
+(:func:`embed_tokens`), each block's attention and MLP end in an
+all-reduce over the model axis, :func:`unembed` gives the rank's vocab
+slice of the logits, and :func:`init_decode_state` the rank's cache
+block, (B/d, M, KV/m, hd) a layer.
 """
 from __future__ import annotations
 
@@ -30,12 +38,13 @@ from .. import random as jr
 from ..device import resolve_device
 from ..registry import lookup
 from ..remat import checkpoint
+from ..sharding import hooks
 from ..tree import tree_leaves, tree_map
 from . import ssm as ssm_lib
 from .layers import (ModelConfig, _gelu, _normal, attention_block,
                      attention_decode, init_attention, init_mlp, init_moe,
                      init_rms, inv_sqrt, mlp_block, moe_block, rms_norm,
-                     sqrt_f32)
+                     sqrt_f32, sum_partials)
 from .losses import fused_unembed_xent
 
 # families of the JAX package not ported yet: none (audio is encdec's)
@@ -66,7 +75,10 @@ def _ffn(p, z, cfg: ModelConfig):
 
 def _dense_block(p, x, cfg: ModelConfig, positions, window: int):
     """(h, lb): lb is the MoE block's load-balancing loss, None without
-    one (the JAX package's constant 0)."""
+    one (the JAX package's constant 0).  On the rank's blocks of a dense
+    block the attention's and the MLP's partials are each all-reduced
+    over the model axis (``layers.row_parallel``) before their residual
+    add."""
     h = x + attention_block(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
                             cfg, positions, window=window)
     y, lb = _ffn(p, rms_norm(h, p["ln2"], cfg.norm_eps), cfg)
@@ -225,12 +237,28 @@ def _window(cfg: ModelConfig) -> int:
     return cfg.sliding_window
 
 
+def embed_tokens(cfg: ModelConfig, embed: torch.Tensor, tokens):
+    """The embedding rows of ``tokens`` in the model's dtype.  ``embed``
+    may be the rank's block of V/m vocab rows: each rank then looks up
+    the tokens in its rows, zero elsewhere, and the rows are all-reduced
+    over the model axis (in float32: exact, one term of each sum is
+    nonzero)."""
+    rows = embed.shape[0]
+    if rows == cfg.vocab:
+        return embed[tokens].to(cfg.torch_dtype)
+    local = tokens - hooks.axis_for("vocab").rank * rows
+    inside = (local >= 0) & (local < rows)
+    x = embed[torch.where(inside, local, torch.zeros_like(local))]
+    x = torch.where(inside[..., None], x, torch.zeros_like(x))
+    return sum_partials(x, "vocab").to(cfg.torch_dtype)
+
+
 def _embed_inputs(cfg: ModelConfig, params, batch):
     """Returns (x (B, S, d), text_mask (B, S)).  The vlm family prepends
     the projected patches, gelu(patch_embeds w1) w2, which the text mask
     leaves out."""
     tokens = batch["tokens"]
-    x = params["embed"][tokens].to(cfg.torch_dtype)
+    x = embed_tokens(cfg, params["embed"], tokens)
     tmask = torch.ones(tokens.shape, dtype=torch.bool, device=x.device)
     if cfg.family != "vlm":
         return x, tmask
@@ -309,6 +337,8 @@ def backbone(cfg: ModelConfig, params, x):
 
 
 def unembed(cfg: ModelConfig, params, x):
+    """The logits of x, tied (``embed.T``) or not; over the rank's vocab
+    rows, the rank's vocab slice of them."""
     xn = rms_norm(x, params["ln_f"], cfg.norm_eps)
     proj = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     return xn @ proj
@@ -361,8 +391,12 @@ def prefill(cfg: ModelConfig, params, batch):
 
 def _kv_cache_init(cfg: ModelConfig, batch: int, max_len: int, window: int,
                    device, lead: tuple = ()):
+    """Zero K and V caches (lead + (batch, M, kv, hd)): kv = KV/m where
+    the kv heads are split over the model axis (``hooks.axis_for``)."""
     M = min(max_len, window) if window > 0 else max_len
-    shape = lead + (batch, M, cfg.n_kv_heads, cfg.head_dim)
+    ax = hooks.axis_for("kv_heads", cfg.n_kv_heads)
+    kv = cfg.n_kv_heads // ax.size if ax is not None else cfg.n_kv_heads
+    shape = lead + (batch, M, kv, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
 
@@ -429,7 +463,7 @@ def decode_step(cfg: ModelConfig, params, state, tok_t):
     ``ssm.rglru_decode``); the returned state holds the same tensors and a
     new index.  A vlm decodes text only: its image prefix is in the cache
     where the prompt put it."""
-    x = params["embed"][tok_t].to(cfg.torch_dtype)
+    x = embed_tokens(cfg, params["embed"], tok_t)
     idx = state["index"]
     if cfg.family == "hybrid":
         x = _hybrid_decode(cfg, params, state, x)

@@ -25,9 +25,16 @@ block of it.  A leaf of an availability process's state carries the
 client dimension when its first dimension is N; the others (a cluster
 chain, a round counter) stay replicated.
 
-``param_shardings``' ``NamedSharding`` view, ``batch_shardings`` and
-``decode_state_shardings`` serve the step builders with shardings,
-which are not ported (ROADMAP.md queue 1 item 11, its second half).
+**The serving programs.**  :func:`param_shardings`, :func:`batch_shardings`
+and :func:`decode_state_shardings` give the spec trees of JAX's
+``in_shardings`` (the specs its ``NamedSharding`` s hold, entry for entry).
+:func:`local_blocks` carves a rank's blocks out of a full tree by a spec
+tree (over a mesh of any number of axes: the engine's model axis alone,
+or a serving program's), :func:`gather_full` gathers them back.
+``decode_state_shardings`` puts the model axis on a cache's last dim,
+head_dim; the programs of ``launch.steps`` hold their caches by kv heads
+instead (each rank's attention reads whole heads), which that module
+states.
 """
 from __future__ import annotations
 
@@ -42,7 +49,8 @@ from ..tree import (tree_leaves, tree_leaves_with_path, tree_map,
 
 __all__ = ["P", "STACKED_KEYS", "spec_for_leaf", "model_specs",
            "client_model_specs", "state_specs_like", "model_dim",
-           "specs_up_to", "local_blocks", "gather_full", "any_client_leaf",
+           "specs_up_to", "local_blocks", "gather_full", "param_shardings",
+           "batch_shardings", "decode_state_shardings", "any_client_leaf",
            "client_dim_flags", "map_client_leaves", "pad_client_dim"]
 
 STACKED_KEYS = ("blocks", "groups", "tail", "enc_blocks", "dec_blocks",
@@ -62,8 +70,10 @@ _MODEL_DIM_HINTS = [
 
 def P(*entries) -> tuple:
     """A partition spec: one entry a tensor dimension, each None
-    (replicated), an axis name or a tuple of names."""
-    return tuple(entries)
+    (replicated), an axis name or a tuple of names; a tuple of one name is
+    that name, as JAX's ``PartitionSpec`` holds it."""
+    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                 for e in entries)
 
 
 class _Shape(NamedTuple):
@@ -165,6 +175,84 @@ def model_specs(tree, mesh, *, model_axis: str = "model",
                                  for p, leaf in flat], _has_shape)
 
 
+def param_shardings(params, mesh, *, model_axis: str = "model",
+                    fsdp_axes: Optional[Tuple[str, ...]] = None):
+    """The spec tree of JAX's ``param_shardings`` (the specs its
+    ``NamedSharding`` s hold): :func:`model_specs`."""
+    return model_specs(params, mesh, model_axis=model_axis,
+                       fsdp_axes=fsdp_axes)
+
+
+def _axes_entry(axes):
+    return axes if isinstance(axes, str) else tuple(axes)
+
+
+def batch_shardings(batch, mesh, *, batch_dim_axes, batch_dim: int = 0):
+    """Every leaf's ``batch_dim`` over ``batch_dim_axes`` where their size
+    divides it (and it is at least that size), else replicated."""
+    size = _axis_size(mesh, batch_dim_axes)
+
+    def spec(leaf):
+        shape = tuple(leaf.shape)
+        s = [None] * len(shape)
+        if (len(shape) > batch_dim and shape[batch_dim] % size == 0
+                and shape[batch_dim] >= size):
+            s[batch_dim] = _axes_entry(batch_dim_axes)
+        return P(*s)
+
+    flat = tree_leaves_with_path(batch, _has_shape)
+    return tree_unflatten(batch, [spec(leaf) for _, leaf in flat],
+                          _has_shape)
+
+
+_STATE_STACKED = ("caches", "groups", "tail", "self_k", "self_v", "cross_k",
+                  "cross_v")
+
+
+def decode_state_shardings(state, mesh, *, data_axes, model_axis="model"):
+    """JAX's decode-state specs: the batch dim (the first after a stacked
+    axis) over ``data_axes`` when divisible, else their split on the
+    longest divisible dim; the model axis on the last divisible dim
+    (``_pick_dim``'s "last"), which for a KV cache is head_dim.  The
+    index and scalars replicate."""
+    dsize = _axis_size(mesh, data_axes)
+    msize = _axis_size(mesh, model_axis)
+    data_name = _axes_entry(data_axes)
+
+    def spec(path, leaf):
+        ps = _path_str(path)
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        if nd == 0 or "index" in ps:
+            return P()
+        stacked = any(k in ps.split("/") for k in _STATE_STACKED)
+        start = 1 if (stacked and nd > 1) else 0
+        s = [None] * nd
+        taken = set()
+        if (nd > start and shape[start] % dsize == 0 and dsize > 1
+                and shape[start] >= dsize):
+            s[start] = data_name
+            taken.add(start)
+        elif dsize > 1:
+            d = _pick_dim(shape, start, dsize, taken, "last")
+            if d is not None:        # the longest divisible dim instead
+                d = max((i for i in range(start, nd)
+                         if i not in taken and shape[i] % dsize == 0
+                         and shape[i] >= dsize), key=lambda i: shape[i])
+                s[d] = data_name
+                taken.add(d)
+        if msize > 1:
+            d = _pick_dim(shape, start, msize, taken, "last")
+            if d is not None:
+                s[d] = model_axis
+                taken.add(d)
+        return P(*s)
+
+    flat = tree_leaves_with_path(state, _has_shape)
+    return tree_unflatten(state, [spec(p, leaf) for p, leaf in flat],
+                          _has_shape)
+
+
 def client_model_specs(tree, mesh, n_clients: int, *,
                        clients_axis: str = "clients",
                        model_axis: str = "model"):
@@ -237,34 +325,47 @@ def model_dim(spec, model_axis: str) -> Optional[int]:
     return None
 
 
-def local_blocks(tree, specs, axis_mesh, *, copy: bool = False):
-    """This rank's blocks of a full-width ``tree`` laid out by ``specs``
-    (parameters, their Δ or an optimizer state) over ``axis_mesh``, the
-    model axis' ``launch.mesh.ClientMesh``: a leaf whose spec names the
-    axis is cut along that dim into ``axis_mesh.size`` equal blocks and
-    keeps the ``axis_mesh.rank``-th (a view; ``copy``: in a storage of its
-    own), the others stay whole."""
+def _entry_names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_blocks(tree, specs, mesh, *, copy: bool = False):
+    """This rank's blocks of a full ``tree`` (parameters, their Δ, an
+    optimizer state, a batch) laid out by ``specs`` over ``mesh``: each
+    dim whose entry names axes is cut into as many equal blocks as they
+    have ranks together and keeps this rank's (its index over them,
+    row-major; ``mesh.axes_mesh``).  ``mesh`` is a ``launch.mesh.FedMesh``
+    or one axis' ``ClientMesh`` (the engine's model axis).  Views, or with
+    ``copy`` the cut leaves in a storage of their own."""
     out = []
     for x, spec in zip(tree_leaves(tree), specs_up_to(tree, specs)):
-        d = model_dim(spec, axis_mesh.axis)
-        if d is not None:
-            n = x.shape[d] // axis_mesh.size
-            x = x.narrow(d, axis_mesh.rank * n, n)
-            if copy:
-                x = x.clone()
-        out.append(x)
+        cut = False
+        for d, entry in enumerate(spec):
+            names = _entry_names(entry)
+            if not names:
+                continue
+            ax = mesh.axes_mesh(names)
+            if ax.size > 1:
+                n = x.shape[d] // ax.size
+                x = x.narrow(d, ax.rank * n, n)
+                cut = True
+        out.append(x.clone() if copy and cut else x)
     return tree_unflatten(tree, out)
 
 
-def gather_full(tree, specs, axis_mesh):
-    """The full-width tree from this rank's blocks (the inverse of
-    :func:`local_blocks`): each leaf whose spec names the axis is
-    all-gathered along that dim over ``axis_mesh`` (exact; every rank of
-    the axis must call it)."""
+def gather_full(tree, specs, mesh):
+    """The full tree from every rank's blocks (the inverse of
+    :func:`local_blocks`): each split dim all-gathered over its axes, the
+    last dims first.  Exact; every rank of the mesh must call it."""
     out = []
     for x, spec in zip(tree_leaves(tree), specs_up_to(tree, specs)):
-        d = model_dim(spec, axis_mesh.axis)
-        out.append(x if d is None else axis_mesh.all_gather(x, dim=d))
+        for d in reversed(range(len(spec))):
+            names = _entry_names(spec[d])
+            if names:
+                x = mesh.axes_mesh(names).all_gather(x, dim=d)
+        out.append(x)
     return tree_unflatten(tree, out)
 
 

@@ -119,15 +119,23 @@ def test_history_and_final_metrics(runs):
 def test_resolve_rejects_unported(override):
     """A spec valid in the JAX package resolves in the port as it does
     there: the (clients, model) mesh (item 11's engine half, ported) and
-    the 1-D mesh.  Its mesh has both axes; what is left of item 11, the
-    production mesh of the step builders, raises naming it."""
-    from repro_torch.launch.mesh import make_fed_mesh, make_production_mesh
+    the 1-D mesh.  Its mesh has both axes.  The production mesh of the
+    step builders is ported and, as JAX's, raises ``ValueError`` naming
+    the ranks it needs on one process; what is left of item 11, the
+    training program over a mesh, raises naming it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import (make_debug_mesh, make_fed_mesh,
+                                         make_production_mesh)
+    from repro_torch.launch.steps import build_train_step
     want = jsim.RunSpec(**override).resolved()
     spec = tsim.RunSpec.from_json(jsim.RunSpec(**override).to_json())
     assert spec.resolved().mesh_shape == want.mesh_shape == (2, 2)
     assert make_fed_mesh((1, 1)).axis_names == ("clients", "model")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="needs 256 ranks"):
         make_production_mesh()
+    with pytest.raises(NotImplementedError, match="item 11"):
+        build_train_step(get_arch("llama3.2-1b"), "train_4k",
+                         make_debug_mesh())
     one_d = jsim.RunSpec(mesh_shape=(2,)).to_json()
     assert tsim.RunSpec.from_json(one_d).resolved().mesh_shape == \
         jsim.RunSpec.from_json(one_d).resolved().mesh_shape == (2,)

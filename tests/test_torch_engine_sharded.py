@@ -197,8 +197,12 @@ def test_two_axis_mesh_raises_naming_item_11(tmp_path):
     """The (clients, model) mesh is ported (item 11's engine half): a 2-D
     spec resolves, a mesh of one rank has both axes and the sweep parses
     ``C,M``; a 2-D mesh of several ranks needs their process group (the
-    runs are ``test_torch_engine_model_axis.py``'s).  What is left of
-    item 11, the step builders' meshes, raises naming it."""
+    runs are ``test_torch_engine_model_axis.py``'s).  The step builders'
+    meshes are ported for serving: on one process the debug mesh is
+    (1, 1) over ("data", "model") and the production meshes raise
+    ``ValueError`` naming the ranks they need, as JAX's do.  What is left
+    of item 11 raises naming it: the training program over a mesh and the
+    families other than the dense one."""
     from repro_torch.launch import mesh as tmesh
     from repro_torch.sim import sweep
     assert tsim.RunSpec(mesh_shape=(2, 2)).resolved().mesh_shape == (2, 2)
@@ -209,8 +213,19 @@ def test_two_axis_mesh_raises_naming_item_11(tmp_path):
         engine_sharded.resolve_client_mesh((1, 2))
     one = engine_sharded.resolve_client_mesh((1, 1))
     assert one.axis_names == ("clients", "model") and one.size == 1
-    for fn in (tmesh.make_production_mesh, tmesh.make_debug_mesh,
-               lambda: tmesh.data_axes(one)):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    debug = tmesh.make_debug_mesh()
+    assert debug.axis_names == ("data", "model") and debug.size == 1
+    assert tmesh.data_axes(debug) == ("data",)
+    assert tmesh.data_axes(one) == ()
+    for multi_pod, n in ((False, 256), (True, 512)):
+        with pytest.raises(ValueError, match=f"needs {n} ranks"):
+            tmesh.make_production_mesh(multi_pod=multi_pod)
+    for fn in (lambda: steps.build_train_step(get_arch("llama3.2-1b"),
+                                              "train_4k", debug),
+               lambda: steps.build_prefill_step(get_arch("mixtral-8x22b"),
+                                                "prefill_32k", debug)):
         with pytest.raises(NotImplementedError, match="item 11"):
             fn()
     assert not list(tmp_path.iterdir())

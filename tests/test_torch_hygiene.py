@@ -46,6 +46,7 @@ SLICE_MODULES = [
     "repro_torch.core.bitmask", "repro_torch.core.blockrng",
     "repro_torch.data.synthetic", "repro_torch.data.pipeline",
     "repro_torch.sharding", "repro_torch.sharding.rules",
+    "repro_torch.sharding.hooks",
     "repro_torch.launch.mesh", "repro_torch.sim.engine_sharded",
     "repro_torch.remat", "repro_torch.models.losses",
     "repro_torch.launch.specs", "repro_torch.tree"]

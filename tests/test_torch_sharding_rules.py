@@ -36,6 +36,8 @@ from repro_torch.optim import make_optimizer as torch_make_optimizer
 from repro_torch.sharding import rules as tr
 from repro_torch.tree import tree_leaves_with_path, tree_unflatten
 
+import torch_dist_workers as workers
+
 try:                      # optional [dev] extra: only the property test
     from hypothesis import given, settings, strategies as st
     HAVE_HYPOTHESIS = True
@@ -242,3 +244,157 @@ if HAVE_HYPOTHESIS:
                 names = axis if isinstance(axis, tuple) else (axis,)
                 assert dim % int(np.prod([tmesh.shape[a]
                                           for a in names])) == 0
+
+
+# ---------------------------------------------------------------------------
+# The serving programs' specs (launch.steps with a mesh)
+# ---------------------------------------------------------------------------
+
+# the five meshes of the step builders: JAX's production meshes and the
+# four-rank ones the port runs
+STEP_MESHES = [{"data": 16, "model": 16}, {"pod": 2, "data": 16, "model": 16},
+               {"data": 2, "model": 2}, {"data": 4, "model": 1},
+               {"data": 1, "model": 4}]
+STEP_DENSE = ["llama3.2-1b", "qwen3-8b", "qwen3-14b", "gemma-7b"]
+
+
+def _fed_mesh(sizes):
+    """The port's FedMesh as a descriptor (rank 0, no process group)."""
+    from repro_torch.launch.mesh import ClientMesh, FedMesh
+    axes = tuple(ClientMesh(axis=n, size=s) for n, s in sizes.items())
+    lead = tuple(sizes)[:-1]
+    merged = ((ClientMesh(axis=lead, size=int(np.prod(
+        [sizes[a] for a in lead]))),) if len(sizes) >= 3 else ())
+    return FedMesh(axes=axes, merged=merged)
+
+
+@pytest.fixture
+def jax_specs(monkeypatch):
+    """JAX's sharding functions return the specs their NamedShardings
+    would hold (the stand-in meshes have no devices)."""
+    import repro.launch.steps as jsteps
+    for mod in (jr, jsteps):
+        monkeypatch.setattr(mod, "NamedSharding", lambda mesh, spec: spec)
+    yield jsteps
+    from repro.sharding import hooks as jhooks
+    jhooks.clear()
+
+
+def _flat_specs(specs):
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        specs, is_leaf=lambda x: isinstance(x, (JP, tuple)))
+    return [(jr._path_str(p), tuple(s)) for p, s in flat]
+
+
+def _flat_torch_specs(tree, specs):
+    return [(tr._path_str(p), s) for (p, _), s in zip(
+        tree_leaves_with_path(tree, _has_shape), tr.specs_up_to(tree, specs))]
+
+
+@pytest.mark.parametrize("sizes", STEP_MESHES,
+                         ids=lambda s: "x".join(map(str, s.values())))
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_serving_specs_of_every_arch_equal_jax(arch, sizes, trees,
+                                               jax_specs):
+    """``param_shardings`` (with and without the data axes as FSDP axes),
+    ``batch_shardings`` (dim 0 of the prefill batch, dim 2 of the
+    cohort's) and ``decode_state_shardings`` at the arch's full config,
+    from the shapes alone; ``data_axes`` of each mesh."""
+    from repro.launch import mesh as jmesh_mod
+    from repro.launch import specs as jspecs
+    from repro_torch.launch import mesh as tmesh_mod
+    from repro_torch.launch import specs as tspecs
+    jmesh, tmesh = _Mesh(sizes), _fed_mesh(sizes)
+    daxes = tmesh_mod.data_axes(tmesh)
+    assert daxes == jmesh_mod.data_axes(jmesh)
+    jtree, ttree = trees[arch]
+    for fsdp in (None, daxes):
+        want = _flat_specs(jr.param_shardings(jtree, jmesh, fsdp_axes=fsdp))
+        got = _flat_torch_specs(ttree, tr.param_shardings(
+            ttree, tmesh, fsdp_axes=fsdp))
+        assert got == want, (arch, sizes, fsdp)
+    jarch, tarch = jax_get_arch(arch), torch_get_arch(arch)
+    for shape, dim, jfn, tfn in (
+            ("prefill_32k", 0, jspecs.prefill_batch_specs,
+             tspecs.prefill_batch_specs),
+            ("train_4k", 2, jspecs.cohort_batch_specs,
+             tspecs.cohort_batch_specs)):
+        jb, tb = jfn(jarch, shape), tfn(tarch, shape)
+        want = _flat_specs(jr.batch_shardings(jb, jmesh,
+                                              batch_dim_axes=daxes,
+                                              batch_dim=dim))
+        got = _flat_torch_specs(tb, tr.batch_shardings(
+            tb, tmesh, batch_dim_axes=daxes, batch_dim=dim))
+        assert got == want, (arch, sizes, shape)
+    for shape in ("decode_32k", "long_500k"):
+        if jarch.model_for_shape(shape) is None:
+            continue
+        js = jspecs.decode_state_specs(jarch, shape)
+        ts = tspecs.decode_state_specs(tarch, shape)
+        want = _flat_specs(jr.decode_state_shardings(js, jmesh,
+                                                     data_axes=daxes))
+        got = _flat_torch_specs(ts, tr.decode_state_shardings(
+            ts, tmesh, data_axes=daxes))
+        assert got == want, (arch, sizes, shape)
+
+
+@pytest.mark.parametrize("sizes", STEP_MESHES,
+                         ids=lambda s: "x".join(map(str, s.values())))
+def test_mesh_step_specs_equal_jax_builders(sizes, jax_specs):
+    """The dense archs' ``MeshStep`` at prefill_32k, decode_32k and
+    long_500k: the parameters', the batch's, the token's and the logits'
+    specs are those of JAX's builders' shardings, and the hook mapping
+    JAX's ``_configure_hooks`` on the axes the port's layers read
+    (``heads``, ``kv_heads``, ``tensor``; the port adds ``vocab``).  The decode
+    state is held by kv heads where JAX's puts the model axis on
+    head_dim: the port's ``decode_state_shardings`` is JAX's, its
+    program's own layout departs from it there."""
+    from repro.sharding import hooks as jhooks
+    from repro_torch.launch import steps as tsteps
+    jsteps = jax_specs
+    jmesh, tmesh = _Mesh(sizes), _fed_mesh(sizes)
+    m = sizes["model"]
+    for arch in STEP_DENSE:
+        jarch, tarch = jax_get_arch(arch), torch_get_arch(arch)
+        cfg = tarch.model
+        _, _, (jp, jb), jout = jsteps.build_prefill_step(
+            jarch, "prefill_32k", jmesh)
+        jmap = dict(jhooks._STATE["axes"])
+        step = tsteps.build_prefill_step(tarch, "prefill_32k", tmesh)
+        _, targs, (tp, tb), tout = step
+        assert _flat_torch_specs(targs[0], tp) == _flat_specs(jp)
+        assert _flat_torch_specs(targs[1], tb) == _flat_specs(jb)
+        assert tout == tuple(jout)
+        assert {k: v for k, v in step.mapping.items() if k != "vocab"} \
+            == {k: jmap[k] for k in ("heads", "kv_heads", "tensor")}
+        assert step.mapping["vocab"] == ("model" if cfg.vocab % m == 0
+                                         else None)
+        for shape in ("decode_32k", "long_500k"):
+            _, _, (jp, jst, jtok), (jlog, _) = jsteps.build_decode_step(
+                jarch, shape, jmesh)
+            step = tsteps.build_decode_step(tarch, shape, tmesh)
+            _, targs, (tp, tst, ttok), (tlog, _) = step
+            assert _flat_torch_specs(targs[0], tp) == _flat_specs(jp)
+            assert ttok == tuple(jtok) and tlog == tuple(jlog)
+            jmap = jhooks._STATE["axes"]
+            assert {k: v for k, v in step.mapping.items()
+                    if k != "vocab"} == {k: jmap[k] for k in
+                                         ("heads", "kv_heads", "tensor")}
+            held = dict(_flat_torch_specs(targs[1], tst))
+            jax_held = dict(_flat_specs(jst))
+            assert held["index"] == jax_held["index"] == ()
+            kv = "model" if cfg.n_kv_heads % m == 0 and m > 1 else None
+            for k in ("caches/k", "caches/v"):
+                assert held[k][:2] == jax_held[k][:2]     # batch over data
+                assert held[k][3] == kv                    # by kv heads
+                assert held[k][4] is None
+                if m > 1:
+                    assert jax_held[k][4] == "model"       # JAX: head_dim
+            local = dict((tr._path_str(p), s) for p, s in
+                         tree_leaves_with_path(workers.local_shapes(
+                             targs[1], tst, tmesh), _has_shape))
+            L, Bg, M, KV, hd = targs[1]["caches"]["k"].shape
+            d = int(np.prod([sizes[a] for a in sizes if a != "model"]))
+            assert local["caches/k"].shape == (
+                L, Bg // d if Bg % d == 0 else Bg, M,
+                KV // m if kv else KV, hd)

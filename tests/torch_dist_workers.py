@@ -185,3 +185,98 @@ def model_axis_runs(mesh, runs, blocks=None):
                              (c.rank + 1) % 2)
             out["exchange"] = int(got)
     return out
+
+
+def _smoke_arch(arch_id: str):
+    import dataclasses
+    from repro_torch.configs import get_arch
+    spec = get_arch(arch_id)
+    return dataclasses.replace(spec, model=spec.smoke_model)
+
+
+def local_shapes(shapes, specs, mesh):
+    """A rank's shapes of the global ``shapes`` (a tree of
+    ``launch.specs.ShapeDtype``) laid out by ``specs`` over ``mesh``:
+    each dim whose entry names axes divided by their ranks together."""
+    from repro_torch.launch.specs import ShapeDtype, is_shape
+    from repro_torch.sharding.rules import specs_up_to
+    from repro_torch.tree import tree_leaves_with_path, tree_unflatten
+
+    def one(s, spec):
+        shape = list(s.shape)
+        for d, entry in enumerate(spec):
+            if entry is not None:
+                shape[d] //= mesh.axes_mesh(entry).size
+        return ShapeDtype(tuple(shape), s.dtype)
+
+    leaves = [x for _, x in tree_leaves_with_path(shapes, is_shape)]
+    return tree_unflatten(shapes, [one(s, spec) for s, spec in zip(
+        leaves, specs_up_to(shapes, specs))], is_shape)
+
+
+def mesh_serve(mesh, cases):
+    """The serving programs over a (data, model) mesh on each case (an
+    arch's smoke config, the full parameters and the inputs in numpy):
+    ``build_prefill_step(arch, "prefill_32k", mesh)`` on ``tokens``
+    (its blocks carved by ``MeshStep.shard``), then
+    ``build_decode_step(arch, "decode_32k", mesh)`` from a zero state,
+    teacher-forced over ``prompt`` and greedy (``MeshStep.greedy``, the
+    rank's rows fed back) for ``greedy`` more steps.  Every rank returns
+    the gathered logits and tokens, its blocks' shapes against the
+    step's specs (:func:`local_shapes`), its stored parameter elements,
+    and whether the
+    hooks were left configured."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch.specs import ShapeDtype
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.sharding import hooks
+    from repro_torch.sharding.rules import gather_full, local_blocks
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
+
+    out = []
+    for c in cases:
+        arch = _smoke_arch(c["arch"])
+        params = params_from_numpy(c["params"], device="cpu")
+        tokens = torch.from_numpy(c["tokens"])
+        B = tokens.shape[0]
+        pre = build_prefill_step(arch, "prefill_32k", mesh)
+        p_loc, b_loc = pre.shard((params, {"tokens": tokens}), B)
+        local = [tuple(x.shape) for x in tree_leaves(p_loc)]
+        want = [tuple(s.shape) for _, s in tree_leaves_with_path(
+            local_shapes(pre.args[0], pre.in_specs[0], mesh),
+            lambda x: isinstance(x, ShapeDtype))]
+        logits = pre.gather(pre.fn(p_loc, b_loc), B)
+        dec = build_decode_step(arch, "decode_32k", mesh)
+        (_, _, tok_spec), _ = dec.specs(B)
+        state = dec.init_state(B, c["max_len"], "cpu")
+        prompt = torch.from_numpy(c["prompt"])
+        steps, toks = [], []
+        tok = local_blocks(prompt[:, :1], tok_spec, mesh)
+        n = prompt.shape[1] + c["greedy"]
+        for t in range(n):
+            lg, state = dec.fn(p_loc, state, tok)
+            steps.append(dec.gather(lg, B).numpy())
+            g = dec.greedy(lg)
+            toks.append(gather_full(g, tok_spec, mesh).numpy())
+            tok = (local_blocks(prompt[:, t + 1:t + 2], tok_spec, mesh)
+                   if t + 1 < prompt.shape[1] else g)
+        cache = state["caches"]["k"]
+        out.append(dict(prefill=logits.numpy(), decode=np.stack(steps),
+                        greedy=np.concatenate(toks, axis=1),
+                        local_shapes=local, want_shapes=want,
+                        cache_shape=tuple(cache.shape),
+                        state_index=int(state["index"]),
+                        stored=sum(x.numel() for x in tree_leaves(p_loc)),
+                        hooks_left=hooks.current_mesh() is not None,
+                        mapping=dec.mapping))
+    return out
+
+
+def mesh_serve_pod(world, shape, cases):
+    """:func:`mesh_serve` over a (pod, data, model) mesh of ``shape``
+    built over the spawned group (``world``, its 1-D mesh); every rank
+    also returns its index over (pod, data) together."""
+    from repro_torch.launch.mesh import _grid_mesh
+    mesh = _grid_mesh(tuple(shape), ("pod", "data", "model"))
+    return [dict(run, data_index=mesh.axes_mesh(("pod", "data")).rank)
+            for run in mesh_serve(mesh, cases)]
